@@ -1,0 +1,108 @@
+"""Instance-query attention decoder, eval (port of
+``maggie_tpu/models/instance_decoder.py``; reference
+``module/instance_matte_decoder.py``).
+
+Learnable instance tokens and a shared ID-embedding table painted onto both the
+tokens and the feature-map positions, ``n_block`` rounds of (token<-feat
+cross-attention, FFN, token self-attention, feat<-token cross-attention), a final
+token<-feat cross-attention, and the token-feature product that gives one matte
+logit map per instance slot.
+
+This slice runs the flagship setting: ``atten_stride`` 1, no temporal
+positional embedding, no memory hook. Training-time attention supervision comes
+with the training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from .attention import CrossAttentionLayer, FFNLayer, SelfAttentionLayer
+from .layers import MLP, BatchNorm, Conv2d, Embedding, LayerNorm
+from ..ops.resize import avg_pool2d
+
+
+class InstanceMatteDecoder(nn.Module):
+    def __init__(self, input_dim: int = 256, attention_dim: int = 256, n_block: int = 2,
+                 n_head: int = 4, output_dim: int = 32, max_inst: int = 10,
+                 use_id_pe: bool = True):
+        super().__init__()
+        self.attention_dim, self.n_block, self.max_inst = attention_dim, n_block, max_inst
+        self.use_id_pe = use_id_pe
+        self.feat_proj = MLP(input_dim, attention_dim, attention_dim, 1)
+        self.query_feat = Embedding(max_inst, attention_dim)
+        self.id_embedding = Embedding(max_inst + 1, attention_dim)
+        self.token_feat_ca_layers = nn.ModuleList(
+            CrossAttentionLayer(attention_dim, n_head) for _ in range(n_block))
+        self.mlp_layers = nn.ModuleList(
+            FFNLayer(attention_dim, attention_dim) for _ in range(n_block))
+        self.sa_layers = nn.ModuleList(
+            SelfAttentionLayer(attention_dim, n_head) for _ in range(n_block))
+        self.feat_token_ca_layers = nn.ModuleList(
+            CrossAttentionLayer(attention_dim, n_head) for _ in range(n_block))
+        self.final_token_feat_ca = CrossAttentionLayer(attention_dim, n_head)
+        self.final_mlp = MLP(attention_dim, attention_dim, output_dim, 1)
+        self.decoder_norm = LayerNorm(output_dim)
+        # one conv stack shared by both applications (reference self.conv, :81-88)
+        self.conv = nn.Sequential(
+            Conv2d(attention_dim, attention_dim, 3, padding=1, bias=False),
+            BatchNorm(attention_dim), nn.LeakyReLU(0.2),
+            Conv2d(attention_dim, output_dim, 1, bias=False),
+            BatchNorm(output_dim), nn.LeakyReLU(0.2))
+
+    def forward(self, feat: torch.Tensor, mask: torch.Tensor):
+        """feat (b*n_f, C, h, w); mask (b, n_f, n_i, H, W) guidance masks.
+
+        Returns (logits (b*n_f, max_inst, h, w) f32, smoothed features
+        (b*n_f, output_dim, h, w), tokens (b, max_inst, output_dim) f32)."""
+        dt = feat.dtype
+        b, n_f = mask.shape[:2]
+        h, w = feat.shape[2], feat.shape[3]
+        c = self.attention_dim
+        if w < mask.shape[-1]:
+            # binary-preserving downsample: avg-pool then > 0 (resizeAnyShape)
+            mask = (avg_pool2d(mask.float(), int(round(mask.shape[-1] / w))) > 0).to(mask.dtype)
+
+        # paint instance IDs onto the feature map: max over instances of mask*id
+        n_i_in = mask.shape[2]
+        ids = torch.arange(1, n_i_in + 1, dtype=mask.dtype, device=mask.device)
+        id_map = (mask * ids[None, None, :, None, None]).amax(dim=2).long()  # (b, n_f, h, w)
+        id_table = self.id_embedding.weight
+        # sequence layout (h*w*n_f, b, c) with the frame index fastest
+        fp = id_table[id_map].permute(2, 3, 1, 0, 4).reshape(h * w * n_f, b, c).to(dt)
+        tokens = self.query_feat.weight.to(dt)[:, None].expand(-1, b, -1)   # (n_i, b, c)
+        token_pos = id_table[1:self.max_inst + 1].to(dt)[:, None].expand(-1, b, -1)
+
+        feat_seq = feat.reshape(b, n_f, feat.shape[1], h * w).permute(3, 1, 0, 2)
+        feat_seq = self.feat_proj(feat_seq.reshape(h * w * n_f, b, feat.shape[1]))
+
+        # token padding: instances with an empty input mask leave self-attention
+        valid = mask.sum(dim=(1, 3, 4)) > 0                              # (b, n_i_in)
+        if valid.shape[1] < self.max_inst:
+            valid = torch.cat([valid, valid.new_zeros(b, self.max_inst - valid.shape[1])], 1)
+        token_padding_mask = ~valid
+
+        fp_or_none = fp if self.use_id_pe else None
+        tp_or_none = token_pos if self.use_id_pe else None
+        for i in range(self.n_block):
+            tokens, _ = self.token_feat_ca_layers[i](tokens, feat_seq, pos=fp_or_none,
+                                                     query_pos=tp_or_none)
+            tokens = self.mlp_layers[i](tokens)
+            tokens = self.sa_layers[i](tokens, tgt_key_padding_mask=token_padding_mask,
+                                       query_pos=token_pos)
+            feat_seq, _ = self.feat_token_ca_layers[i](
+                feat_seq, tokens, memory_key_padding_mask=token_padding_mask,
+                pos=tp_or_none, query_pos=fp_or_none)
+        tokens, _ = self.final_token_feat_ca(tokens, feat_seq, pos=fp, query_pos=token_pos)
+
+        # (h*w*n_f, b, c) -> (b*n_f, c, h, w)
+        fm = feat_seq.reshape(h, w, n_f, b, c).permute(3, 2, 4, 0, 1).reshape(b * n_f, c, h, w)
+        fm_out = self.conv(fm)
+
+        tk = self.final_mlp(tokens).permute(1, 0, 2)                     # (b, n_i, c_out)
+        tk = self.decoder_norm(tk.float())                               # f32 (flax LayerNorm)
+        fm5 = fm_out.reshape(b, n_f, fm_out.shape[1], h, w)
+        # f32 product of the compute-dtype operands (maggie_tpu instance_decoder.py:240-241)
+        out = torch.einsum("bqc,btchw->btqhw", tk.to(dt).float(), fm5.float())
+        return out.reshape(b * n_f, self.max_inst, h, w), fm_out, tk

@@ -1,0 +1,83 @@
+"""The port's CUDA kernels against their plain twins, on an NVIDIA GPU.
+
+Marked ``cuda``; without a card each test skips. This file imports neither
+JAX nor ``maggie_tpu``, so it also runs on a GPU host without them:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Both kernels are copies or 0/1 maps: they must equal their twins exactly.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _indices(rs, n, nby, nbx, cap, n_i):
+    """Every corner block first, then random ones; // n_i repeats tiles."""
+    corners = [(0, 0), (0, nbx - 1), (nby - 1, 0), (nby - 1, nbx - 1)]
+    by = np.array([c[0] for c in corners] + list(rs.randint(0, nby, cap)))[:cap]
+    bx = np.array([c[1] for c in corners] + list(rs.randint(0, nbx, cap)))[:cap]
+    inst = rs.randint(0, n * n_i, cap)
+    return [torch.from_numpy(a.astype(np.int64)) for a in (inst // n_i, by, bx)]
+
+
+@pytest.mark.parametrize("c,block,halo,dtype", [
+    (1, 64, 32, torch.float32), (6, 64, 5, torch.float32), (32, 32, 2, torch.float32),
+    (64, 8, 3, torch.bfloat16), (64, 16, 4, torch.bfloat16), (3, 16, 20, torch.float32)])
+def test_gather_kernel_equals_twin(card, c, block, halo, dtype):
+    rs = np.random.RandomState(c + block)
+    n, h, w = 3, 9 * block, 16 * block
+    feat = torch.randn(n, h, w, c, generator=torch.Generator().manual_seed(c)).to(card, dtype)
+    idx = [t.to(card) for t in _indices(rs, 1, 9, 16, 216, 3)]
+    before = kg.launches
+    out = kg.gather_patches(feat, *idx, block, halo)
+    assert kg.launches == before + 1
+    ref = kg.gather_patches_plain(feat, *idx, block, halo)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and torch.equal(out, ref)
+
+
+def test_gather_kernel_rejects_what_it_does_not_take(card):
+    feat = torch.zeros(1, 64, 64, 4, device=card)
+    idx = torch.zeros(2, dtype=torch.int64, device=card)
+    with pytest.raises(TypeError):
+        kg.gather_patches(feat.half(), idx, idx, idx, 16, 2)
+    with pytest.raises(ValueError):
+        kg.gather_patches(feat.permute(0, 2, 1, 3), idx, idx, idx, 16, 2)
+    with pytest.raises(ValueError):
+        kg.gather_patches(feat, idx.int(), idx, idx, 16, 2)
+
+
+@pytest.mark.parametrize("k_size", [30, 27, 15, 7, 2])
+def test_compute_unknown_kernel_equals_twin(card, k_size):
+    rs = np.random.RandomState(k_size)
+    a = (rs.rand(2, 3, 300, 530) > 0.5).astype(np.float32)        # ragged tile edges
+    speckle = rs.rand(*a.shape) < 0.004
+    a[speckle] = rs.rand(int(speckle.sum()))
+    a[0, 0, 0, :] = np.float32(1 / 255)                           # on the thresholds
+    a[0, 1, :, 0] = np.float32(254 / 255)
+    ta = torch.from_numpy(a).to(card)
+    before = ku.launches
+    out = ku.compute_unknown(ta, k_size)
+    assert ku.launches == before + 1
+    ref = ku.compute_unknown_plain(ta, k_size)
+    torch.cuda.synchronize()
+    assert 0.0 < float(ref.mean()) < 1.0
+    assert torch.equal(out, ref)
+
+
+def test_compute_unknown_kernel_rejects_other_dtypes(card):
+    with pytest.raises(TypeError):
+        ku.compute_unknown(torch.zeros(1, 8, 8, device=card, dtype=torch.bfloat16), 15)
