@@ -5,8 +5,8 @@
 Phases (any failure exits non-zero):
 1. print the card's name and power limit; build the CUDA kernels from the
    sources in this checkout (one nvcc per source, in parallel);
-2. hold each kernel against its plain PyTorch twin on the card, at every shape
-   and dtype the main path gives it (exact equality);
+2. hold each kernel against its plain PyTorch twin on the card, at every shape,
+   memory layout and dtype the main path gives it (exact equality);
 3. build the flagship MaGGIe image model at full width (atten_dim 128,
    final_channel 64, num_mask 10, max_inst 10, num_embed 3) with seeded random
    weights, spectral norm converged then folded; answer 8 requests (576x1024,
@@ -17,8 +17,10 @@ Phases (any failure exits non-zero):
    included), hold the bf16 output against the f32 one, split each frame into
    its stages (CUDA events from forward hooks) and sum its kernels' device time
    (torch.profiler); time each kernel beside its plain twin, a library
-   yardstick and its memory bound (device time from CUDA-graph replay; eager
-   times with host cost go to the details file).
+   yardstick and its memory bound, in f32 and bf16 (device time from
+   CUDA-graph replay; eager times with host cost go to the details file), and
+   the NCHW->NHWC copies of the gathered encoder maps that the ladder no
+   longer makes, as a yardstick.
 
 Prints a ``{"kernels": [...]}`` line and the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to output/torch_port/chip_smoke.json.
@@ -42,13 +44,15 @@ N_REQUESTS = 8
 SPLIT_FRAMES = 10             # frames per stage split and per profiled window
 CAP = 216                     # round(0.5 * 3 instances * 9 * 16 blocks)
 # Main-path K1 calls per frame (decoder_sparse.py predict_details_block):
-# (name, map shape (N, H, W, C) at 576x1024, block, halo, per-image index?)
+# (name, map shape (N, H, W, C) at 576x1024, block, halo, per-image index?,
+# memory layout). "pixel": contiguous NHWC; "plane": the NHWC view of the
+# encoder's contiguous NCHW tensor, which the kernel reads without a copy.
 GATHER_CALLS = (
-    ("os1_mask", (3, 576, 1024, 1), 64, 32, False),
-    ("x8", (3, 72, 128, 64), 8, 3, False),
-    ("fea3", (1, 144, 256, 64), 16, 4, True),
-    ("fea2", (1, 288, 512, 32), 32, 2, True),
-    ("sc0_input", (1, 576, 1024, 6), 64, 5, True),
+    ("os1_mask", (3, 576, 1024, 1), 64, 32, False, "pixel"),
+    ("x8", (3, 72, 128, 64), 8, 3, False, "pixel"),
+    ("fea3", (1, 144, 256, 64), 16, 4, True, "plane"),
+    ("fea2", (1, 288, 512, 32), 32, 2, True, "plane"),
+    ("sc0_input", (1, 576, 1024, 6), 64, 5, True, "plane"),
 )
 UNKNOWN_K = (30, 27, 15)
 # refined_masks GPU (cuDNN/cuBLAS f32, TF32 off) vs CPU (plain twins): the two
@@ -126,6 +130,23 @@ def sample_indices(shape, block, per_image, dev, rs):
     return [torch.from_numpy(a.astype(np.int64)).to(dev) for a in (idx_n, by, bx)]
 
 
+def gather_map(shape, layout, dtype, dev, seed=None) -> torch.Tensor:
+    """A map (N, H, W, C) in the memory layout the main path hands the kernel:
+    random normal from ``seed``, else uniform on the card."""
+    n, h, w, c = shape
+    if seed is None:
+        x = torch.rand((n, c, h, w), device=dev)
+    else:
+        x = torch.randn((n, c, h, w), generator=torch.Generator().manual_seed(seed)).to(dev)
+    x = x.to(dtype).permute(0, 2, 3, 1)
+    return x.contiguous() if layout == "pixel" else x
+
+
+def gather_dtypes(shape):
+    """The C=1 os1 mask is f32 in both forwards; the features follow the model."""
+    return (torch.float32,) if shape[-1] == 1 else (torch.float32, torch.bfloat16)
+
+
 def touched_bytes(shape, idx_n, idx_by, idx_bx, block, halo, esize) -> int:
     """Distinct in-map input elements the windows cover (what must be read)."""
     n, h, w, c = shape
@@ -143,12 +164,10 @@ def phase_kernels(dev, detail) -> dict:
     rs = np.random.RandomState(7)
     out = {"gather": [], "unknown": []}
     worst = {"gather": 0.0, "unknown": 0.0}
-    for name, shape, block, halo, per_image in GATHER_CALLS:
+    for name, shape, block, halo, per_image, layout in GATHER_CALLS:
         idx = sample_indices(shape, block, per_image, dev, rs)
-        dtypes = (torch.float32,) if shape[-1] == 1 else (torch.float32, torch.bfloat16)
-        for dt in dtypes:
-            feat = torch.randn(shape, generator=torch.Generator().manual_seed(len(out["gather"])))
-            feat = feat.to(dev, dt)
+        for dt in gather_dtypes(shape):
+            feat = gather_map(shape, layout, dt, dev, seed=len(out["gather"]))
             got = kg.gather_patches(feat, *idx, block, halo)
             ref = kg.gather_patches_plain(feat, *idx, block, halo)
             torch.cuda.synchronize()
@@ -157,7 +176,7 @@ def phase_kernels(dev, detail) -> dict:
                 fail(f"gather {name} {dt}: kernel != plain twin (max |diff| {err})")
             worst["gather"] = max(worst["gather"], err)
             out["gather"].append({"call": name, "dtype": str(dt), "shape": list(shape),
-                                  "out": list(got.shape), "equal": True})
+                                  "layout": layout, "out": list(got.shape), "equal": True})
     for k in UNKNOWN_K:
         for seed in range(2):
             rr = np.random.RandomState(seed)
@@ -306,6 +325,14 @@ def main() -> int:
               flush=True)
 
     kernels = time_kernels(dev, worst, launches, detail)
+    g = detail["kernel_times_per_frame"]["gather_patches"]
+    for frame in ("fp32", "bf16"):
+        print(f"  gather_patches {frame} per frame: kernel {g[frame]['ms'] * 1e3:.2f} us, "
+              f"bound {g[frame]['bound_ms'] * 1e3:.2f} us; removed layout copies "
+              f"{g['removed_layout_copies'][frame + '_ms'] * 1e3:.2f} us", flush=True)
+    for row in g["calls"]:
+        print(f"    {row['call']} {row['dtype']} {row['layout']}: kernel "
+              f"{row['ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1)
@@ -373,28 +400,51 @@ def time_kernels(dev, worst, launches, detail) -> list:
     """Per-frame kernel, plain-twin and yardstick times at the main-path shapes."""
     from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
     rs = np.random.RandomState(11)
-    g = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "calls": []}
-    for name, shape, block, halo, per_image in GATHER_CALLS:
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    g = {"calls": [], "fp32": dict.fromkeys(keys, 0.0), "bf16": dict.fromkeys(keys, 0.0)}
+    for name, shape, block, halo, per_image, layout in GATHER_CALLS:
         idx = sample_indices(shape, block, per_image, dev, rs)
-        feat = torch.rand(shape, device=dev)
         size = block + 2 * halo
-        padded = torch.nn.functional.pad(feat, (0, 0, halo, halo, halo, halo))
         ar = torch.arange(size, device=dev)
         ys = (idx[1] * block)[:, None] + ar
         xs = (idx[2] * block)[:, None] + ar
         ii = (idx[0][:, None, None], ys[:, :, None], xs[:, None, :])
-        kern = lambda: kg.gather_patches(feat, *idx, block, halo)
-        plain = lambda: kg.gather_patches_plain(feat, *idx, block, halo)
-        row = {"call": name, "ms": graph_ms(kern), "plain_ms": graph_ms(plain),
-               "library_ms": graph_ms(lambda: padded[ii]),
-               "eager_ms": cuda_ms(kern), "eager_plain_ms": cuda_ms(plain)}
-        out_bytes = CAP * size * size * shape[-1] * 4
-        in_bytes = touched_bytes(shape, *idx, block, halo, 4)
-        row["bytes"] = out_bytes + in_bytes + 3 * CAP * 8
-        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
-        g["calls"].append(row)
-        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
-            g[k] += row[k]
+        rows = {}
+        for dt in gather_dtypes(shape):
+            feat = gather_map(shape, layout, dt, dev)
+            padded = torch.nn.functional.pad(feat, (0, 0, halo, halo, halo, halo))
+            kern = lambda: kg.gather_patches(feat, *idx, block, halo)
+            plain = lambda: kg.gather_patches_plain(feat, *idx, block, halo)
+            row = {"call": name, "dtype": str(dt), "layout": layout,
+                   "ms": graph_ms(kern), "plain_ms": graph_ms(plain),
+                   "library_ms": graph_ms(lambda: padded[ii]),
+                   "eager_ms": cuda_ms(kern), "eager_plain_ms": cuda_ms(plain)}
+            esize = feat.element_size()
+            out_bytes = CAP * size * size * shape[-1] * esize
+            in_bytes = touched_bytes(shape, *idx, block, halo, esize)
+            row["bytes"] = out_bytes + in_bytes + 3 * CAP * 8
+            row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+            g["calls"].append(row)
+            rows[dt] = row
+        # the bf16 forward gathers its features in bf16 and the os1 mask in f32
+        for frame, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            row = rows.get(dt, rows[torch.float32])
+            for k in keys:
+                g[frame][k] += row[k]
+    # yardstick: the NCHW -> NHWC copies that the ladder made before each
+    # plane-major gather until the kernel read NCHW itself
+    copies = {"fp32_ms": 0.0, "bf16_ms": 0.0, "calls": []}
+    for name, shape, _, _, _, layout in GATHER_CALLS:
+        if layout != "plane":
+            continue
+        for frame, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            view = gather_map(shape, "plane", dt, dev)
+            row = {"call": name, "dtype": str(dt), "ms": graph_ms(lambda: view.contiguous()),
+                   "bytes": 2 * view.numel() * view.element_size()}
+            row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+            copies["calls"].append(row)
+            copies[f"{frame}_ms"] += row["ms"]
+    g["removed_layout_copies"] = copies
     u = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "calls": []}
     a = torch.rand((1, N_INST, H, W), device=dev)
     for k in UNKNOWN_K:
@@ -415,8 +465,10 @@ def time_kernels(dev, worst, launches, detail) -> list:
          "launches": launches["gather_patches"],
          "launches_per_frame": launches["gather_patches"] // N_REQUESTS,
          "max_abs_err": worst["gather"],
-         "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
-         "bound_by": "bytes", "library_ms": g["library_ms"]},
+         "ms": g["fp32"]["ms"], "plain_ms": g["fp32"]["plain_ms"],
+         "bound_ms": g["fp32"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": g["fp32"]["library_ms"],
+         "bf16_ms": g["bf16"]["ms"], "bf16_bound_ms": g["bf16"]["bound_ms"]},
         {"name": "compute_unknown", "route": "cuda",
          "source": "maggie_tpu_torch/ops/kernels/csrc/compute_unknown.cu",
          "replaces": "maggie_tpu/ops/pallas/unknown.py:121",

@@ -37,9 +37,9 @@ SENTINEL = -99.0
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
-    """NCHW -> contiguous NHWC, the gather kernel's layout (free when ``x`` is
-    already channels_last)."""
-    return x.permute(0, 2, 3, 1).contiguous()
+    """NCHW -> the (N, H, W, C) view of the same memory, no copy: the gather
+    kernel reads the encoder's NCHW planes as they are."""
+    return x.permute(0, 2, 3, 1)
 
 
 def _nchw(p: torch.Tensor) -> torch.Tensor:

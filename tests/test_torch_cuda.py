@@ -49,6 +49,55 @@ def test_gather_kernel_equals_twin(card, c, block, halo, dtype):
     assert out.dtype == dtype and torch.equal(out, ref)
 
 
+# The ladder's five K1 calls at 576x1024 (map shape (N, H, W, C), block, halo)
+# in the layout the ladder hands each: x8 and the C=1 mask pixel-major, fea3,
+# fea2 and the lazy-os1 input plane-major (the NHWC view of NCHW memory).
+MAIN_PATH_GATHERS = [((3, 576, 1024, 1), 64, 32), ((3, 72, 128, 64), 8, 3),
+                     ((1, 144, 256, 64), 16, 4), ((1, 288, 512, 32), 32, 2),
+                     ((1, 576, 1024, 6), 64, 5)]
+
+
+def _map(shape, layout, dtype, card, seed=0):
+    n, h, w, c = shape
+    x = torch.randn(n, c, h, w, generator=torch.Generator().manual_seed(seed)).to(card, dtype)
+    x = x.permute(0, 2, 3, 1)
+    return x.contiguous() if layout == "pixel" else x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["pixel", "plane"])
+@pytest.mark.parametrize("shape,block,halo", MAIN_PATH_GATHERS)
+def test_gather_kernel_main_path_layouts_equal_twin(card, shape, block, halo, layout, dtype):
+    feat = _map(shape, layout, dtype, card, seed=block)
+    assert feat.is_contiguous() == (layout == "pixel" or shape[-1] == 1)
+    idx = [t.to(card) for t in _indices(np.random.RandomState(halo), 1, 9, 16, 216, 3)]
+    if shape[0] == 3:
+        idx[0] = idx[0] * 3 + torch.arange(216, device=card) % 3   # per-instance maps
+    before = kg.launches
+    out = kg.gather_patches(feat, *idx, block, halo)
+    assert kg.launches == before + 1
+    ref = kg.gather_patches_plain(feat, *idx, block, halo)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.is_contiguous() and torch.equal(out, ref)
+
+
+# Plane-major maps whose rows are not 16-byte aligned (bf16 W=1020: 8 bytes
+# off; W=1019: 2 bytes), a start address 4 bytes off, and halo > block
+@pytest.mark.parametrize("c,block,halo,w,dtype,shift", [
+    (6, 64, 5, 1020, torch.bfloat16, 0), (6, 64, 5, 1019, torch.bfloat16, 0),
+    (6, 64, 5, 1024, torch.float32, 1), (3, 16, 20, 256, torch.float32, 0),
+    (32, 8, 11, 128, torch.bfloat16, 0), (64, 16, 4, 250, torch.float32, 0)])
+def test_gather_kernel_plane_major_ragged_equal_twin(card, c, block, halo, w, dtype, shift):
+    h = 9 * block
+    flat = torch.randn(c * h * w + shift, generator=torch.Generator().manual_seed(c))
+    x = flat.to(card, dtype)[shift:].view(1, c, h, w).permute(0, 2, 3, 1)
+    idx = [t.to(card) for t in _indices(np.random.RandomState(w), 1, 9, w // block, 216, 3)]
+    out = kg.gather_patches(x, *idx, block, halo)
+    ref = kg.gather_patches_plain(x, *idx, block, halo)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
 def test_gather_kernel_rejects_what_it_does_not_take(card):
     feat = torch.zeros(1, 64, 64, 4, device=card)
     idx = torch.zeros(2, dtype=torch.int64, device=card)
@@ -56,6 +105,8 @@ def test_gather_kernel_rejects_what_it_does_not_take(card):
         kg.gather_patches(feat.half(), idx, idx, idx, 16, 2)
     with pytest.raises(ValueError):
         kg.gather_patches(feat.permute(0, 2, 1, 3), idx, idx, idx, 16, 2)
+    with pytest.raises(ValueError):
+        kg.gather_patches(feat[:, ::2], idx, idx, idx, 16, 2)
     with pytest.raises(ValueError):
         kg.gather_patches(feat, idx.int(), idx, idx, 16, 2)
 

@@ -6,6 +6,9 @@ maps: any difference is a fault). The Pallas kernels run in interpret mode.
 The CUDA kernels themselves are tested on the card by ``test_torch_cuda.py``.
 """
 
+import re
+from pathlib import Path
+
 import cv2
 import numpy as np
 import pytest
@@ -30,14 +33,23 @@ def _indices(rs, n, nby, nbx, cap, n_i=1):
     return [a.astype(np.int64) for a in (inst // n_i, by, bx)]
 
 
-# (C, block, halo, n_i, dtype): the ladder's geometries at reduced sizes --
-# the C=1 os1 mask (block 64, halo 32), the 6-channel lazy-os1 input (64, 5),
-# fea2 (32, 2) -- with per-image repeated tiles (n_i > 1) and bf16
+# (C, block, halo, n_i, dtype): the ladder's five geometries at reduced sizes --
+# the C=1 os1 mask (block 64, halo 32), x8 (64, 8, 3), fea3 (64, 16, 4), fea2
+# (32, 32, 2), the 6-channel lazy-os1 input (64, 5) -- with per-image repeated
+# tiles (n_i > 1), in f32 and bf16. Each map goes in both layouts the kernel
+# reads: contiguous NHWC, and the NHWC view of NCHW memory (plane-major), as
+# the ladder hands it fea3, fea2 and the lazy-os1 input.
 @pytest.mark.parametrize("c,block,halo,n_i,dtype", [
     (1, 64, 32, 1, np.float32),
     (6, 64, 5, 3, np.float32),
     (32, 32, 2, 3, np.float32),
     (32, 32, 2, 3, jnp.bfloat16),
+    (1, 64, 32, 1, jnp.bfloat16),
+    (6, 64, 5, 3, jnp.bfloat16),
+    (64, 8, 3, 1, np.float32),
+    (64, 8, 3, 1, jnp.bfloat16),
+    (64, 16, 4, 3, np.float32),
+    (64, 16, 4, 3, jnp.bfloat16),
 ])
 def test_gather_plain_matches_jax(c, block, halo, n_i, dtype):
     rs = np.random.RandomState(c + block)
@@ -53,13 +65,230 @@ def test_gather_plain_matches_jax(c, block, halo, n_i, dtype):
     else:
         pal = gather_patches_pallas(jfeat, *map(jnp.asarray, idx), block, halo, interpret=True)
     np.testing.assert_array_equal(np.asarray(pal.astype(jnp.float32)), ref)
-    tfeat = torch.from_numpy(feat).to(torch.bfloat16 if dtype is jnp.bfloat16 else torch.float32)
+    tdt = torch.bfloat16 if dtype is jnp.bfloat16 else torch.float32
+    pixel = torch.from_numpy(feat).to(tdt)
+    plane = torch.from_numpy(np.ascontiguousarray(feat.transpose(0, 3, 1, 2))).to(tdt)
+    plane = plane.permute(0, 2, 3, 1)
+    assert c == 1 or not plane.is_contiguous()
     tidx = [torch.from_numpy(a) for a in idx]
-    for fn in (kg.gather_patches_plain, kg.gather_patches, tbs.gather_patches):
-        out = fn(tfeat, *tidx, block, halo)
-        assert out.dtype == tfeat.dtype and out.shape == (9, block + 2 * halo,
-                                                          block + 2 * halo, c)
-        np.testing.assert_array_equal(out.float().numpy(), ref)
+    for tfeat in (pixel, plane):
+        for fn in (kg.gather_patches_plain, kg.gather_patches, tbs.gather_patches):
+            out = fn(tfeat, *tidx, block, halo)
+            assert out.dtype == tfeat.dtype and out.is_contiguous()
+            assert out.shape == (9, block + 2 * halo, block + 2 * halo, c)
+            np.testing.assert_array_equal(out.float().numpy(), ref)
+
+
+_GATHER_CU = (Path(kg.__file__).parent / "csrc" / "gather_patches.cu").read_text()
+
+
+def _cu_const(name):
+    """A ``constexpr int`` of the kernel source (a number or a product of two)."""
+    a, b = re.search(rf"constexpr int {name} = (\d+)(?: \* (\d+))?;", _GATHER_CU).groups()
+    return int(a) * int(b or 1)
+
+
+def _fast_div(d):
+    """(mul, shift) of the kernel's FastDiv for the divisor d."""
+    shift = max(int(d - 1).bit_length(), 0)
+    return (((1 << shift) - d) << 32) // d + 1, shift
+
+
+def _fast_quotient(n, div):
+    mul, shift = div
+    assert 0 <= n < 1 << 31
+    return (((n * mul) >> 32) + n) >> shift
+
+
+def test_fast_division_is_exact():
+    """The kernel's multiply-and-shift division equals n // d for the divisors
+    and dividends it meets (C and S up to 4096, n below 2^31)."""
+    rs = np.random.RandomState(0)
+    ns = np.concatenate([np.arange(0, 5000), rs.randint(0, 1 << 31, 2000),
+                         [(1 << 31) - 1, (1 << 31) - 2]])
+    for d in list(range(1, 300)) + [511, 512, 513, 1000, 4095, 4096]:
+        div = _fast_div(d)
+        assert div[0] < 1 << 32
+        assert all(_fast_quotient(int(n), div) == int(n) // d for n in ns), d
+
+
+def _gather_kernel_emulation(mem, shape, strides, idx, block, halo, esize, feat_addr=0,
+                             out_addr=0):
+    """numpy emulation of csrc/gather_patches.cu's work plan on the raw elements
+    ``mem`` of a map (N, H, W, C) addressed by ``strides``: the host's choice of
+    layout and vector width (from the addresses and strides), the thread blocks'
+    bands of rows, the in-map span of each row, the 16-byte-aligned staging span
+    with its zero chunks, and the plane-major band's scalar head and tail around
+    its 16-byte stores. It asserts that every vector access is aligned and that
+    each output element is written exactly once."""
+    threads, rows_per_thread = _cu_const("kThreads"), _cu_const("kRowsPerThread")
+    stage_bytes, bands_per_block = _cu_const("kStageBytes"), _cu_const("kBandsPerBlock")
+    n_maps, h, w, c = shape
+    sn, sy, sx, sc = strides
+    size = block + 2 * halo
+    k16 = 16 // esize
+    cap = idx[0].shape[0]
+    out = np.zeros(cap * size * size * c, mem.dtype)
+    written = np.zeros(out.shape, np.int64)
+    if sc == 1 and sx == c and sy == w * c:                      # pixel-major
+        vec = (feat_addr % 16 == 0 and out_addr % 16 == 0 and (size * c) % k16 == 0
+               and sy % k16 == 0 and sn % k16 == 0 and (block * c) % k16 == 0
+               and (halo * c) % k16 == 0)
+        k = k16 if vec else 1
+        row_vecs = size * c // k
+        tx = min(-(-row_vecs // 32) * 32, threads)
+        rows = threads // tx * rows_per_thread
+        for p in range(cap):
+            n = int(idx[0][p])
+            x0 = int(idx[2][p]) * block - halo
+            v_lo = (max(x0, 0) - x0) * c // k
+            v_hi = max((min(x0 + size, w) - x0) * c // k, v_lo)
+            for r0 in range(0, size, rows):                      # blockIdx.y
+                for r in range(r0, min(r0 + rows, size)):
+                    y = int(idx[1][p]) * block - halo + r
+                    dst = (p * size + r) * size * c
+                    for v in range(row_vecs):
+                        d = dst + v * k
+                        assert (out_addr + d * esize) % (k * esize) == 0
+                        written[d:d + k] += 1
+                        if 0 <= n < n_maps and 0 <= y < h and v_lo <= v < v_hi:
+                            src = n * sn + x0 * c + y * sy + v * k
+                            assert (feat_addr + src * esize) % (k * esize) == 0
+                            out[d:d + k] = mem[src:src + k]
+        assert (written == 1).all()
+        return out.reshape(cap, size, size, c), "pixel", k
+    assert sx == 1 and sy == w and sc == h * w                   # plane-major
+    vec = feat_addr % 16 == 0 and sy % k16 == 0 and sc % k16 == 0 and sn % k16 == 0
+    grouped = c % k16 == 0 and out_addr % 16 == 0          # 16-byte vectors of channels
+    k = k16 if vec else 1
+    lp = ((k - 1 + size + k - 1) // k | 1) * k
+    pc = c + k16 if grouped else 0                           # band tile elements per pixel
+    rows = min(max((stage_bytes - 16) // ((2 * c * lp + size * pc) * esize), 1), size)
+    div_c, div_s = _fast_div(c), _fast_div(size)
+    n_bands = -(-size // rows)
+    for p in range(cap):
+        n = int(idx[0][p])
+        x0 = int(idx[2][p]) * block - halo
+        off = x0 % k
+        xa = x0 - off
+        nchunk = (off + size + k - 1) // k
+        assert nchunk * k <= lp
+        for band0 in range(0, n_bands, bands_per_block):         # blockIdx.y
+            for b in range(band0, min(band0 + bands_per_block, n_bands)):
+                r0 = b * rows
+                nr = min(rows, size - r0)
+                stage = np.zeros((nr, c, lp), mem.dtype)
+                staged = np.zeros(stage.shape, bool)
+                for r in range(nr):
+                    y = int(idx[1][p]) * block - halo + r0 + r
+                    for ch in range(c):
+                        for q in range(nchunk):
+                            x = xa + q * k
+                            staged[r, ch, q * k:q * k + k] = True
+                            if 0 <= n < n_maps and 0 <= y < h and 0 <= x and x + k <= w:
+                                src = n * sn + ch * sc + y * sy + x
+                                assert (feat_addr + src * esize) % (k * esize) == 0
+                                stage[r, ch, q * k:q * k + k] = mem[src:src + k]
+                assert staged[:, :, off:off + size].all()
+                tile = stage[:, :, off:off + size].transpose(0, 2, 1).reshape(-1)
+                dst = (p * size + r0) * size * c
+                length = nr * size * c
+                if grouped:                                      # whole vectors per pixel
+                    for i in range(0, length, k16):
+                        assert (out_addr + (dst + i) * esize) % 16 == 0
+                        out[dst + i:dst + i + k16] = tile[i:i + k16]
+                        written[dst + i:dst + i + k16] += 1
+                    continue
+                # straight from the stage: element e is (row, pixel, channel)
+                # by two fast divisions, then a walk over the vector
+                sh = (out_addr + dst * esize) % 16 // esize
+                head = min((k16 - sh) % k16, length)
+                nvec = (length - head) // k16
+                assert (out_addr + (dst + head) * esize) % 16 == 0 or nvec == 0
+                spans = ([(i, 1) for i in range(head)]
+                         + [(head + v * k16, k16) for v in range(nvec)]
+                         + [(i, 1) for i in range(head + nvec * k16, length)])
+                for e0, m in spans:
+                    q = _fast_quotient(e0, div_c)
+                    r = _fast_quotient(q, div_s)
+                    x, ch = q - r * size, e0 - q * c
+                    for i in range(m):
+                        out[dst + e0 + i] = stage[r, ch, off + x]
+                        ch += 1
+                        if ch == c:
+                            ch, x = 0, x + 1
+                            if x == size:
+                                x, r = 0, r + 1
+                    written[dst + e0:dst + e0 + m] += 1
+                np.testing.assert_array_equal(out[dst:dst + length], tile)
+    assert (written == 1).all()
+    return out.reshape(cap, size, size, c), "plane" + "_grouped" * grouped, k
+
+
+# (C, block, halo, H, W, dtype, layout, feat_addr, out_addr): ragged shapes --
+# halo > block, map widths whose rows leave 8-byte (W=50 f32) and 4-byte (W=49
+# f32, W=50 bf16) misalignment, and start addresses off 16 bytes -- beside
+# aligned shapes that take the 16-byte instances of both layouts
+@pytest.mark.parametrize("c,block,halo,h,w,dtype,layout,feat_addr,out_addr", [
+    (1, 16, 8, 48, 96, torch.float32, "pixel", 0, 0),
+    (1, 8, 11, 40, 56, torch.bfloat16, "plane", 0, 0),
+    (3, 8, 10, 40, 56, torch.float32, "pixel", 0, 0),
+    (3, 8, 10, 40, 56, torch.float32, "plane", 0, 0),
+    (6, 16, 5, 48, 50, torch.float32, "plane", 0, 0),
+    (6, 16, 5, 48, 49, torch.float32, "plane", 0, 0),
+    (6, 16, 5, 48, 64, torch.bfloat16, "plane", 0, 0),
+    (6, 16, 5, 48, 50, torch.bfloat16, "plane", 0, 0),
+    (6, 16, 5, 48, 64, torch.float32, "pixel", 0, 0),
+    (32, 8, 2, 32, 48, torch.float32, "pixel", 8, 0),
+    (32, 8, 2, 32, 48, torch.bfloat16, "pixel", 0, 0),
+    (32, 8, 2, 32, 48, torch.bfloat16, "plane", 0, 0),
+    (64, 4, 3, 16, 24, torch.float32, "pixel", 0, 0),
+    (64, 4, 3, 16, 24, torch.float32, "plane", 4, 0),
+    (64, 4, 3, 16, 24, torch.float32, "plane", 0, 8),
+    (64, 4, 9, 16, 24, torch.bfloat16, "plane", 0, 0),
+])
+def test_gather_kernel_plan_matches_plain(c, block, halo, h, w, dtype, layout, feat_addr,
+                                          out_addr):
+    """The CUDA gather's work plan gives the twin's windows bit for bit."""
+    rs = np.random.RandomState(c * 7 + halo)
+    n = 2
+    idx = _indices(rs, n, h // block, w // block, 7)
+    idx[0][-1] = n                                               # an n outside [0, N)
+    x = torch.from_numpy(rs.randn(n, h, w, c).astype(np.float32)).to(dtype)
+    if layout == "plane":
+        x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    mem = x.permute(0, 3, 1, 2).contiguous() if layout == "plane" else x
+    mem = mem.view(bits).reshape(-1).numpy()
+    got, kind, k = _gather_kernel_emulation(mem, x.shape, kg.feat_strides(x), idx, block, halo,
+                                            x.element_size(), feat_addr, out_addr)
+    assert kind.split("_")[0] == ("pixel" if c == 1 else layout)
+    ref = kg.gather_patches_plain(x, *(torch.from_numpy(a[:-1]) for a in idx), block, halo)
+    np.testing.assert_array_equal(got[:-1], ref.view(bits).numpy())
+    assert not got[-1].any()                                     # zeros for that n
+    if feat_addr or w in (49, 50) or (layout == "pixel" and (out_addr or c == 3)):
+        assert k == 1                                            # the one-element instance
+
+
+def test_gather_kernel_plan_takes_16_byte_vectors_on_the_main_path():
+    """At the main-path geometries both layouts get the 16-byte instance."""
+    k16 = {torch.float32: 4, torch.bfloat16: 8}
+    for c, block, halo, layout, dtype in [(1, 64, 32, "pixel", torch.float32),
+                                          (64, 8, 3, "pixel", torch.float32),
+                                          (64, 8, 3, "pixel", torch.bfloat16),
+                                          (64, 16, 4, "plane", torch.bfloat16),
+                                          (32, 32, 2, "plane", torch.float32),
+                                          (6, 64, 5, "plane", torch.bfloat16)]:
+        h, w = 2 * block, 3 * block
+        x = torch.zeros(1, c, h, w, dtype=dtype).permute(0, 2, 3, 1)
+        if layout == "pixel":
+            x = x.contiguous()
+        idx = [np.array(a, np.int64) for a in ([0, 0], [0, 1], [2, 0])]
+        mem = np.zeros(x.numel(), np.int16 if dtype == torch.bfloat16 else np.int32)
+        _, kind, k = _gather_kernel_emulation(mem, x.shape, kg.feat_strides(x), idx, block,
+                                              halo, x.element_size())
+        assert (kind, k) == (layout + "_grouped" * (layout == "plane" and c % k16[dtype] == 0),
+                             k16[dtype]), (c, block, layout)
 
 
 def _alpha(rs, shape, p=0.004):

@@ -81,3 +81,46 @@ def test_block_path_equals_oracle_at_full_capacity():
         for k in KEYS:
             np.testing.assert_allclose(ob[k].numpy(), oo[k].numpy(), rtol=0, atol=ATOL,
                                        err_msg=f"{k} seed {seed}")
+
+
+def test_ladder_gathers_read_the_encoder_maps_without_a_copy(pair, monkeypatch):
+    """The fea3, fea2 and lazy-os1 gathers get NHWC views that share memory
+    with the encoder's NCHW tensors (no layout copy), and the forward still
+    equals maggie_tpu's within 1e-5 with an equal detail_mask."""
+    import maggie_tpu_torch.models.decoder_sparse as ds
+
+    jm, jv, tm, flat, fwd = pair
+    calls, enc = [], {}
+    orig = ds.gather_patches
+
+    def spy(feat, idx_n, idx_by, idx_bx, block, halo):
+        calls.append((feat, block, halo))
+        return orig(feat, idx_n, idx_by, idx_bx, block, halo)
+
+    def keep(_mod, _inp, out):
+        mid = out[1]
+        enc.update(fea2=mid["shortcut"][1], fea3=mid["shortcut"][2],
+                   sc0=mid["shortcut0_input"])
+
+    monkeypatch.setattr(ds, "gather_patches", spy)
+    handle = tm.encoder.register_forward_hook(keep)
+    jb, tb = make_batch(n_i=2, seed=0)
+    try:
+        with torch.inference_mode():
+            tout = tm(tb)
+    finally:
+        handle.remove()
+    by_geometry = {(block, halo): feat for feat, block, halo in calls}
+    assert [(b, h) for _, b, h in calls] == [(64, 32), (8, 3), (16, 4), (32, 2), (64, 5)]
+    for (block, halo), name in (((16, 4), "fea3"), ((32, 2), "fea2"), ((64, 5), "sc0")):
+        feat, src = by_geometry[(block, halo)], enc[name]
+        assert src.is_contiguous() and src.shape[1] > 1
+        assert not feat.is_contiguous(), name                    # a view, not a copy
+        assert feat.untyped_storage().data_ptr() == src.untyped_storage().data_ptr(), name
+        assert feat.data_ptr() == src.data_ptr(), name
+        assert torch.equal(feat, src.permute(0, 2, 3, 1)), name
+    jout = jax.device_get(fwd(jv, jb))
+    np.testing.assert_array_equal(tout["detail_mask"].numpy(), np.asarray(jout["detail_mask"]))
+    for k in KEYS:
+        np.testing.assert_allclose(tout[k].numpy(), np.asarray(jout[k]), rtol=0, atol=ATOL,
+                                   err_msg=k)
