@@ -1,12 +1,18 @@
 """Drive the PyTorch/CUDA port of MaGGIe on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --outputs PATH [--against REF]
+
+The second form only answers requests 0 and 1 in f32 and bf16 and saves the
+outputs to PATH; with REF, saved by the same form from another version, it
+exits non-zero unless every output is equal bit for bit.
 
 Phases (any failure exits non-zero):
 1. print the card's name and power limit; build the CUDA kernels from the
    sources in this checkout (one nvcc per source, in parallel);
 2. hold each kernel against its plain PyTorch twin on the card, at every shape,
-   memory layout and dtype the main path gives it (exact equality);
+   memory layout and dtype the main path gives it, and K2 also on a ragged
+   and a misaligned map (exact equality);
 3. build the flagship MaGGIe image model at full width (atten_dim 128,
    final_channel 64, num_mask 10, max_inst 10, num_embed 3) with seeded random
    weights, spectral norm converged then folded; answer 8 requests (576x1024,
@@ -18,9 +24,9 @@ Phases (any failure exits non-zero):
    its stages (CUDA events from forward hooks) and sum its kernels' device time
    (torch.profiler); time each kernel beside its plain twin, a library
    yardstick and its memory bound, in f32 and bf16 (device time from
-   CUDA-graph replay; eager times with host cost go to the details file), and
-   the NCHW->NHWC copies of the gathered encoder maps that the ladder no
-   longer makes, as a yardstick.
+   CUDA-graph replay; eager times with host cost go to the details file); as
+   yardsticks, the NCHW->NHWC copies of the gathered encoder maps that the
+   ladder no longer makes, and for K2 a clone of its input (the same bytes).
 
 Prints a ``{"kernels": [...]}`` line and the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to output/torch_port/chip_smoke.json.
@@ -177,23 +183,39 @@ def phase_kernels(dev, detail) -> dict:
             worst["gather"] = max(worst["gather"], err)
             out["gather"].append({"call": name, "dtype": str(dt), "shape": list(shape),
                                   "layout": layout, "out": list(got.shape), "equal": True})
+
+    def check_unknown(a, k, label):
+        got = ku.compute_unknown(a, k)
+        ref = ku.compute_unknown_plain(a, k)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if not torch.equal(got, ref):
+            fail(f"compute_unknown k={k} {label}: kernel != plain twin "
+                 f"({int((got != ref).sum())} pixels differ)")
+        worst["unknown"] = max(worst["unknown"], err)
+        out["unknown"].append({"k": k, "case": label, "shape": list(a.shape),
+                               "ones": int(got.sum()), "equal": True})
+
     for k in UNKNOWN_K:
         for seed in range(2):
             rr = np.random.RandomState(seed)
             alpha = blob_alpha(H, W, N_INST, rr)
             if seed == 1:  # speckle: isolated uncertain pixels everywhere, tile seams too
                 alpha = np.where(rr.rand(*alpha.shape) < 0.002, 0.5, np.round(alpha))
-            a = torch.from_numpy(alpha.astype(np.float32))[None].to(dev)
-            got = ku.compute_unknown(a, k)
-            ref = ku.compute_unknown_plain(a, k)
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            if not torch.equal(got, ref):
-                fail(f"compute_unknown k={k} seed={seed}: kernel != plain twin "
-                     f"({int((got != ref).sum())} pixels differ)")
-            worst["unknown"] = max(worst["unknown"], err)
-            out["unknown"].append({"k": k, "seed": seed, "shape": list(a.shape),
-                                   "ones": int(got.sum()), "equal": True})
+            check_unknown(torch.from_numpy(alpha.astype(np.float32))[None].to(dev), k,
+                          f"seed={seed}")
+    # the element instance: W not a multiple of 4 (nor of the 128-column strip),
+    # and a contiguous view 4 bytes off 16-byte alignment
+    for label, shape, shift in (("ragged", (2, N_INST, 301, 1021), 0),
+                                ("misaligned", (1, N_INST, H, W), 1)):
+        rr = np.random.RandomState(shift)
+        alpha = np.where(rr.rand(*shape) < 0.002, 0.5, rr.rand(*shape) > 0.5)
+        flat = np.concatenate([np.zeros(shift), alpha.ravel()]).astype(np.float32)
+        a = torch.from_numpy(flat).to(dev)[shift:].view(shape)
+        if (a.data_ptr() % 16 == 0) != (shift == 0):
+            fail(f"compute_unknown {label}: view not at the intended alignment")
+        for k in UNKNOWN_K:
+            check_unknown(a, k, label)
     detail["kernel_checks"] = out
     return worst
 
@@ -209,13 +231,60 @@ def detail_mask_check(gpu_out, cpu_out):
     return int(near.sum()), int(diff.sum()), int((diff & ~allowed).sum()), allowed | diff
 
 
+def build_models(dev):
+    """The flagship model from seed 0 with SN folded: on the CPU, its copy on
+    ``dev`` in f32, and the bf16 model on ``dev`` with the same weights."""
+    from maggie_tpu_torch.flagship import flagship_cfg
+    from maggie_tpu_torch.models import build_model
+    from maggie_tpu_torch.utils.checkpoint import fold_spectral_norm
+    cpu_model = build_model(flagship_cfg().model, device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+    fold_spectral_norm(cpu_model)
+    bf16_model = build_model(flagship_cfg("bf16").model, device="cpu")
+    fold_spectral_norm(bf16_model)
+    bf16_model.load_state_dict(cpu_model.state_dict())
+    return cpu_model, copy.deepcopy(cpu_model).to(dev), bf16_model.to(dev)
+
+
+def forward_outputs(path: str, against: str | None) -> int:
+    """``--outputs PATH [--against REF]``: answer requests 0 and 1 in f32 and
+    bf16 and save every output to PATH; with REF (the same run of another
+    version), fail unless each output equals REF's bit for bit."""
+    from maggie_tpu_torch.flagship import blob_batch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # else cuDNN may pick other algorithms per process
+    dev = torch.device("cuda")
+    _, model, bf16_model = build_models(dev)
+    outs = {}
+    with torch.inference_mode():
+        for seed in range(2):
+            batch = {k: v.to(dev) for k, v in blob_batch(H, W, N_INST, seed).items()}
+            for name, m in (("fp32", model), ("bf16", bf16_model)):
+                for k, v in m(batch).items():
+                    outs[f"{name}/{seed}/{k}"] = v.cpu()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(outs, path)
+    if against is None:
+        print(f"forward outputs: {len(outs)} tensors saved to {path}")
+        return 0
+    ref = torch.load(against)
+    differ = sorted(k for k in set(outs) | set(ref)
+                    if k not in outs or k not in ref or not torch.equal(outs[k], ref[k]))
+    print(f"forward outputs vs {against}: {len(outs) - len(differ)} of {len(outs)} "
+          f"equal bit for bit; differ: {differ}")
+    return 1 if differ else 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
-    from maggie_tpu_torch.flagship import blob_batch, flagship_cfg
-    from maggie_tpu_torch.models import build_model
+    if "--outputs" in sys.argv:
+        args = sys.argv[1:]
+        against = args[args.index("--against") + 1] if "--against" in args else None
+        return forward_outputs(args[args.index("--outputs") + 1], against)
+    from maggie_tpu_torch.flagship import blob_batch
     from maggie_tpu_torch.ops.kernels import build, gather as kg, unknown as ku
-    from maggie_tpu_torch.utils.checkpoint import fold_spectral_norm
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -240,10 +309,7 @@ def main() -> int:
 
     # ---- phase 3: the main path ----
     t0 = time.perf_counter()
-    cpu_model = build_model(flagship_cfg().model, device="cpu",
-                            generator=torch.Generator().manual_seed(0))
-    fold_spectral_norm(cpu_model)
-    model = copy.deepcopy(cpu_model).to(dev)
+    cpu_model, model, bf16_model = build_models(dev)
     requests = [blob_batch(H, W, N_INST, seed) for seed in range(N_REQUESTS)]
     on_dev = [{k: v.to(dev) for k, v in r.items()} for r in requests]
     torch.cuda.synchronize()
@@ -286,10 +352,6 @@ def main() -> int:
           f"({near} near-threshold), refined max |err| {err_outside:.3g}", flush=True)
 
     # ---- phase 4: timing ----
-    bf16_model = build_model(flagship_cfg("bf16").model, device="cpu")
-    fold_spectral_norm(bf16_model)
-    bf16_model.load_state_dict(cpu_model.state_dict())
-    bf16_model = bf16_model.to(dev)
     batch = on_dev[0]
     timings = {}
     with torch.inference_mode():
@@ -333,6 +395,14 @@ def main() -> int:
     for row in g["calls"]:
         print(f"    {row['call']} {row['dtype']} {row['layout']}: kernel "
               f"{row['ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us", flush=True)
+    u = detail["kernel_times_per_frame"]["compute_unknown"]
+    print(f"  compute_unknown per frame: kernel {u['ms'] * 1e3:.2f} us (uniform input "
+          f"{u['uniform_ms'] * 1e3:.2f}), bound {u['bound_ms'] * 1e3:.2f} us, copy "
+          f"{u['copy_ms'] * 1e3:.2f} us", flush=True)
+    for row in u["calls"]:
+        print(f"    k={row['k']}: kernel {row['ms'] * 1e3:.2f} us (uniform input "
+              f"{row['uniform_ms'] * 1e3:.2f}), bound {row['bound_ms'] * 1e3:.2f} us, copy "
+              f"{row['copy_ms'] * 1e3:.2f} us", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1)
@@ -445,17 +515,24 @@ def time_kernels(dev, worst, launches, detail) -> list:
             copies["calls"].append(row)
             copies[f"{frame}_ms"] += row["ms"]
     g["removed_layout_copies"] = copies
-    u = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "calls": []}
-    a = torch.rand((1, N_INST, H, W), device=dev)
+    # K2 on the main path's kind of input (blob alphas) and on uniform noise;
+    # the copy yardstick is a.clone(): the same bytes read and written
+    from maggie_tpu_torch.flagship import blob_alpha
+    keys = ("ms", "uniform_ms", "plain_ms", "copy_ms", "bound_ms")
+    u = {**dict.fromkeys(keys, 0.0), "calls": []}
+    blob = torch.from_numpy(blob_alpha(H, W, N_INST, np.random.RandomState(0)))[None].to(dev)
+    uniform = torch.rand((1, N_INST, H, W), device=dev)
     for k in UNKNOWN_K:
-        kern = lambda: ku.compute_unknown(a, k)
-        plain = lambda: ku.compute_unknown_plain(a, k)
-        row = {"k": k, "ms": graph_ms(kern), "plain_ms": graph_ms(plain),
+        kern = lambda: ku.compute_unknown(blob, k)
+        plain = lambda: ku.compute_unknown_plain(blob, k)
+        row = {"k": k, "ms": graph_ms(kern),
+               "uniform_ms": graph_ms(lambda: ku.compute_unknown(uniform, k)),
+               "plain_ms": graph_ms(plain), "copy_ms": graph_ms(blob.clone),
                "eager_ms": cuda_ms(kern), "eager_plain_ms": cuda_ms(plain),
-               "bytes": 2 * a.numel() * 4}
+               "bytes": 2 * blob.numel() * 4}
         row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
         u["calls"].append(row)
-        for key in ("ms", "plain_ms", "bound_ms"):
+        for key in keys:
             u[key] += row[key]
     detail["kernel_times_per_frame"] = {"gather_patches": g, "compute_unknown": u}
     return [
@@ -476,7 +553,8 @@ def time_kernels(dev, worst, launches, detail) -> list:
          "launches_per_frame": launches["compute_unknown"] // N_REQUESTS,
          "max_abs_err": worst["unknown"],
          "ms": u["ms"], "plain_ms": u["plain_ms"], "bound_ms": u["bound_ms"],
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": None, "uniform_ms": u["uniform_ms"],
+         "copy_ms": u["copy_ms"]},
     ]
 
 

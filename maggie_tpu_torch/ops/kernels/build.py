@@ -7,8 +7,9 @@ git-ignored), at first use:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-No PyTorch headers are included, so a build takes seconds. ``build_all`` starts
-one ``nvcc`` per source at once and waits for all of them.
+No PyTorch headers are included, so a build takes seconds (``compute_unknown.cu``,
+with one instance per element width, chunk height and alignment, about 40 s).
+``build_all`` starts one ``nvcc`` per source at once and waits for all of them.
 """
 
 from __future__ import annotations

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,6 +35,17 @@ def compute_unknown_plain(masks: torch.Tensor, k_size: int = 30) -> torch.Tensor
 
 _fn = None  # the C entry point, set up at first launch
 
+# The kernel's limits and work plan (csrc/compute_unknown.cu): halos up to 16,
+# so element widths up to 33; 128-column strips; bands of at most 128 rows,
+# staged in chunks of 32 or 40 rows.
+MAX_WIDTH = 33
+MAX_K_SIZE = 2 * MAX_WIDTH + 1
+STRIP_COLS = 128
+CHUNK_ROWS = (32, 40)
+MAX_BAND_ROWS = 128
+MIN_BAND_ROWS = 8
+BLOCKS_PER_SM = 2
+
 
 def _entry():
     global _fn
@@ -42,15 +54,14 @@ def _entry():
         fn = load("compute_unknown").compute_unknown_launch
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
-                       + [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         _fn = fn
     return _fn
 
 
 def _sorted_runs(width: int) -> list[tuple[int, int, int]]:
-    """Row runs ordered so that their extents nest, as the kernel's widening
-    horizontal OR requires; raises if they do not."""
+    """Row runs ordered so that their extents nest (each contains the previous);
+    raises if they do not."""
     runs = list(_ellipse_row_runs(width)) if width > 1 else [(0, 0, 0)]
     runs.sort(key=lambda r: (r[2] - r[1], r[0]))
     for (_, a0, b0), (_, a1, b1) in zip(runs, runs[1:]):
@@ -60,15 +71,57 @@ def _sorted_runs(width: int) -> list[tuple[int, int, int]]:
 
 
 @functools.lru_cache(maxsize=16)
-def _run_table(k_size: int):
-    """The kernel's run arguments for ``k_size``: (dy, a, b) as C int arrays,
-    the run count and the row and column halos."""
-    runs = _sorted_runs(k_size // 2)
-    arr = ctypes.c_int * len(runs)
-    ry = max(abs(r[0]) for r in runs)
-    rx = max(max(-r[1], r[2]) for r in runs)
-    return (arr(*(r[0] for r in runs)), arr(*(r[1] for r in runs)),
-            arr(*(r[2] for r in runs)), len(runs), ry, rx)
+def run_table(k_size: int) -> tuple[tuple[tuple[int, int], ...], tuple[tuple[int, int], ...], int]:
+    """The element of ``k_size`` as the kernel walks it (the kernel computes
+    the same table at compile time, one instance per width): its distinct run
+    extents (a, b), each containing the previous and column 0; its row runs as
+    (dy, extent index); and the row halo ry. ValueError beyond the kernel's
+    widths."""
+    width = k_size // 2
+    if width > MAX_WIDTH:
+        raise ValueError(f"compute_unknown kernel takes k_size up to {MAX_K_SIZE} (element "
+                         f"width {MAX_WIDTH}), got {k_size}")
+    runs = _sorted_runs(width)
+    extents = list(dict.fromkeys((a, b) for _, a, b in runs))
+    if not all(a <= 0 <= b for a, b in extents):
+        raise ValueError(f"ellipse row runs of width {width} miss the centre column: {runs}")
+    return (tuple(extents), tuple((dy, extents.index((a, b))) for dy, a, b in runs),
+            max(abs(dy) for dy, _, _ in runs))
+
+
+class Plan(NamedTuple):
+    extents: tuple[tuple[int, int], ...]
+    runs: tuple[tuple[int, int], ...]
+    ry: int
+    band_rows: int       # output rows per thread block
+    n_bands: int
+    chunk_rows: int      # staged rows per load chunk
+    n_strips: int        # 128-column strips per map
+    vec: bool            # the 16-byte instance, else the element instance
+
+
+def plan(m: int, h: int, w: int, k_size: int, sms: int, in_addr: int = 0,
+         out_addr: int = 0) -> Plan:
+    """The host's half of the kernel: run table, band height (a whole number
+    of blocks per SM where the map allows), the chunk height that pads the
+    band's staged rows least (ties to the smaller), and the instance, from the
+    shape, the card's SM count and the two start addresses."""
+    extents, runs, ry = run_table(k_size)
+    n_strips = -(-w // STRIP_COLS)
+    if m > 65535 or n_strips > 65535:
+        raise ValueError(f"compute_unknown kernel takes up to 65535 maps and "
+                         f"{65535 * STRIP_COLS} columns, got {m} maps of width {w}")
+    n_bands = max(-(-BLOCKS_PER_SM * sms // (m * n_strips)), 1)
+    band_rows = min(max(-(-h // n_bands), MIN_BAND_ROWS), MAX_BAND_ROWS)
+    staged = band_rows + 2 * ry
+    chunk_rows = min(CHUNK_ROWS, key=lambda c: (-(-staged // c) * c, c))
+    vec = in_addr % 16 == 0 and out_addr % 16 == 0 and w % 4 == 0
+    return Plan(extents, runs, ry, band_rows, -(-h // band_rows), chunk_rows, n_strips, vec)
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _launch(masks: torch.Tensor, k_size: int) -> torch.Tensor:
@@ -78,13 +131,15 @@ def _launch(masks: torch.Tensor, k_size: int) -> torch.Tensor:
     if masks.dim() < 2 or not masks.is_contiguous():
         raise ValueError(f"compute_unknown kernel needs contiguous (..., H, W) maps, got "
                          f"shape {tuple(masks.shape)} strides {masks.stride()}")
-    dy, ra, rb, n_runs, ry, rx = _run_table(k_size)
     h, w = masks.shape[-2:]
-    m = masks.numel() // (h * w) if h * w else 0
     out = torch.empty_like(masks)
+    if masks.numel() == 0:
+        return out
+    m = masks.numel() // (h * w)
+    p = plan(m, h, w, k_size, _sm_count(masks.device.index), masks.data_ptr(), out.data_ptr())
     stream = torch.cuda.current_stream(masks.device).cuda_stream
-    rc = _entry()(masks.data_ptr(), out.data_ptr(), m, h, w, _LO, _HI,
-                  dy, ra, rb, n_runs, ry, rx, stream)
+    rc = _entry()(masks.data_ptr(), out.data_ptr(), m, h, w, _LO, _HI, max(k_size // 2, 0),
+                  p.band_rows, p.chunk_rows, int(p.vec), stream)
     if rc != 0:
         raise RuntimeError(f"compute_unknown kernel launch failed: cudaError {rc}")
     launches += 1

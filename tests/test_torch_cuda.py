@@ -111,22 +111,54 @@ def test_gather_kernel_rejects_what_it_does_not_take(card):
         kg.gather_patches(feat, idx.int(), idx, idx, 16, 2)
 
 
-@pytest.mark.parametrize("k_size", [30, 27, 15, 7, 2])
-def test_compute_unknown_kernel_equals_twin(card, k_size):
-    rs = np.random.RandomState(k_size)
-    a = (rs.rand(2, 3, 300, 530) > 0.5).astype(np.float32)        # ragged tile edges
-    speckle = rs.rand(*a.shape) < 0.004
+def _speckled(shape, seed):
+    """0/1 alphas with a sparse speckle of fractional values, and values
+    exactly on the thresholds along one row and one column."""
+    rs = np.random.RandomState(seed)
+    a = (rs.rand(*shape) > 0.5).astype(np.float32)
+    speckle = rs.rand(*shape) < 0.004
     a[speckle] = rs.rand(int(speckle.sum()))
-    a[0, 0, 0, :] = np.float32(1 / 255)                           # on the thresholds
-    a[0, 1, :, 0] = np.float32(254 / 255)
-    ta = torch.from_numpy(a).to(card)
+    flat = a.reshape((-1,) + shape[-2:])
+    flat[0, 0, :] = np.float32(1 / 255)
+    flat[-1, :, 0] = np.float32(254 / 255)
+    return a
+
+
+# (k_size, shape, maps, start offset in floats): the main-path shape with its
+# blob alphas at its three widths; ragged W (not a multiple of 4; under 32); H
+# under 2 ry + 1; a contiguous view 4 bytes off 16-byte alignment; widths up to
+# k=67 (half width 16)
+@pytest.mark.parametrize("k_size,shape,maps,shift", [
+    (30, (1, 3, 576, 1024), "blob", 0), (27, (1, 3, 576, 1024), "blob", 0),
+    (15, (1, 3, 576, 1024), "blob", 0), (30, (2, 3, 300, 530), "speckle", 0),
+    (7, (2, 3, 300, 530), "speckle", 0), (2, (2, 3, 300, 530), "speckle", 0),
+    (15, (3, 40, 29), "speckle", 0), (67, (2, 20, 150), "speckle", 0),
+    (30, (1, 3, 576, 1024), "speckle", 1), (15, (2, 75, 258), "speckle", 3),
+    (41, (1, 200, 333), "speckle", 0), (55, (1, 130, 512), "speckle", 0),
+    (67, (1, 3, 576, 1024), "speckle", 0)])
+def test_compute_unknown_kernel_equals_twin(card, k_size, shape, maps, shift):
+    if maps == "blob":
+        from maggie_tpu_torch.flagship import blob_alpha
+        a = blob_alpha(*shape[-2:], shape[1], np.random.RandomState(k_size))[None]
+    else:
+        a = _speckled(shape, k_size)
+    flat = torch.from_numpy(np.concatenate([np.zeros(shift, np.float32), a.ravel()]))
+    ta = flat.to(card)[shift:].view(shape)
+    assert ta.is_contiguous() and (ta.data_ptr() % 16 == 0) == (shift % 4 == 0)
     before = ku.launches
     out = ku.compute_unknown(ta, k_size)
     assert ku.launches == before + 1
     ref = ku.compute_unknown_plain(ta, k_size)
     torch.cuda.synchronize()
     assert 0.0 < float(ref.mean()) < 1.0
-    assert torch.equal(out, ref)
+    assert out.shape == ta.shape and torch.equal(out, ref)
+
+
+def test_compute_unknown_kernel_refuses_wider_elements(card):
+    before = ku.launches
+    with pytest.raises(ValueError, match="k_size up to 67"):
+        ku.compute_unknown(torch.zeros(1, 8, 8, device=card), 68)
+    assert ku.launches == before
 
 
 def test_compute_unknown_kernel_rejects_other_dtypes(card):

@@ -342,56 +342,234 @@ def test_compute_unknown_plain_multi_chunk(monkeypatch):
         np.testing.assert_array_equal(out.astype(np.uint8), _cv2_unknown(alpha, k_size // 2))
 
 
-def _kernel_emulation(alpha, k_size, tile_w=128, tile_h=32):
-    """numpy emulation of csrc/compute_unknown.cu: per tile, one 64-bit row
-    mask per staged column, a horizontal OR widened over the nested extents and
-    one shift-OR per row run."""
-    runs = ku._sorted_runs(k_size // 2)
-    ry = max(abs(r[0]) for r in runs)
-    rx = max(max(-r[1], r[2]) for r in runs)
+_UNKNOWN_CU = (Path(ku.__file__).parent / "csrc" / "compute_unknown.cu").read_text()
+
+
+def _unknown_const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", _UNKNOWN_CU).group(1))
+
+
+def test_kernel_plan_constants_match_the_source():
+    """The host plan in unknown.py and the kernel agree on strip, chunk and band."""
+    assert ku.STRIP_COLS == 32 * _unknown_const("kStripWords")
+    assert ku.CHUNK_ROWS == tuple(map(int, re.search(
+        r"chunk_rows != (\d+) && chunk_rows != (\d+)", _UNKNOWN_CU).groups()))
+    assert all(_unknown_const("kMaxStaged") % c == 0 for c in ku.CHUNK_ROWS)
+    assert _unknown_const("kMaxStaged") >= ku.MAX_BAND_ROWS + 32
+    assert ku.MAX_BAND_ROWS == _unknown_const("kMaxBandRows")
+    assert 2 * _unknown_const("kMaxHalo") + 1 == ku.MAX_WIDTH
+
+
+def _constexpr_element(width):
+    """csrc/compute_unknown.cu's make_element in Python: cv2's ellipse rows by
+    integer arithmetic (dx is the integer nearest sqrt(r^2 - dy^2)), sorted by
+    (extent width, dy)."""
+    if width <= 1:
+        return [(0, 0, 0)]
+    r, runs = width // 2, []
+    for dy in range(-r, width - r):
+        n = r * r - dy * dy
+        k = int(np.sqrt(n))
+        k = k + 1 if (k + 1) ** 2 <= n else k
+        dx = k + 1 if n - k * k > k else k
+        runs.append((dy, max(r - dx, 0) - r, min(r + dx + 1, width) - 1 - r))
+    return sorted(runs, key=lambda t: (t[2] - t[1], t[0]))
+
+
+def test_kernel_element_matches_cv2():
+    """The element the kernel computes at compile time is the port's cv2
+    replica, run for run and in the same order, for every width it takes."""
+    for width in range(0, 34):
+        assert _constexpr_element(width) == ku._sorted_runs(width), width
+        extents, runs, ry = ku.run_table(2 * width)
+        assert [(dy, *extents[e]) for dy, e in runs] == _constexpr_element(width)
+
+
+def _shift_words(vp, vc, vn, dx):
+    """The kernel's funnel shift: bit i of the result is column i + dx of the
+    stream (vp, vc, vn) of three 32-bit words, vc in the middle."""
+    vp, vc, vn = (v.astype(np.uint64) for v in (vp, vc, vn))
+    if dx >= 0:
+        return (((vn << np.uint64(32)) | vc) >> np.uint64(dx)) & np.uint64(0xFFFFFFFF)
+    return ((((vc << np.uint64(32)) | vp) << np.uint64(-dx)) >> np.uint64(32)) \
+        & np.uint64(0xFFFFFFFF)
+
+
+def _unknown_kernel_emulation(mem, offset, m, h, w, k_size, sms):
+    """numpy emulation of csrc/compute_unknown.cu's work plan on the maps
+    (m, h, w) stored in ``mem`` from element ``offset``: the host's plan and
+    choice of instance (ku.plan), the blocks' strips and bands, each band's
+    chunks of staged rows (the host's height) copied as 16-byte lanes (guards:
+    only the 16 columns next to the strip) into a ring of staging buffers ahead of use, and
+    thresholded into words of 32 columns (the warps' ballots); pass A's
+    horizontal ORs (funnel shifts widened over the nested extents, left and
+    right of the word apart) by staged row; pass B's OR over the runs for the
+    rows each chunk completes, stored as nibbles of four floats. It asserts
+    that every 16-byte access is aligned, that each chunk is staged before it
+    is read, that pass B reads only rows pass A wrote and that every output
+    element is written once."""
+    strip_words = ku.STRIP_COLS // 32
+    row_words = strip_words + 2
+    p = ku.plan(m, h, w, k_size, sms, in_addr=4 * offset)
+    chunk, n_stages = p.chunk_rows, _unknown_const("kStages")
+    threads = 8 * chunk                                          # a warp per 4 chunk rows
+    unit_rows = 32 // strip_words                                # rows of a warp in A and B
+    max_staged = _unknown_const("kMaxStaged")
+    assert threads // 32 == 2 * chunk // unit_rows               # a warp pair per 8 rows
+    stage_lanes = strip_words * 8 + 8                            # strip + 16 columns a side
     lo, hi = np.float32(ku._LO), np.float32(ku._HI)
-    m, h, w = alpha.shape
-    out = np.zeros_like(alpha)
+    out = np.zeros(m * h * w, np.float32)
+    written = np.zeros(out.shape, np.int64)
+    item = np.arange(chunk * stage_lanes)                        # one chunk's copies
+    lane = item % stage_lanes
+    f = 32 * np.arange(row_words)[:, None] - 16 + np.arange(32)  # stage float of word j, bit i
+    f_ok = (f >= 0) & (f < 4 * stage_lanes)
     for z in range(m):
-        for y0 in range(0, h, tile_h):
-            for x0 in range(0, w, tile_w):
-                cols = []
-                for c in range(tile_w + 2 * rx):
-                    x, bits = x0 - rx + c, 0
-                    for j in range(tile_h + 2 * ry):
-                        y = y0 - ry + j
-                        if 0 <= x < w and 0 <= y < h and lo < alpha[z, y, x] < hi:
-                            bits |= 1 << j
-                    cols.append(bits)
-                for t in range(min(tile_w, w - x0)):
-                    hbits = acc = 0
-                    ca, cb = 0, -1
-                    for dy, a, b in runs:
-                        for d in range(a, b + 1):
-                            if ca > cb or d < ca or d > cb:
-                                hbits |= cols[t + rx + d]
-                        ca, cb = a, b
-                        acc |= hbits >> (ry + dy)
-                    for y in range(min(tile_h, h - y0)):
-                        out[z, y0 + y, x0 + t] = (acc >> y) & 1
-    return out
+        for band in range(p.n_bands):                            # blockIdx.x
+            y0 = band * p.band_rows
+            rows = min(p.band_rows, h - y0)
+            staged = rows + 2 * p.ry
+            n_chunks = -(-staged // chunk)
+            for strip in range(p.n_strips):                      # blockIdx.y
+                x0 = strip * ku.STRIP_COLS
+                stages = np.zeros((n_stages, chunk, 4 * stage_lanes), np.float32)
+                stage_of = np.full(n_stages, -1)                 # chunk held by each stage
+
+                def issue(c):                                    # cp.async of chunk c
+                    if c >= n_chunks:
+                        return
+                    s = c * chunk + item // stage_lanes
+                    y, x = y0 - p.ry + s, x0 - 16 + lane * 4
+                    ok = (s < staged) & (y >= 0) & (y < h)
+                    src = offset + z * h * w + y * w + x
+                    vals = np.zeros((item.size, 4), np.float32)
+                    if p.vec:
+                        ok &= (x >= 0) & (x < w)
+                        assert (src[ok] * 4 % 16 == 0).all() and (x[ok] + 3 < w).all()
+                        vals[ok] = mem[src[ok][:, None] + np.arange(4)]
+                    else:
+                        for k in range(4):
+                            kok = ok & (x + k >= 0) & (x + k < w)
+                            vals[kok, k] = mem[src[kok] + k]
+                    stages[c % n_stages] = vals.reshape(chunk, -1)
+                    stage_of[c % n_stages] = c
+
+                assert staged <= max_staged
+                ors = np.zeros((len(p.extents), max_staged, strip_words), np.uint32)
+                has = np.zeros((len(p.extents), max_staged), bool)  # rows pass A wrote
+                for c in range(n_stages - 1):
+                    issue(c)
+                done = 0
+                for c in range(n_chunks):
+                    issue(c + n_stages - 1)
+                    assert stage_of[c % n_stages] == c
+                    # each row's words by ballot: bit i of word j is stage float
+                    # 32 j - 16 + i (zero beyond the staged guard columns)
+                    v = np.where(f_ok, stages[c % n_stages][:, np.clip(f, 0, None)
+                                                          .clip(None, 4 * stage_lanes - 1)], 0)
+                    unc = ((v > lo) & (v < hi)).astype(np.uint64)
+                    bits = (unc << np.arange(32, dtype=np.uint64)).sum(axis=2).astype(np.uint32)
+                    # pass A: per staged word, the left lane ORs dx in [a, -1]
+                    # and the right lane dx in [0, b], widened over the extents
+                    rows_c = c * chunk + np.arange(chunk)
+                    vp, vc, vn = bits[:, :-2], bits[:, 1:-1], bits[:, 2:]
+                    left = np.zeros(vc.shape, np.uint64)
+                    right = np.zeros(vc.shape, np.uint64)
+                    reach_l, reach_r = 0, -1
+                    for e, (a, b) in enumerate(p.extents):
+                        assert -a >= reach_l and b >= reach_r
+                        for j in range(reach_l + 1, -a + 1):
+                            left |= _shift_words(vp, vc, vn, -j)
+                        for d in range(reach_r + 1, b + 1):
+                            right |= _shift_words(vp, vc, vn, d)
+                        reach_l, reach_r = -a, b
+                        # warp pairs whose rows all lie past the band skip it
+                        live = rows_c // unit_rows * unit_rows < staged
+                        ors[e, rows_c[live]] = (left | right)[live]
+                        has[e, rows_c[live]] = True
+                    ready = min(rows, (c + 1) * chunk - 2 * p.ry)
+                    n_new = ready - done
+                    if n_new <= 0:
+                        continue
+                    r = done + np.arange(n_new)[:, None]
+                    wv = np.arange(strip_words)[None, :]
+                    acc = np.zeros((n_new, strip_words), np.uint32)
+                    for dy, e in p.runs:                         # pass B
+                        srow = r + p.ry + dy
+                        assert has[e, srow].all()
+                        acc |= ors[e, srow, wv]
+                    assert -(-n_new // unit_rows) <= threads // 32  # warps that store
+                    i = np.arange(n_new * strip_words * 8)
+                    rr, qo = i // (strip_words * 8), i % (strip_words * 8)
+                    xo = x0 + qo * 4
+                    nibo = acc[rr, qo // 8] >> (4 * (qo % 8)).astype(np.uint64)
+                    dst = z * h * w + (y0 + done + rr) * w + xo
+                    if p.vec:
+                        assert (dst[xo < w] * 4 % 16 == 0).all()
+                    for k in range(4):
+                        kok = xo + k < w
+                        out[dst[kok] + k] = (nibo[kok] >> np.uint64(k)) & np.uint64(1)
+                        written[dst[kok] + k] += 1
+                    done = ready
+                assert done == rows
+    assert (written == 1).all()
+    return out.reshape(m, h, w), p
 
 
-@pytest.mark.parametrize("k_size", [30, 15])
-def test_kernel_algorithm_matches_plain(k_size):
-    """The CUDA kernel's bit-column algorithm (tile seams included) gives the
-    twin's map; the run order it needs nests for every width up to the 33 the
-    kernel's 64-bit masks allow."""
-    rs = np.random.RandomState(5)
-    alpha = _alpha(rs, (1, 40, 150))
+# (k_size, maps, H, W, start offset in floats, SM count): the main path's
+# widths and k=7, 2 and 67 (half width 16); band and strip seams inside the
+# maps; W not a multiple of 4 or 32, W under 32, H under 2 ry + 1, a start
+# 4 bytes off 16-byte alignment; bands at their floor and at their cap
+@pytest.mark.parametrize("k_size,m,h,w,offset,sms", [
+    (30, 2, 70, 300, 0, 4),
+    (27, 1, 64, 256, 0, 8),
+    (15, 3, 40, 130, 0, 16),
+    (7, 2, 50, 96, 1, 3),
+    (2, 1, 33, 140, 0, 4),
+    (67, 1, 20, 29, 0, 2),
+    (67, 1, 300, 200, 0, 4),
+    (30, 3, 72, 256, 0, 132),
+    (15, 1, 600, 64, 0, 1),
+    (30, 1, 120, 256, 0, 2),
+])
+def test_kernel_plan_matches_plain(k_size, m, h, w, offset, sms):
+    """The CUDA kernel's work plan gives the twin's map bit for bit."""
+    rs = np.random.RandomState(k_size + w)
+    alpha = _alpha(rs, (m, h, w), p=0.002 if k_size > 20 else 0.01)
+    alpha[0, 0, :] = np.float32(1 / 255)                          # on the thresholds
+    alpha[-1, :, -1] = np.float32(254 / 255)
+    alpha[0, h // 2, w // 3] = 0.5
+    mem = np.concatenate([rs.rand(offset).astype(np.float32), alpha.ravel()])
+    got, p = _unknown_kernel_emulation(mem, offset, m, h, w, k_size, sms)
     ref = ku.compute_unknown_plain(torch.from_numpy(alpha), k_size).numpy()
-    assert 0.05 < ref.mean() < 0.95
-    np.testing.assert_array_equal(_kernel_emulation(alpha, k_size), ref)
+    assert 0.0 < ref.mean() < 1.0
+    np.testing.assert_array_equal(got, ref)
+    assert p.vec == (offset == 0 and w % 4 == 0)                 # the host's instance
+    assert p.n_bands * p.band_rows >= h > (p.n_bands - 1) * p.band_rows
+
+
+def test_kernel_plan_at_the_main_path_and_its_limits():
+    """At (1, 3, 576, 1024) on 132 SMs: the 16-byte instance and two blocks per
+    SM. The extents nest for every width up to 33; a wider element is refused
+    before any launch, naming the largest k_size."""
+    p = ku.plan(3, 576, 1024, 30, 132)
+    assert p.vec and (p.band_rows, p.n_bands, p.n_strips) == (53, 11, 8)
+    assert [ku.plan(3, 576, 1024, k, 132).chunk_rows for k in (30, 27, 15)] == [40, 40, 32]
+    assert p.n_bands * p.n_strips * 3 == 2 * 132
+    assert not ku.plan(3, 576, 1024, 30, 132, in_addr=4).vec
     for width in range(1, 34):
         runs = ku._sorted_runs(width)
         assert len(runs) == max(int(ellipse_kernel(width).any(axis=1).sum()), 1)
-        assert max(abs(r[0]) for r in runs) <= 16
+        extents, table, ry = ku.run_table(2 * width)
+        assert ry <= 16 and all(-16 <= a <= b <= 16 for a, b in extents)
+        for (a0, b0), (a1, b1) in zip(extents, extents[1:]):
+            assert a1 <= a0 and b1 >= b0                         # nested
+        assert sorted((dy, *extents[e]) for dy, e in table) == sorted(runs)
     assert _ellipse_row_runs(15)[0] == (-7, 0, 0)
+    for k_size in (68, 69, 100):
+        with pytest.raises(ValueError, match="k_size up to 67"):
+            ku.plan(1, 8, 8, k_size, 132)
+    ku.plan(1, 8, 8, 67, 132)
 
 
 def test_select_blocks_ties_and_overflow_match_jax():
