@@ -26,7 +26,16 @@ Phases (any failure exits non-zero):
    yardstick and its memory bound, in f32 and bf16 (device time from
    CUDA-graph replay; eager times with host cost go to the details file); as
    yardsticks, the NCHW->NHWC copies of the gathered encoder maps that the
-   ladder no longer makes, and for K2 a clone of its input (the same bytes).
+   ladder no longer makes, and for K2 a clone of its input (the same bytes);
+5. the eval engine on the card: an HIM-style set of 4 frames at 720x1280
+   with 3 blob instances each, held in memory and decoded through the port's
+   ``HIMDataset`` (``ResizeShort`` downscales each to 576x1024 on the host),
+   answered by ``engine.test.eval_image`` with the configuration's metrics, in
+   f32 and bf16, and in f32 again with ``dataset.test.device_preprocess`` (the
+   resize, pad and normalize on the card); checks 5 gathers and 3 dilations per
+   frame, finite metrics, and frame 0's metrics against the port on the CPU
+   with the same preprocessing; prints frames/s with metrics on, the per-frame
+   forward / loader / host split and peak memory.
 
 Prints a ``{"kernels": [...]}`` line and the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to output/torch_port/chip_smoke.json.
@@ -75,6 +84,20 @@ BF16_MEAN_ATOL = 2e-4
 BF16_FAR = 0.05
 BF16_FAR_SHARE = 3e-5
 OUT_DIR = os.path.join("output", "torch_port")  # git-ignored (output/*)
+# phase 5: the eval engine on an HIM-style set held in memory
+ENGINE_FRAMES = 4
+ENGINE_SRC = (720, 1280)      # ResizeShort(576) takes each frame to 576x1024
+# frame 0's metrics on the card against the port on the CPU (relative error,
+# worst of the eight metrics). The first reading (PERF.md) was 7.37e-8
+# in f32, float rounding of alphas that agree to about 1e-7, so f32 may grow
+# to 1e-5; and 1.59e-4 in bf16, so bf16 may grow to 1e-3 (about 6x). A wrong
+# instance or a lost frame moves a metric by far more.
+ENGINE_F32_RTOL = 1e-5
+ENGINE_BF16_RTOL = 1e-3
+# the same, f32 with device_preprocess on both sides (the card's and the CPU's
+# f32 resize may round the model input differently): the first reading was
+# 7.65e-8 (PERF.md), as the host chain's, so it keeps the f32 limit.
+ENGINE_DP_RTOL = ENGINE_F32_RTOL
 
 
 def fail(msg: str) -> None:
@@ -403,6 +426,12 @@ def main() -> int:
         print(f"    k={row['k']}: kernel {row['ms'] * 1e3:.2f} us (uniform input "
               f"{row['uniform_ms'] * 1e3:.2f}), bound {row['bound_ms'] * 1e3:.2f} us, copy "
               f"{row['copy_ms'] * 1e3:.2f} us", flush=True)
+
+    # ---- phase 5: the eval engine ----
+    engine = phase_engine(cpu_model, model, bf16_model, detail)
+    for kern in kernels:
+        kern["engine_launches"] = engine["launches"][kern["name"]]
+
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1)
@@ -412,6 +441,140 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def engine_set(root: str) -> dict:
+    """An HIM-style eval set of ENGINE_FRAMES frames held in memory. ``root``
+    gets empty files under the HIM layout's names (what ``HIMDataset``
+    indexes); the returned dict maps each path to its decoded array: the
+    frame, each instance's blob alpha, and its guidance mask (the alpha
+    binarized, then degraded by an 8x nearest down/up)."""
+    from maggie_tpu_torch.flagship import blob_alpha, flagship_cfg
+    t = flagship_cfg().dataset.test
+    h, w = ENGINE_SRC
+    arrays = {}
+    for i in range(ENGINE_FRAMES):
+        rs = np.random.RandomState(100 + i)
+        name = f"frame{i}"
+        arrays[os.path.join(root, "images", t.split, name + ".jpg")] = \
+            rs.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        for j, a in enumerate(blob_alpha(h, w, N_INST, rs)):
+            a = np.round(a * 255).astype(np.uint8)
+            m = ((a > 127) * 255).astype(np.uint8)[::8, ::8].repeat(8, 0).repeat(8, 1)[:h, :w]
+            for d, arr in ((t.alpha_dir_name, a), (t.mask_dir_name, m)):
+                arrays[os.path.join(root, d, t.split, name, f"{j:02d}.png")] = arr
+    for path in arrays:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        open(path, "wb").close()
+    return arrays
+
+
+def phase_engine(cpu_model, model, bf16_model, detail) -> dict:
+    """Phase 5: ``eval_image`` over the in-memory set on the card, f32, bf16
+    and f32 with device_preprocess, then frame 0 on the CPU with the host and
+    the device preprocessing; fails on a launch count, a non-finite metric or
+    frame 0's metrics beyond the limits."""
+    import tempfile
+    from maggie_tpu_torch.data import build_dataset
+    from maggie_tpu_torch.data.loader import DataLoader
+    from maggie_tpu_torch.engine import test as eng
+    from maggie_tpu_torch.flagship import flagship_cfg
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+
+    cfg = flagship_cfg()
+    dp_cfg = cfg.clone()
+    dp_cfg.dataset.test.device_preprocess = True
+    per_frame, metrics_s = [], []
+    compute_metrics = eng.compute_metrics
+
+    def keep(*args, **kwargs):   # every frame's metric values, as eval_image logs them
+        t0 = time.perf_counter()
+        current = compute_metrics(*args, **kwargs)
+        metrics_s.append(time.perf_counter() - t0)
+        per_frame.append({k: float(v) for k, v in current.items()})
+        return current
+
+    out = {"frames": ENGINE_FRAMES, "source_hw": list(ENGINE_SRC), "metrics": cfg.test.metrics}
+    with tempfile.TemporaryDirectory() as root:
+        arrays = engine_set(root)
+        cfg.dataset.test.root_dir = dp_cfg.dataset.test.root_dir = root
+        eng.compute_metrics = keep
+        try:
+            for name, m, c in (("fp32", model, cfg), ("bf16", bf16_model, cfg),
+                               ("fp32_device_preprocess", model, dp_cfg),
+                               ("cpu", cpu_model, cfg),
+                               ("cpu_device_preprocess", cpu_model, dp_cfg)):
+                on_card = not name.startswith("cpu")
+                ds = build_dataset(c, is_train=False, device="cuda" if on_card else "cpu",
+                                   decode=lambda p, mode: arrays[p])
+                loader = DataLoader(ds if on_card else [ds[0]], batch_size=1)
+                metrics = eng.eval_metrics(cfg.test.metrics)
+                per_frame.clear()
+                metrics_s.clear()
+                if on_card:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    kg.launches = 0
+                    ku.launches = 0
+                t0 = time.perf_counter()
+                batch_s, data_s, host_s = eng.eval_image(m, loader, cfg.test.log_iter, metrics)
+                wall = time.perf_counter() - t0
+                run = {"wall_s": wall, "frames_per_s": len(per_frame) / wall,
+                       "batch_time_s": batch_s, "data_time_s": data_s, "host_time_s": host_s,
+                       "metrics_time_s": float(np.mean(metrics_s)),
+                       "per_frame": list(per_frame),
+                       "average": {k: float(v.average()) for k, v in metrics.items()}}
+                if on_card:
+                    run["launches"] = {"gather_patches": kg.launches,
+                                       "compute_unknown": ku.launches}
+                    run["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+                    want = {"gather_patches": 5 * ENGINE_FRAMES, "compute_unknown": 3 * ENGINE_FRAMES}
+                    if run["launches"] != want:
+                        fail(f"engine {name}: launch counts {run['launches']} != 5 and 3 "
+                             f"per frame over {ENGINE_FRAMES} frames")
+                    if len(per_frame) != ENGINE_FRAMES or not all(
+                            np.isfinite(v) for f in per_frame for v in f.values()):
+                        fail(f"engine {name}: {len(per_frame)} frames, metrics {per_frame}")
+                out[name] = run
+        finally:
+            eng.compute_metrics = compute_metrics
+
+    def rel_err(name, ref):
+        ref = out[ref]["per_frame"][0]
+        return {k: abs(out[name]["per_frame"][0][k] - v) / max(abs(v), 1e-12)
+                for k, v in ref.items()}
+
+    card_runs = ("fp32", "bf16", "fp32_device_preprocess")
+    for name, ref, limit in (("fp32", "cpu", ENGINE_F32_RTOL), ("bf16", "cpu", ENGINE_BF16_RTOL),
+                             ("fp32_device_preprocess", "cpu_device_preprocess", ENGINE_DP_RTOL)):
+        rel = out[name]["frame0_rel_err_vs_cpu"] = rel_err(name, ref)
+        if max(rel.values()) > limit:
+            fail(f"engine {name}: frame 0 metrics differ from the CPU port by {rel} > {limit}")
+    # what a user sees change when switching device_preprocess on: no limit,
+    # the two preprocessings differ by design (data/device_pipeline.py)
+    out["device_preprocess_vs_host_frame0_rel_err"] = rel_err("fp32_device_preprocess", "fp32")
+    out["launches"] = {k: sum(out[n]["launches"][k] for n in card_runs)
+                       for k in out["fp32"]["launches"]}
+    detail["engine"] = out
+    for name in card_runs:
+        r = out[name]
+        print(f"phase 5: engine {name}: {ENGINE_FRAMES} frames ({ENGINE_SRC[0]}x{ENGINE_SRC[1]} "
+              f"-> 576x1024, {N_INST} instances) in {r['wall_s']:.3f} s, "
+              f"{r['frames_per_s']:.4f} frames/s with metrics on; per frame: batch_time "
+              f"{r['batch_time_s']:.4f} s, data_time {r['data_time_s']:.4f} s, host "
+              f"{r['host_time_s']:.4f} s (metrics {r['metrics_time_s']:.4f} s, the rest reverse "
+              f"transform and clamp); peak device memory "
+              f"{r['peak_mem_bytes']} bytes; launches {r['launches']}; frame 0 vs CPU max rel "
+              f"err {max(r['frame0_rel_err_vs_cpu'].values()):.3g}", flush=True)
+    on, off = out["fp32_device_preprocess"], out["fp32"]
+    print(f"phase 5: device_preprocess on vs off (f32): data_time {on['data_time_s']:.4f} vs "
+          f"{off['data_time_s']:.4f} s per frame, {on['frames_per_s']:.4f} vs "
+          f"{off['frames_per_s']:.4f} frames/s; frame 0 metrics max rel diff "
+          f"{max(out['device_preprocess_vs_host_frame0_rel_err'].values()):.3g}", flush=True)
+    print(f"phase 5: CPU frame 0 in {out['cpu']['wall_s']:.1f} s "
+          f"({out['cpu_device_preprocess']['wall_s']:.1f} s with device_preprocess); metrics "
+          f"{out['cpu']['per_frame'][0]}", flush=True)
+    return out
 
 
 def stage_split(model, batch, frame_ms: float) -> dict:

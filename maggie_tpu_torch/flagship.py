@@ -1,11 +1,11 @@
 """The flagship MaGGIe image configuration and the bench condition's inputs.
 
-``flagship_cfg`` is ``configs/maggie_image.yaml``'s model built in code (the
-host that runs the port may lack PyYAML), as ``__graft_entry__._image_model_cfg``
-builds it: encoder ``res_shortcut_embed_29``, decoder
+``flagship_cfg`` is ``configs/maggie_image.yaml`` built in code (the host that
+runs the port may lack PyYAML): its model as ``__graft_entry__._image_model_cfg``
+builds it, encoder ``res_shortcut_embed_29``, decoder
 ``res_shortcut_inst_matt_spconv_22`` at full width (atten_dim 128,
 final_channel 64, num_mask 10, max_inst 10, num_embed 3), block-sparse ladder
-at capacity 0.5. ``blob_batch`` is ``bench.py::_blob_batch``'s numpy recipe:
+at capacity 0.5; and its eval settings (``dataset.test`` and ``test``). ``blob_batch`` is ``bench.py::_blob_batch``'s numpy recipe:
 one frame with ``n_i`` soft-disc instances and their masks at 1/8 resolution.
 """
 
@@ -27,6 +27,11 @@ def flagship_cfg(precision: str = "fp32") -> ConfigNode:
         atten_block=2, atten_dim=128, atten_head=1, atten_stride=1, final_channel=64,
         max_inst=10, use_id_pe=True, sparse_mode="block", block_cap_frac=0.5))
     cfg.model.precision = precision
+    cfg.dataset.test.update(dict(
+        name="HIM", root_dir="data/HIM2K_M-HIM2K", split="comp", short_size=576,
+        downscale_mask=False, alpha_dir_name="alphas", mask_dir_name="masks_matched_r50_fpn_3x"))
+    cfg.test.update(dict(batch_size=1, log_iter=100, metrics=["MAD", "MSE", "SAD", "Grad", "Conn"],
+                         postprocessing=False, save_results=False))
     return cfg
 
 

@@ -5,6 +5,9 @@ element is reproduced bit-exactly (cv2's banker's rounding and even-width anchor
 asymmetry included), and the dilation of a 0/1 map is the max over the
 element's row runs of vertically shifted horizontal run-maxes.
 
+``grey_dilate_ellipse`` and ``grey_erode_ellipse`` are cv2's dilation and
+erosion of float maps, in numpy for the eval data pipeline's transition band.
+
 Eval-mode ``compute_unknown`` (threshold, then this dilation) lives beside its
 CUDA kernel in ``ops/kernels/unknown.py``. Train mode (a random width per map,
 ``dilate_ellipse_random``) comes with the training slice.
@@ -96,3 +99,46 @@ def dilate_ellipse(binary: torch.Tensor, width: int) -> torch.Tensor:
         shifted = _vshift(hmax[(a, b)], dy)
         out = shifted if out is None else torch.maximum(out, shifted)
     return (out > 0.0).reshape(lead + (H, W)).to(binary.dtype)
+
+
+def grey_dilate_ellipse(x: np.ndarray, width: int) -> np.ndarray:
+    """``cv2.dilate(x, MORPH_ELLIPSE(width))`` of float32 maps (..., H, W), on
+    the host: the max over the element of in-map pixels.
+
+    Pixels outside the map are ignored, as cv2 ignores them, by padding with
+    -inf: the zero padding of ``dilate_ellipse`` is exact only for maps that
+    are 0 or above, and would break ``grey_erode_ellipse``, which dilates the
+    negated map. Each row run's horizontal max comes from a doubling table
+    (max over 1, 2, 4, ... columns; two lookups per run), then one vertical
+    max per row of the element."""
+    if width <= 1:
+        return x
+    runs = _ellipse_row_runs(width)
+    H, W = x.shape[-2:]
+    lead = x.shape[:-2]
+    left, right = max(-a for _, a, _ in runs), max(b for _, _, b in runs)
+    up, down = max(-dy for dy, _, _ in runs), max(dy for dy, _, _ in runs)
+    table = [np.full(lead + (H, left + W + right), -np.inf, np.float32)]
+    table[0][..., left:left + W] = x
+    span = 1
+    while 2 * span <= max(b - a + 1 for _, a, b in runs):
+        t = table[-1]
+        table.append(np.maximum(t[..., :-span], t[..., span:]))
+        span *= 2
+    out = np.full(lead + (H, W), -np.inf, np.float32)
+    hrun = np.full(lead + (up + H + down, W), -np.inf, np.float32)
+    for a, b in dict.fromkeys((a, b) for _, a, b in runs):
+        k = (b - a + 1).bit_length() - 1
+        lo, hi = left + a, left + b - (1 << k) + 1
+        np.maximum(table[k][..., lo:lo + W], table[k][..., hi:hi + W],
+                   out=hrun[..., up:up + H, :])
+        for dy, a2, b2 in runs:
+            if (a2, b2) == (a, b):
+                np.maximum(out, hrun[..., up + dy:up + dy + H, :], out=out)
+    return out
+
+
+def grey_erode_ellipse(x: np.ndarray, width: int) -> np.ndarray:
+    """``cv2.erode(x, MORPH_ELLIPSE(width))`` of float32 maps: the dual of
+    ``grey_dilate_ellipse``, the min over the element of in-map pixels."""
+    return -grey_dilate_ellipse(-x, width)

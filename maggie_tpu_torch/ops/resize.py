@@ -4,6 +4,7 @@ Bilinear resizes are written as two products with the same precomputed
 interpolation matrices the JAX package uses (float64 source indices, f32
 weights). That keeps the port's alphas within float rounding of the
 reference's, which matters because ``compute_unknown`` thresholds them.
+``resize_bilinear_np`` is the same resize in numpy, for the eval's host side.
 """
 
 from __future__ import annotations
@@ -70,6 +71,25 @@ def resize_bilinear_nhwc(x: torch.Tensor, size: tuple[int, int],
     """Bilinear resize for NHWC feature tensors (spatial dims 1 and 2)."""
     y = resize_bilinear(x.permute(0, 3, 1, 2), size, align_corners)
     return y.permute(0, 2, 3, 1)
+
+
+def resize_bilinear_np(x: np.ndarray, size: tuple[int, int],
+                       align_corners: bool = False) -> np.ndarray:
+    """Host (numpy) twin of :func:`resize_bilinear` with the same matrices and
+    the JAX package's f32 einsums (``maggie_tpu/ops/resize.py:73``), so eval's
+    ``reverse_transform`` gives its numbers bit for bit."""
+    h_in, w_in = x.shape[-2], x.shape[-1]
+    h_out, w_out = size
+    if (h_in, w_in) == (h_out, w_out):
+        return x
+    dtype = x.dtype
+    wh = _linear_weight_matrix(h_in, h_out, align_corners)
+    ww = _linear_weight_matrix(w_in, w_out, align_corners)
+    lead = x.shape[:-2]
+    y = x.reshape((-1, h_in, w_in)).astype(np.float32)
+    y = np.einsum("oh,bhw->bow", wh, y)
+    y = np.einsum("bow,pw->bop", y, ww)
+    return y.reshape(lead + (h_out, w_out)).astype(dtype)
 
 
 def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:

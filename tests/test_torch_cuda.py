@@ -8,6 +8,8 @@ JAX nor ``maggie_tpu``, so it also runs on a GPU host without them:
 Both kernels are copies or 0/1 maps: they must equal their twins exactly.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -164,3 +166,55 @@ def test_compute_unknown_kernel_refuses_wider_elements(card):
 def test_compute_unknown_kernel_rejects_other_dtypes(card):
     with pytest.raises(TypeError):
         ku.compute_unknown(torch.zeros(1, 8, 8, device=card, dtype=torch.bfloat16), 15)
+
+
+def test_eval_image_on_the_card(card, tmp_path):
+    """``engine.test.eval_image`` on two 160x240 frames (``ResizeShort`` takes
+    each to 128x192) with a reduced flagship model: 5 gathers and 3 dilations
+    per frame, finite metrics, and each averaged metric within rtol 1e-2 of
+    the same run on the CPU (TF32 off; a pixel whose os8 alpha sits on a
+    threshold may flip the detail mask on one side only)."""
+    import copy
+    from maggie_tpu_torch.data import build_dataset
+    from maggie_tpu_torch.data.loader import DataLoader
+    from maggie_tpu_torch.engine.test import eval_image, eval_metrics
+    from maggie_tpu_torch.flagship import blob_alpha, flagship_cfg
+    from maggie_tpu_torch.models import build_model
+    from maggie_tpu_torch.utils.checkpoint import fold_spectral_norm
+
+    cfg = flagship_cfg()
+    cfg.model.decoder_args.update(dict(atten_dim=32, final_channel=32))
+    t = cfg.dataset.test
+    t.update(dict(root_dir=str(tmp_path), short_size=128))
+    arrays = {}
+    for i in range(2):
+        rs = np.random.RandomState(i)
+        arrays[str(tmp_path / "images" / t.split / f"f{i}.jpg")] = \
+            rs.randint(0, 256, (160, 240, 3)).astype(np.uint8)
+        for j, a in enumerate(blob_alpha(160, 240, 2, rs)):
+            a = np.round(a * 255).astype(np.uint8)
+            for d, arr in ((t.alpha_dir_name, a), (t.mask_dir_name, (a > 127).astype(np.uint8) * 255)):
+                arrays[str(tmp_path / d / t.split / f"f{i}" / f"{j:02d}.png")] = arr
+    for path in arrays:   # HIMDataset indexes the files; ``decode`` reads the arrays
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        open(path, "wb").close()
+    cpu_model = fold_spectral_norm(build_model(cfg.model, device="cpu"))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        results = {}
+        for dev in ("cpu", "cuda"):
+            model = copy.deepcopy(cpu_model).to(dev)
+            ds = build_dataset(cfg, is_train=False, decode=lambda p, mode: arrays[p])
+            metrics = eval_metrics(cfg.test.metrics)
+            before = (kg.launches, ku.launches)
+            eval_image(model, DataLoader(ds, batch_size=1), 1, metrics)
+            torch.cuda.synchronize()
+            if dev == "cuda":
+                assert (kg.launches - before[0], ku.launches - before[1]) == (10, 6)
+            results[dev] = {k: m.average() for k, m in metrics.items()}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert all(np.isfinite(v) for v in results["cuda"].values())
+    for k, v in results["cpu"].items():
+        assert abs(results["cuda"][k] - v) <= 1e-2 * abs(v), (k, results)
