@@ -35,7 +35,18 @@ Phases (any failure exits non-zero):
    resize, pad and normalize on the card); checks 5 gathers and 3 dilations per
    frame, finite metrics, and frame 0's metrics against the port on the CPU
    with the same preprocessing; prints frames/s with metrics on, the per-frame
-   forward / loader / host split and peak memory.
+   forward / loader / host split and peak memory;
+6. the train step (``engine.train_step.make_train_step``, AdamW with the
+   cosine schedule, gradients through K1's backward kernel): one f32 step of
+   the full-width model on the card against the same step on the CPU (plain
+   twins) at a reduced batch (2 x 256x256); then 5 steps in f32 and 5 in bf16
+   at ``tools/bench_train.py``'s condition (batch 2, 512x512, 10 instance
+   slots, synthetic batch from a seed), checking finite losses and 10 K1, 6
+   K1-backward and 1 K2 launches per step, with ms/step, peak memory and the
+   kernels' device time; K1's backward timed per call beside its bound, its
+   twin and an ``index_put_`` yardstick. Phase 2 also holds K1's forward at
+   every train call and its backward at every differentiable one (f32, bf16,
+   per-instance, per-image, and a capacity past the tile count) bit for bit.
 
 Prints a ``{"kernels": [...]}`` line and the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to output/torch_port/chip_smoke.json.
@@ -70,6 +81,28 @@ GATHER_CALLS = (
     ("sc0_input", (1, 576, 1024, 6), 64, 5, True, "plane"),
 )
 UNKNOWN_K = (30, 27, 15)
+# Train-path K1 calls per step (decoder_sparse.py predict_details_block_train)
+# at the card condition (tools/bench_train.py's: batch 2, 512x512, 10 slots, so
+# N = 20 instance maps, an 8x8 grid of os1 blocks, cap 640): (name, map shape
+# (N, H, W, C), block, halo, per-image index?, layout, differentiable?).
+TRAIN_BATCH, TRAIN_HW, TRAIN_SLOTS = 2, 512, 10
+TRAIN_CAP = 640               # round(0.5 * 20 maps * 64 blocks)
+TRAIN_GATHER_CALLS = (
+    ("x8", (20, 64, 64, 64), 8, 3, False, "pixel", True),
+    ("m8", (20, 64, 64, 1), 8, 3, False, "pixel", False),
+    ("m4", (20, 128, 128, 1), 16, 6, False, "pixel", False),
+    ("fea3", (2, 128, 128, 64), 16, 4, True, "plane", True),
+    ("x4_dense", (20, 128, 128, 64), 16, 1, False, "pixel", True),
+    ("m2", (20, 256, 256, 1), 32, 2, False, "pixel", False),
+    ("fea2", (2, 256, 256, 32), 32, 0, True, "plane", True),
+    ("x2_dense", (20, 256, 256, 32), 32, 2, False, "pixel", True),
+    ("m1", (20, 512, 512, 1), 64, 4, False, "pixel", False),
+    ("fea1", (2, 512, 512, 32), 64, 3, True, "plane", True),
+)
+TRAIN_STEPS = 5
+# phase 6's card-vs-CPU step: the full-width model on a smaller batch, so that
+# the CPU step (plain twins) takes seconds: batch 2 at 256x256, 10 slots.
+REDUCED_BATCH, REDUCED_HW = 2, 256
 # refined_masks GPU (cuDNN/cuBLAS f32, TF32 off) vs CPU (plain twins): the two
 # differ only by summation order through ~70 conv/matmul layers of random
 # weights; 1e-3 is the reference's own alpha parity budget (MAD 1e-3).
@@ -159,6 +192,32 @@ def sample_indices(shape, block, per_image, dev, rs):
     return [torch.from_numpy(a.astype(np.int64)).to(dev) for a in (idx_n, by, bx)]
 
 
+def train_indices(shape, block, per_image, dev, rs):
+    """TRAIN_CAP entries over the train maps' 8x8 block grid, as select_blocks
+    gives them: distinct (map, by, bx) tiles in random order; per-image calls
+    index with n // TRAIN_SLOTS (up to 10 entries per tile). A map with fewer
+    tiles than TRAIN_CAP gets them all, then entries repeating tile 0, as
+    select_blocks pads a capacity past the tile count."""
+    nb = TRAIN_HW // 64
+    assert shape[1] // block == nb and shape[2] // block == nb, (shape, block)
+    maps = shape[0] * (TRAIN_SLOTS if per_image else 1)
+    tiles = rs.permutation(maps * nb * nb)[:TRAIN_CAP]
+    tiles = np.concatenate([tiles, np.zeros(TRAIN_CAP - len(tiles), np.int64)])
+    idx_n = tiles // (nb * nb) // (TRAIN_SLOTS if per_image else 1)
+    rem = tiles % (nb * nb)
+    return [torch.from_numpy(a.astype(np.int64)).to(dev) for a in (idx_n, rem // nb, rem % nb)]
+
+
+def train_gather_cases():
+    """(name, shape, block, halo, per_image, layout, differentiable) at every
+    train call; each differentiable per-instance call also on an 8-map copy,
+    whose 512 tiles the 640 entries overflow."""
+    for name, shape, block, halo, per_image, layout, grad in TRAIN_GATHER_CALLS:
+        yield name, shape, block, halo, per_image, layout, grad
+        if grad and not per_image:
+            yield name + "_overflow", (8,) + shape[1:], block, halo, per_image, layout, grad
+
+
 def gather_map(shape, layout, dtype, dev, seed=None) -> torch.Tensor:
     """A map (N, H, W, C) in the memory layout the main path hands the kernel:
     random normal from ``seed``, else uniform on the card."""
@@ -206,6 +265,39 @@ def phase_kernels(dev, detail) -> dict:
             worst["gather"] = max(worst["gather"], err)
             out["gather"].append({"call": name, "dtype": str(dt), "shape": list(shape),
                                   "layout": layout, "out": list(got.shape), "equal": True})
+
+    # the train path: K1's forward at every train call, and its backward (bit
+    # for bit: the twin sums in the kernel's order) at every differentiable one
+    out["gather_bwd"] = []
+    worst["gather_bwd"] = 0.0
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for name, shape, block, halo, per_image, layout, grad in train_gather_cases():
+        idx = train_indices(shape, block, per_image, dev, rs)
+        for dt in gather_dtypes(shape):
+            feat = gather_map(shape, layout, dt, dev)
+            got = kg.gather_patches(feat, *idx, block, halo)
+            ref = kg.gather_patches_plain(feat, *idx, block, halo)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                fail(f"gather train {name} {dt}: kernel != plain twin "
+                     f"(max |diff| {float((got.float() - ref.float()).abs().max())})")
+            out["gather"].append({"call": "train_" + name, "dtype": str(dt), "shape": list(shape),
+                                  "layout": layout, "out": list(got.shape), "equal": True})
+            if not grad:
+                continue
+            g = torch.randn(got.shape, device=dev, generator=gen).to(dt)
+            plane = layout == "plane"
+            got = kg.gather_patches_bwd(g, *idx, shape, block, halo, plane)
+            ref = kg.gather_patches_bwd_plain(g, *idx, shape, block, halo, plane)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            if not torch.equal(got, ref) or got.stride() != ref.stride():
+                fail(f"gather backward {name} {dt}: kernel != plain twin (max |diff| {err}, "
+                     f"strides {got.stride()} vs {ref.stride()})")
+            worst["gather_bwd"] = max(worst["gather_bwd"], err)
+            out["gather_bwd"].append({"call": name, "dtype": str(dt), "shape": list(shape),
+                                      "layout": layout, "per_image": per_image,
+                                      "equal": True})
 
     def check_unknown(a, k, label):
         got = ku.compute_unknown(a, k)
@@ -328,6 +420,7 @@ def main() -> int:
     worst = phase_kernels(dev, detail)
     print(f"phase 2: kernels equal to their plain twins at every main-path shape "
           f"({len(detail['kernel_checks']['gather'])} gather, "
+          f"{len(detail['kernel_checks']['gather_bwd'])} gather backward, "
           f"{len(detail['kernel_checks']['unknown'])} compute_unknown cases)", flush=True)
 
     # ---- phase 3: the main path ----
@@ -431,6 +524,11 @@ def main() -> int:
     engine = phase_engine(cpu_model, model, bf16_model, detail)
     for kern in kernels:
         kern["engine_launches"] = engine["launches"][kern["name"]]
+
+    # ---- phase 6: the train step ----
+    kernels.append(phase_train(dev, worst, detail))
+    for kern in kernels[:2]:
+        kern["train_launches"] = detail["train"]["fp32"]["launches"][kern["name"]]
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -575,6 +673,260 @@ def phase_engine(cpu_model, model, bf16_model, detail) -> dict:
           f"({out['cpu_device_preprocess']['wall_s']:.1f} s with device_preprocess); metrics "
           f"{out['cpu']['per_frame'][0]}", flush=True)
     return out
+
+
+TRAIN_FLAGS = dict(use_mask_atten=False, use_gt_guidance=False, use_prm_weights=True,
+                   atten_loss_enabled=True)   # tools/bench_train.py:48
+# Card vs CPU port after one f32 step at the reduced size (TF32 off). The two
+# sum every conv, matmul and BatchNorm statistic in another order, and this
+# random-weight network amplifies such differences through ~70 layers of
+# batch statistics: on the CPU alone, 1 vs 8 threads move the gradients by up
+# to 8e-3 (relative L2 of one tensor, tests/test_torch_train.py), so
+# - loss terms: relative 1e-4 above an absolute 1e-6 (the attention loss of
+#   bench_train's uniform alphas is 0 up to rounding: 1.2e-7 on the card and
+#   7.9e-8 on the CPU in the first reading);
+# - gradients before clipping: relative L2 over all parameters 5e-2;
+# - parameters after the step: AdamW's first update is lr * g / (|g| + eps),
+#   about lr = 6e-6 whatever |g|, so a gradient element near 0 whose sign
+#   differs moves its parameter by up to 2 lr: every element within 2 lr +
+#   1e-6, and at most 2% of them beyond 1e-6;
+# - BatchNorm running statistics: 1e-4 absolute; spectral-norm u/v: 1e-5.
+STEP_LOSS_RTOL = 1e-4
+STEP_LOSS_ATOL = 1e-6
+STEP_GRAD_REL_L2 = 5e-2
+STEP_PARAM_FAR_SHARE = 0.02
+STEP_STATS_ATOL = 1e-4
+STEP_SN_ATOL = 1e-5
+
+
+def phase_train(dev, worst, detail) -> dict:
+    """Phase 6: the card-vs-CPU step, the full-width steps in f32 and bf16, and
+    K1's backward timed per call; returns K1 backward's kernels-line entry."""
+    check = card_vs_cpu_step(dev)
+    print(f"phase 6: one f32 step on the card vs the CPU port ({check['size']}; CPU step "
+          f"{check['cpu_step_s']:.1f} s): loss terms max rel {check['loss_max_rel']:.3g}, "
+          f"gradients rel L2 {check['grad_rel_l2']:.3g}, params max |d| "
+          f"{check['param_max_abs']:.3g} (share beyond 1e-6 {check['param_far_share']:.3g}), "
+          f"BN stats max |d| {check['batch_stats_max_abs']:.3g}, SN u/v max |d| "
+          f"{check['spectral_max_abs']:.3g}", flush=True)
+    if not check["within"]:
+        fail(f"train step on the card differs from the CPU port beyond the limits: {check}")
+    runs = {"reduced_check": check}
+    for precision in ("fp32", "bf16"):
+        r = runs[precision] = train_run(dev, precision)
+        k = r["ported_kernels_ms_per_step"]
+        print(f"phase 6: train {precision} (batch {TRAIN_BATCH}, {TRAIN_HW}x{TRAIN_HW}, "
+              f"{TRAIN_SLOTS} slots): {r['ms_per_step_median']:.3f} ms/step (median of steps "
+              f"2-{TRAIN_STEPS}), peak device memory {r['peak_mem_bytes']} bytes, launches per "
+              f"step {r['launches_per_step']}; kernels {r['kernel_ms_per_step']:.3f} ms/step "
+              f"(busy share {r['busy_share']:.3f}), of which K1 {k['gather_patches']:.3f}, K1 "
+              f"backward {k['gather_patches_bwd']:.3f}, K2 {k['compute_unknown']:.3f}; losses "
+              f"{[round(ld['total'], 6) for ld in r['losses']]}", flush=True)
+    detail["train"] = runs
+    t = time_gather_bwd(dev, detail)
+    for frame in ("fp32", "bf16"):
+        f = t[frame]
+        print(f"phase 6: K1 backward per {frame} step (6 calls): kernel {f['ms']:.4f} ms, bound "
+              f"{f['bound_ms']:.4f} ms, twin {f['plain_ms']:.4f} ms, index_put_ "
+              f"{f['library_ms']:.4f} ms", flush=True)
+    for row in t["calls"]:
+        print(f"    {row['call']} {row['dtype']} {row['layout']}: kernel {row['ms'] * 1e3:.2f} us, "
+              f"bound {row['bound_ms'] * 1e3:.2f} us, index_put_ {row['library_ms'] * 1e3:.2f} us",
+              flush=True)
+    launches = runs["fp32"]["launches"]["gather_patches_bwd"]
+    return {"name": "gather_patches_bwd", "route": "cuda",
+            "source": "maggie_tpu_torch/ops/kernels/csrc/gather_patches_bwd.cu",
+            "replaces": "maggie_tpu/ops/blocksparse.py:80",
+            "launches": launches, "launches_per_step": launches // TRAIN_STEPS,
+            "max_abs_err": worst["gather_bwd"],
+            "ms": t["fp32"]["ms"], "plain_ms": t["fp32"]["plain_ms"],
+            "bound_ms": t["fp32"]["bound_ms"], "bound_by": "bytes",
+            "library_ms": t["fp32"]["library_ms"],
+            "bf16_ms": t["bf16"]["ms"], "bf16_bound_ms": t["bf16"]["bound_ms"]}
+
+
+def one_step(model, batch, generator, cfg) -> dict:
+    """One ``make_train_step`` step of ``model`` (train mode) from a fresh
+    optimizer: the loss dict, every gradient before the clip, the learning
+    rate, and the parameters, BatchNorm statistics and spectral u/v after."""
+    from maggie_tpu_torch.engine import train_step as ts
+    from maggie_tpu_torch.engine.optim import build_optimizer
+    model.train()
+    opt, schedule = build_optimizer(cfg, model.parameters())
+    state = ts.TrainState(model, opt)
+    step = ts.make_train_step(model, opt, schedule)
+    grads, clip = [], ts.clip_by_global_norm_
+
+    def keep(gs, *args, **kwargs):   # the gradients as the clip receives them
+        grads.extend(g.detach().float().cpu().clone() for g in gs)
+        return clip(gs, *args, **kwargs)
+    ts.clip_by_global_norm_ = keep
+    try:
+        losses = step(state, batch, generator, **TRAIN_FLAGS)
+    finally:
+        ts.clip_by_global_norm_ = clip
+    cpu = lambda d: {k: v.detach().float().cpu() for k, v in d.items()}
+    return {"losses": {k: float(v) for k, v in losses.items()}, "lr": schedule(0),
+            "grads": dict(zip((k for k, _ in model.named_parameters()), grads)),
+            "params": cpu(state.params()), "batch_stats": cpu(state.batch_stats()),
+            "spectral": cpu(state.spectral())}
+
+
+def compare_steps(a: dict, b: dict) -> dict:
+    """The largest differences between two ``one_step`` results, and whether
+    each is within its STEP_* limit."""
+    loss = max(abs(a["losses"][k] - v) / max(abs(v), STEP_LOSS_ATOL / STEP_LOSS_RTOL)
+               for k, v in b["losses"].items())
+    num = sum(float(((a["grads"][k] - g).double() ** 2).sum()) for k, g in b["grads"].items())
+    den = sum(float((g.double() ** 2).sum()) for g in b["grads"].values())
+    d = {k: (a["params"][k] - v).abs() for k, v in b["params"].items()}
+    n_far = sum(int((v > 1e-6).sum()) for v in d.values())
+    out = {"loss_max_rel": loss, "grad_rel_l2": (num / den) ** 0.5,
+           "param_max_abs": max(float(v.max()) for v in d.values()),
+           "param_far_share": n_far / sum(v.numel() for v in d.values()),
+           "batch_stats_max_abs": max(float((a["batch_stats"][k] - v).abs().max())
+                                      for k, v in b["batch_stats"].items()),
+           "spectral_max_abs": max(float((a["spectral"][k] - v).abs().max())
+                                   for k, v in b["spectral"].items())}
+    out["within"] = (loss <= STEP_LOSS_RTOL and out["grad_rel_l2"] <= STEP_GRAD_REL_L2
+                     and out["param_max_abs"] <= 2 * b["lr"] + 1e-6
+                     and out["param_far_share"] <= STEP_PARAM_FAR_SHARE
+                     and out["batch_stats_max_abs"] <= STEP_STATS_ATOL
+                     and out["spectral_max_abs"] <= STEP_SN_ATOL)
+    return out
+
+
+def card_vs_cpu_step(dev) -> dict:
+    """Phase 6.1: one f32 step of the full-width model (seed 0) on the card and
+    on the CPU (plain twins) on the same reduced batch, the random draws
+    (dropout, dilation widths) from CPU generators of one seed on both sides."""
+    from maggie_tpu_torch.flagship import flagship_cfg, train_batch
+    from maggie_tpu_torch.models import build_model
+    cfg = flagship_cfg()
+    cpu_model = build_model(cfg.model, device="cpu", generator=torch.Generator().manual_seed(0))
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    batch = train_batch(REDUCED_BATCH, REDUCED_HW, REDUCED_HW, TRAIN_SLOTS, seed=1)
+    t0 = time.perf_counter()
+    cpu = one_step(cpu_model, batch, torch.Generator().manual_seed(3), cfg)
+    cpu_s = time.perf_counter() - t0
+    card = one_step(card_model, {k: v.to(dev) for k, v in batch.items()},
+                    torch.Generator().manual_seed(3), cfg)
+    out = compare_steps(card, cpu)
+    out.update(cpu_step_s=cpu_s, size=f"batch {REDUCED_BATCH}, {REDUCED_HW}x{REDUCED_HW}, "
+               f"{TRAIN_SLOTS} slots", losses_card=card["losses"], losses_cpu=cpu["losses"])
+    return out
+
+
+def train_run(dev, precision: str) -> dict:
+    """Phase 6.2: TRAIN_STEPS full-width steps at the card condition from seed
+    0: losses, ms/step (CUDA events around each step, median of the steps
+    after the first), peak device memory, launches per step."""
+    from maggie_tpu_torch.engine.optim import build_optimizer
+    from maggie_tpu_torch.engine.train_step import TrainState, make_train_step
+    from maggie_tpu_torch.flagship import flagship_cfg, train_batch
+    from maggie_tpu_torch.models import build_model
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+    cfg = flagship_cfg(precision)
+    model = build_model(cfg.model, device=dev, generator=torch.Generator().manual_seed(0)).train()
+    opt, schedule = build_optimizer(cfg, model.parameters())
+    state, step = TrainState(model, opt), make_train_step(model, opt, schedule)
+    batch = {k: v.to(dev) for k, v in
+             train_batch(TRAIN_BATCH, TRAIN_HW, TRAIN_HW, TRAIN_SLOTS, seed=0).items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kg.launches = kg.bwd_launches = ku.launches = 0
+    ms, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ld = step(state, batch, gen, **TRAIN_FLAGS)
+        end.record()
+        losses.append({k: float(v) for k, v in ld.items()})
+        ms.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    launches = {"gather_patches": kg.launches, "gather_patches_bwd": kg.bwd_launches,
+                "compute_unknown": ku.launches}
+    out = {"ms_per_step_median": float(np.median(ms[1:])), "ms_per_step": ms,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(), "losses": losses,
+           "launches": launches,
+           "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()}}
+    if not all(np.isfinite(v) for ld in losses for v in ld.values()):
+        fail(f"train {precision}: non-finite losses {losses}")
+    want = {"gather_patches": 10, "gather_patches_bwd": 6, "compute_unknown": 1}
+    if out["launches_per_step"] != want:
+        fail(f"train {precision}: launches per step {out['launches_per_step']} != {want}")
+    out.update(step_kernel_split(step, state, batch, gen, out["ms_per_step_median"]))
+    return out
+
+
+def step_kernel_split(step, state, batch, gen, step_ms: float) -> dict:
+    """Device time of two steps by torch.profiler: every kernel's, and K1's
+    forward and backward and K2's by their CUDA function names."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(2):
+            step(state, batch, gen, **TRAIN_FLAGS)
+        torch.cuda.synchronize()
+    names = {"gather_patches": ("gather_pixel_major", "gather_plane_major"),
+             "gather_patches_bwd": ("build_tile_lists", "gather_bwd_pull"),
+             "compute_unknown": ("compute_unknown_kernel",)}
+    split = dict.fromkeys(names, 0.0)
+    total = 0.0
+    for e in prof.key_averages():
+        if e.key.startswith(("aten::", "cuda")):
+            continue
+        us = (e.self_device_time_total if hasattr(e, "self_device_time_total")
+              else e.self_cuda_time_total)
+        total += us
+        for k, subs in names.items():
+            if any(s in e.key for s in subs):
+                split[k] += us
+    kernel_ms = total / 1e3 / 2
+    return {"kernel_ms_per_step": kernel_ms, "busy_share": kernel_ms / step_ms,
+            "ported_kernels_ms_per_step": {k: v / 1e3 / 2 for k, v in split.items()}}
+
+
+def time_gather_bwd(dev, detail) -> dict:
+    """Phase 6.3: K1's backward per call at the train shapes, f32 and bf16, by
+    CUDA-graph replay, beside its byte bound (g read, dfeat written, indices
+    read, over the HBM rate), its twin and the library yardstick: one
+    ``index_put_(accumulate=True)`` of every window into a zeroed padded map
+    (these two eagerly between CUDA events: the twin reads a count back to
+    the host, so it cannot be captured)."""
+    from maggie_tpu_torch.ops.kernels import gather as kg
+    rs = np.random.RandomState(13)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    res = {"calls": [], "fp32": dict.fromkeys(keys, 0.0), "bf16": dict.fromkeys(keys, 0.0)}
+    for name, shape, block, halo, per_image, layout, grad in TRAIN_GATHER_CALLS:
+        if not grad:
+            continue
+        n, h, w, c = shape
+        idx = train_indices(shape, block, per_image, dev, rs)
+        size = block + 2 * halo
+        ar = torch.arange(size, device=dev)
+        ii = (idx[0][:, None, None], ((idx[1] * block)[:, None] + ar)[:, :, None],
+              ((idx[2] * block)[:, None] + ar)[:, None, :])
+        plane = layout == "plane"
+        for frame, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            g = torch.randn((TRAIN_CAP, size, size, c), device=dev).to(dt)
+            padded = torch.zeros((n, h + 2 * halo, w + 2 * halo, c), dtype=dt, device=dev)
+
+            def library():
+                padded.zero_()
+                padded.index_put_(ii, g, accumulate=True)
+            row = {"call": name, "dtype": str(dt), "layout": layout,
+                   "ms": graph_ms(lambda: kg.gather_patches_bwd(g, *idx, shape, block, halo, plane)),
+                   "plain_ms": cuda_ms(lambda: kg.gather_patches_bwd_plain(
+                       g, *idx, shape, block, halo, plane), iters=3, warmup=1),
+                   "library_ms": cuda_ms(library, iters=5, warmup=1)}
+            row["bytes"] = (g.numel() + n * h * w * c) * g.element_size() + 3 * TRAIN_CAP * 8
+            row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+            res["calls"].append(row)
+            for k in keys:
+                res[frame][k] += row[k]
+    detail["gather_bwd_times_per_step"] = res
+    return res
 
 
 def stage_split(model, batch, frame_ms: float) -> dict:

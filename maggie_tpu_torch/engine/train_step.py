@@ -1,0 +1,93 @@
+"""The training step (port of ``maggie_tpu/engine/train_step.py``; reference
+train-loop body ``maggie/engine/train.py:211-283``).
+
+``TrainState`` is the JAX package's train state in PyTorch's terms: the
+update count, the model (its parameters, its BatchNorm running statistics and
+its spectral-norm u/v buffers) and the optimizer (its moments). A step
+mutates them in place:
+
+    model.train()
+    optimizer, schedule = build_optimizer(cfg, model.parameters())
+    state = TrainState(model, optimizer)
+    step = make_train_step(model, optimizer, schedule)
+    loss_dict = step(state, batch, generator, use_mask_atten=False,
+                     use_gt_guidance=False, use_prm_weights=True,
+                     atten_loss_enabled=True)
+
+One step: the train-mode forward and its loss (which also steps the BatchNorm
+statistics and the spectral-norm u/v), the gradients, the global-norm clip at
+0.01, the learning rate of this update count, and the optimizer's update. The
+flags are the JAX package's static ones; ``generator`` (a ``torch.Generator``
+on the model's device) feeds the forward's random draws. Every parameter gets
+a gradient, zero where the loss does not reach it, so that decoupled weight
+decay touches every parameter as optax's does.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+import torch.nn as nn
+
+from .optim import clip_by_global_norm_
+
+
+@dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+    def params(self) -> dict[str, torch.Tensor]:
+        return dict(self.model.named_parameters())
+
+    def batch_stats(self) -> dict[str, torch.Tensor]:
+        return {k: v for k, v in self.model.named_buffers() if k.endswith(("running_mean", "running_var"))}
+
+    def spectral(self) -> dict[str, torch.Tensor]:
+        return {k: v for k, v in self.model.named_buffers() if k.endswith(("weight_u", "weight_v"))}
+
+
+def compute_grads(model: nn.Module, batch: dict, generator: torch.Generator | None,
+                  **flags) -> dict:
+    """The train-mode forward and backward: leaves every parameter's gradient
+    in ``.grad`` (zeros where the loss does not reach it) and returns the
+    loss dict, detached."""
+    model.zero_grad(set_to_none=True)
+    _, loss_dict = model(batch, generator=generator, **flags)
+    loss_dict["total"].backward()
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return {k: v.detach() for k, v in loss_dict.items()}
+
+
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+                    schedule: Callable[[int], float]) -> Callable:
+    """``step(state, batch, generator, *, use_mask_atten, use_gt_guidance,
+    use_prm_weights, atten_loss_enabled) -> loss_dict`` for ``state.model``
+    (``model``) and ``state.optimizer`` (``optimizer``)."""
+    params = list(model.parameters())
+
+    def step(state: TrainState, batch: dict, generator: torch.Generator | None, *,
+             use_mask_atten: bool = False, use_gt_guidance: bool = False,
+             use_prm_weights: bool = True, atten_loss_enabled: bool = True) -> dict:
+        if state.model is not model or state.optimizer is not optimizer:
+            raise ValueError("the train state holds another model or optimizer than the step")
+        if not model.training:
+            raise ValueError("the train step needs the model in train mode (model.train())")
+        loss_dict = compute_grads(model, batch, generator, use_mask_atten=use_mask_atten,
+                                  use_gt_guidance=use_gt_guidance,
+                                  use_prm_weights=use_prm_weights,
+                                  atten_loss_enabled=atten_loss_enabled)
+        clip_by_global_norm_([p.grad for p in params])
+        lr = schedule(state.step)
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
+        state.step += 1
+        return loss_dict
+
+    return step

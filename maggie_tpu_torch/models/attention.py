@@ -96,15 +96,32 @@ class CrossAttentionLayer(nn.Module):
         return self.norm(tgt + tgt2), atten
 
 
-class FFNLayer(nn.Module):
-    """Post-norm FFN (reference ``mask_attention.py:140-180``); dropout is a
-    training-time op and is absent from this eval port."""
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - p (a uniform
+    draw from ``generator`` at or above p) and scale it by 1 / (1 - p)."""
+    u = torch.rand(x.shape, generator=generator, device=generator.device).to(x.device)
+    return torch.where(u >= p, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def __init__(self, d_model: int, dim_feedforward: int = 2048):
+
+class FFNLayer(nn.Module):
+    """Post-norm FFN (reference ``mask_attention.py:140-180``). In train mode
+    with ``dropout`` > 0, dropout after the ReLU and after ``linear2``, drawn
+    from the ``generator`` the caller passes."""
+
+    def __init__(self, d_model: int, dim_feedforward: int = 2048, dropout: float = 0.0):
         super().__init__()
         self.linear1 = Linear(d_model, dim_feedforward)
         self.linear2 = Linear(dim_feedforward, d_model)
         self.norm = LayerNorm(d_model)
+        self.dropout = float(dropout)
 
-    def forward(self, tgt: torch.Tensor) -> torch.Tensor:
-        return self.norm(tgt + self.linear2(F.relu(self.linear1(tgt))))
+    def _drop(self, x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+        if not (self.training and self.dropout > 0):
+            return x
+        if generator is None:
+            raise ValueError("FFNLayer dropout in train mode needs a torch.Generator")
+        return dropout(x, self.dropout, generator)
+
+    def forward(self, tgt: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        x = self._drop(F.relu(self.linear1(tgt)), generator)
+        return self.norm(tgt + self._drop(self.linear2(x), generator))

@@ -41,7 +41,11 @@ class ResShortCutD(nn.Module):
     ``lazy_os1_shortcut`` (eval): skip the dense full-resolution os1 shortcut
     branch; the decoder runs ``shortcut.0`` on gathered patches of the encoder
     input instead (``mid_fea['shortcut0_fn']``, ``['shortcut0_input']``), as the
-    JAX package does (``maggie_tpu/models/encoder.py:147-152``)."""
+    JAX package does (``maggie_tpu/models/encoder.py:147-152``). Train mode
+    builds the dense branch: its batch statistics span the whole map.
+
+    Train mode also switches every BatchNorm to batch statistics and every
+    spectral norm to one power step per forward (``layers.py``)."""
 
     def __init__(self, in_ch: int, layers=(3, 4, 4, 2), lazy_os1_shortcut: bool = False):
         super().__init__()
@@ -69,7 +73,7 @@ class ResShortCutD(nn.Module):
         x4 = self.layer3(x3)
         out = self.layer_bottleneck(x4)
         mid_fea = {}
-        if self.lazy_os1_shortcut:
+        if self.lazy_os1_shortcut and not self.training:
             fea1 = None
             mid_fea["shortcut0_fn"] = self.shortcut[0]
             mid_fea["shortcut0_input"] = inp

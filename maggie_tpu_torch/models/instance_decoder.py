@@ -1,4 +1,4 @@
-"""Instance-query attention decoder, eval (port of
+"""Instance-query attention decoder (port of
 ``maggie_tpu/models/instance_decoder.py``; reference
 ``module/instance_matte_decoder.py``).
 
@@ -8,9 +8,10 @@ cross-attention, FFN, token self-attention, feat<-token cross-attention), a fina
 token<-feat cross-attention, and the token-feature product that gives one matte
 logit map per instance slot.
 
-This slice runs the flagship setting: ``atten_stride`` 1, no temporal
-positional embedding, no memory hook. Training-time attention supervision comes
-with the training slice.
+This port runs the flagship setting: ``atten_stride`` 1, no temporal
+positional embedding, no memory hook. Train mode adds the attention
+supervision by the GT masks (the max-attention loss) or, with
+``use_mask_atten``, attention masked by the guidance masks.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch.nn as nn
 
 from .attention import CrossAttentionLayer, FFNLayer, SelfAttentionLayer
 from .layers import MLP, BatchNorm, Conv2d, Embedding, LayerNorm
-from ..ops.resize import avg_pool2d
+from ..ops.resize import avg_pool2d, resize_any_shape
 
 
 class InstanceMatteDecoder(nn.Module):
@@ -51,11 +52,36 @@ class InstanceMatteDecoder(nn.Module):
             Conv2d(attention_dim, output_dim, 1, bias=False),
             BatchNorm(output_dim), nn.LeakyReLU(0.2))
 
-    def forward(self, feat: torch.Tensor, mask: torch.Tensor):
+    def _attention_masks(self, gm: torch.Tensor, b: int, n_f: int, h: int, w: int):
+        """Train mode (``maggie_tpu/models/instance_decoder.py:135-154``): from
+        (b, n_f, n_i_in, h, w) masks at the feature size, the cross-attention
+        padding mask (True = disallowed; an instance with an empty mask attends
+        everywhere) and the f32 guidance map of the attention loss, both
+        (b, max_inst, h*w*n_f) with the frame index fastest."""
+        n_i = self.max_inst
+        g = gm.transpose(0, 1).reshape(n_f * b, gm.shape[2], h * w)
+        if g.shape[1] < n_i:
+            g = torch.cat([g, g.new_zeros(n_f * b, n_i - g.shape[1], h * w)], dim=1)
+        g = g > 0
+        invalid = g.sum(dim=-1) == 0
+        padding = ~(g | invalid[:, :, None])
+
+        def seq(t):
+            return t.reshape(n_f, b, n_i, h * w).permute(1, 2, 3, 0).reshape(b, n_i, h * w * n_f)
+        return seq(padding), seq(g).float()
+
+    def forward(self, feat: torch.Tensor, mask: torch.Tensor, gt_mask: torch.Tensor | None = None,
+                use_mask_atten: bool = False):
         """feat (b*n_f, C, h, w); mask (b, n_f, n_i, H, W) guidance masks.
 
         Returns (logits (b*n_f, max_inst, h, w) f32, smoothed features
-        (b*n_f, output_dim, h, w), tokens (b, max_inst, output_dim) f32)."""
+        (b*n_f, output_dim, h, w), tokens (b, max_inst, output_dim) f32,
+        attention loss). In train mode, ``gt_mask`` (b, n_f, n_i, H, W) 0/1
+        supervises the token->feature attention maps (reference
+        ``compute_atten_loss``, ``instance_matte_decoder.py:101-109``): the loss
+        is their mass outside each instance's GT mask, averaged over the
+        ``n_block + 1`` layers; ``use_mask_atten`` instead masks that attention
+        with the guidance masks. In eval the loss is 0."""
         dt = feat.dtype
         b, n_f = mask.shape[:2]
         h, w = feat.shape[2], feat.shape[3]
@@ -63,6 +89,20 @@ class InstanceMatteDecoder(nn.Module):
         if w < mask.shape[-1]:
             # binary-preserving downsample: avg-pool then > 0 (resizeAnyShape)
             mask = (avg_pool2d(mask.float(), int(round(mask.shape[-1] / w))) > 0).to(mask.dtype)
+        atten_padding = guidance = None
+        if self.training:
+            gm = mask if use_mask_atten else gt_mask
+            if gm is not None:
+                if not use_mask_atten and gm.shape[-1] != w:
+                    gm = resize_any_shape(gm, scale_factor=w / gm.shape[-1], use_max_pool=True)
+                atten_padding, guidance = self._attention_masks(gm, b, n_f, h, w)
+        memory_mask = atten_padding if use_mask_atten else None
+        supervise = self.training and not use_mask_atten and guidance is not None
+
+        def atten_loss(att):
+            vals = (guidance * att).sum(dim=2)
+            gt = torch.where(guidance.sum(dim=2) == 0, 0.0, 1.0)
+            return (gt - vals).sum() / (n_f * b)
 
         # paint instance IDs onto the feature map: max over instances of mask*id
         n_i_in = mask.shape[2]
@@ -85,16 +125,23 @@ class InstanceMatteDecoder(nn.Module):
 
         fp_or_none = fp if self.use_id_pe else None
         tp_or_none = token_pos if self.use_id_pe else None
+        max_loss = 0.0
         for i in range(self.n_block):
-            tokens, _ = self.token_feat_ca_layers[i](tokens, feat_seq, pos=fp_or_none,
-                                                     query_pos=tp_or_none)
+            tokens, att = self.token_feat_ca_layers[i](tokens, feat_seq, memory_mask=memory_mask,
+                                                       pos=fp_or_none, query_pos=tp_or_none)
+            if supervise:
+                max_loss = max_loss + atten_loss(att)
             tokens = self.mlp_layers[i](tokens)
             tokens = self.sa_layers[i](tokens, tgt_key_padding_mask=token_padding_mask,
                                        query_pos=token_pos)
             feat_seq, _ = self.feat_token_ca_layers[i](
                 feat_seq, tokens, memory_key_padding_mask=token_padding_mask,
                 pos=tp_or_none, query_pos=fp_or_none)
-        tokens, _ = self.final_token_feat_ca(tokens, feat_seq, pos=fp, query_pos=token_pos)
+        tokens, att = self.final_token_feat_ca(tokens, feat_seq, memory_mask=memory_mask,
+                                               pos=fp, query_pos=token_pos)
+        if supervise:
+            max_loss = max_loss + atten_loss(att)
+        max_loss = max_loss / (self.n_block + 1)
 
         # (h*w*n_f, b, c) -> (b*n_f, c, h, w)
         fm = feat_seq.reshape(h, w, n_f, b, c).permute(3, 2, 4, 0, 1).reshape(b * n_f, c, h, w)
@@ -105,4 +152,4 @@ class InstanceMatteDecoder(nn.Module):
         fm5 = fm_out.reshape(b, n_f, fm_out.shape[1], h, w)
         # f32 product of the compute-dtype operands (maggie_tpu instance_decoder.py:240-241)
         out = torch.einsum("bqc,btchw->btqhw", tk.to(dt).float(), fm5.float())
-        return out.reshape(b * n_f, self.max_inst, h, w), fm_out, tk
+        return out.reshape(b * n_f, self.max_inst, h, w), fm_out, tk, max_loss

@@ -92,16 +92,35 @@ class Embedding(nn.Embedding):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Eval BatchNorm2d (eps 1e-5) on NCHW, computed in f32, output in the input
-    dtype. ``zero_init`` starts the scale at 0 (the residual ``bn2``)."""
+    """BatchNorm2d (eps 1e-5, momentum 0.1) on NCHW, computed in f32, output in
+    the input dtype. ``zero_init`` starts the scale at 0 (the residual ``bn2``).
+
+    Eval normalizes with the running statistics. Train mode is flax's
+    ``nn.BatchNorm`` (``maggie_tpu/models/layers.py:217-239``): batch mean and
+    variance over (N, H, W) as E[x^2] - E[x]^2 clipped at 0, and the running
+    variance updated with that BIASED variance, where ``nn.BatchNorm2d`` would
+    take the unbiased one. The running statistics update in place."""
 
     def __init__(self, num_features: int, zero_init: bool = False):
         super().__init__(num_features)
         self.zero_init = zero_init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self._train_forward(x)
         return F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
                             self.bias, False, 0.0, self.eps).to(x.dtype)
+
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
     def init_params(self, g: torch.Generator) -> None:
         (nn.init.zeros_ if self.zero_init else nn.init.ones_)(self.weight)
@@ -128,7 +147,12 @@ class _SpectralNorm(nn.Module):
     steps on every forward, eval included. ``W`` is the weight flattened over all
     but its first dim: (O, I*kh*kw) for a conv, (I, O*kh*kw) for a transposed conv
     (``:149-167``). After ``fold()`` the weight already holds W / sigma and the
-    u/v buffers are gone."""
+    u/v buffers are gone.
+
+    Train mode (the JAX package's ``update_sn``, ``:90-96``) first runs one power
+    iteration from the stored u, v = W^T u / |.|, u = W v / |.|, writes the new
+    u/v back, and takes sigma from them. As in the JAX package the gradient
+    flows through that step (no ``stop_gradient``): u and v are functions of W."""
 
     folded: bool
 
@@ -144,9 +168,24 @@ class _SpectralNorm(nn.Module):
         u, v = self.module.weight_u.float(), self.module.weight_v.float()
         return u @ (self._w_mat() @ v)
 
+    def _power_step_sigma(self) -> torch.Tensor:
+        if self.folded:
+            raise RuntimeError("a folded spectral norm has no u/v to step: train the "
+                               "unfolded model (fold() is for eval)")
+        w = self._w_mat()
+        # a copy: autograd keeps the old u, and the buffer is overwritten below
+        v = _l2normalize(w.t() @ self.module.weight_u.float().clone())
+        u = _l2normalize(w @ v)
+        with torch.no_grad():
+            self.module.weight_u.copy_(u)
+            self.module.weight_v.copy_(v)
+        return u @ (w @ v)
+
     def weight(self, dtype: torch.dtype) -> torch.Tensor:
         w = self.module.weight_bar
-        if not self.folded:
+        if self.training:
+            w = w / self._power_step_sigma().to(w.dtype)
+        elif not self.folded:
             w = w / self.sigma().to(w.dtype)
         return w.to(dtype)
 

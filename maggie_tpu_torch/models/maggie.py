@@ -1,10 +1,19 @@
-"""MaGGIe architecture, eval: encoder -> ASPP -> decoder with PRM fusion
-(port of the eval branch of ``maggie_tpu/models/maggie.py``; reference
+"""MaGGIe architecture: encoder -> ASPP -> decoder with PRM fusion, and the
+training loss (port of ``maggie_tpu/models/maggie.py``; reference
 ``network/arch/maggie.py``).
 
 Interface as in the JAX package: ``batch['image']`` (b, n_f, H, W, 3) float,
-``batch['mask']`` (b, n_f, n_i, hm, wm); outputs are (b, n_f, n_i, H, W).
-The forward is always the eval forward; training comes with a later slice.
+``batch['mask']`` (b, n_f, n_i, hm, wm); in training also ``batch['alpha']``
+and ``batch['transition']`` (b, n_f, n_i, H, W).
+
+In eval (``model.eval()``, as ``build_model`` returns it) the forward runs
+without autograd and returns the true instances' outputs (b, n_f, n_i, H, W).
+In train mode (``model.train()``) it pads masks, alphas and transitions to
+``num_masks`` slots, gates the predictions by the valid instances and returns
+``(output, loss_dict)``: the weighted L1 + Laplacian + Sobel-gradient (+ dtSSD)
+losses at os1 (x2), os4 and os8 (``compute_loss``, ``:300-373``) and the
+attention loss. The step's flags are the JAX package's static ones
+(``:83-94``); ``generator`` feeds every random draw of the forward.
 """
 
 from __future__ import annotations
@@ -13,10 +22,12 @@ import torch
 import torch.nn as nn
 
 from .aspp import ASPP
+from .losses import gradient_loss, lap_loss, loss_dtssd, regression_loss
 from ..ops.resize import resize_nearest
 
 _LAZY_OS1_DECODERS = ("res_shortcut_inst_matt_spconv_22",)
 _LAZY_OS1_ENCODERS = ("res_shortcut_embed_29",)
+_ALPHAS = ("alpha_os1", "alpha_os4", "alpha_os8")
 
 
 class MaGGIe(nn.Module):
@@ -41,9 +52,19 @@ class MaGGIe(nn.Module):
         self.decoder = build_decoder(cfg["decoder"], dict(cfg["decoder_args"]))
         self.compute_dtype = (torch.bfloat16 if str(cfg.get("precision", "fp32")) in
                               ("bf16", "bfloat16", "16") else torch.float32)
+        self.loss_alpha_w = float(cfg.get("loss_alpha_w", 1.0))
+        self.loss_alpha_type = cfg.get("loss_alpha_type", "l1")
+        self.loss_alpha_lap_w = float(cfg.get("loss_alpha_lap_w", 1.0))
+        self.loss_alpha_grad_w = float(cfg.get("loss_alpha_grad_w", 1.0))
+        self.loss_atten_w = float(cfg.get("loss_atten_w", 1.0))
+        self.reweight_os8 = bool(cfg.get("loss_reweight_os8", True))
+        self.loss_dtssd_w = float(cfg.get("loss_dtSSD_w", 1.0))
 
-    @torch.no_grad()
-    def forward(self, batch: dict) -> dict:
+    def _inputs(self, batch: dict, train: bool):
+        """Compute-dtype NCHW frames, masks at full size, and the encoder input
+        (reference ``prepare_input``, :200-235): RGB | masks zero-padded up to
+        ``num_masks`` slots. In train the padded masks (and alphas and
+        transitions) replace the true ones."""
         x = batch["image"]                      # (b, n_f, H, W, 3)
         masks = batch["mask"]                   # (b, n_f, n_i, hm, wm)
         b, n_f, h, w, _ = x.shape
@@ -53,22 +74,96 @@ class MaGGIe(nn.Module):
         if masks.shape[-1] != w:
             masks = resize_nearest(masks, (h, w))
         masks = masks.to(x.dtype)
-
-        # encoder input (reference prepare_input, :200-235): RGB | masks padded
-        # with zero slots up to num_masks
+        gt = {}
+        if train:
+            gt = {k: batch[k].reshape(b * n_f, n_i, h, w) for k in ("alpha", "transition")}
         inp = x
         if self.num_masks > 0:
             inp_masks = masks
             if self.num_masks > n_i:
                 pad = masks.new_zeros((b * n_f, self.num_masks - n_i, h, w))
                 inp_masks = torch.cat([masks, pad], dim=1)
+                if train:
+                    masks = inp_masks
+                    gt = {k: torch.cat([v, v.new_zeros((b * n_f, self.num_masks - n_i, h, w))], 1)
+                          for k, v in gt.items()}
+                    n_i = self.num_masks
             inp = torch.cat([x, inp_masks], dim=1)
+        return inp, masks, gt, (b, n_f, n_i, h, w)
 
+    def forward(self, batch: dict, use_mask_atten: bool = False, use_gt_guidance: bool = False,
+                use_prm_weights: bool = True, atten_loss_enabled: bool = True,
+                generator: torch.Generator | None = None):
+        if not self.training:
+            return self._eval_forward(batch)
+        inp, masks, gt, (b, n_f, n_i, h, w) = self._inputs(batch, train=True)
+        embedding, mid_fea = self.encoder(inp)
+        embedding = self.aspp(embedding)
+        pred = self.decoder(embedding, mid_fea, b=b, n_f=n_f, n_i=n_i, masks=masks,
+                            gt_alphas=gt["alpha"], use_mask_atten=use_mask_atten,
+                            use_gt_guidance=use_gt_guidance, generator=generator)
+        alpha_pred = pred["refined_masks"]
+        if use_prm_weights:
+            weight_os4, weight_os1 = pred["weight_os4"], pred["weight_os1"]
+        else:
+            weight_os4 = weight_os1 = pred["detail_mask"].to(alpha_pred.dtype)
+        output = {k: pred[k].reshape(b, n_f, n_i, h, w)
+                  for k in _ALPHAS + ("refined_masks", "detail_mask")}
+        valid = (gt["transition"].sum(dim=(2, 3), keepdim=True) > 0).float()
+        alphas = {k: pred[k] * valid for k in _ALPHAS}
+        loss_dict = self.compute_loss(alphas, weight_os4, weight_os1, gt["alpha"],
+                                      (b, n_f, self.num_masks, h, w))
+        if self.loss_atten_w > 0 and atten_loss_enabled:
+            atten = pred["loss_max_atten"]
+            loss_dict["loss_max_atten"] = (atten if torch.is_tensor(atten)
+                                           else alpha_pred.new_tensor(atten))
+            loss_dict["total"] = loss_dict["total"] + loss_dict["loss_max_atten"] * self.loss_atten_w
+        return output, loss_dict
+
+    @torch.no_grad()
+    def _eval_forward(self, batch: dict) -> dict:
+        inp, masks, _, (b, n_f, n_i, h, w) = self._inputs(batch, train=False)
         embedding, mid_fea = self.encoder(inp)
         embedding = self.aspp(embedding)
         pred = self.decoder(embedding, mid_fea, b=b, n_f=n_f, n_i=n_i, masks=masks)
-
         # keep the true instances only, as (b, n_f, n_i, H, W)
         return {k: pred[k][:, :n_i].reshape(b, n_f, n_i, h, w)
-                for k in ("alpha_os1", "alpha_os4", "alpha_os8", "refined_masks",
-                          "detail_mask")}
+                for k in _ALPHAS + ("refined_masks", "detail_mask")}
+
+    def compute_loss(self, pred: dict, weight_os4, weight_os1, alphas, alpha_shape) -> dict:
+        """Reference ``compute_loss`` (maggie.py:268-368); ``pred`` holds the
+        three alphas (b*n_f, n_i, H, W), ``alphas`` the GT."""
+        a1, a4, a8 = (pred[k] for k in _ALPHAS)
+        valid = (alphas.sum(dim=(2, 3), keepdim=True) > 0).float()
+        weight_os8 = torch.ones_like(a8) * valid
+        if self.reweight_os8:
+            unk_gt = (alphas <= 254.0 / 255.0) & (alphas >= 1.0 / 255.0)
+            unk_pred = (a8 <= 254.0 / 255.0) & (a8 >= 1.0 / 255.0)
+            weight_os8 = (unk_gt | unk_pred).to(weight_os8.dtype) + weight_os8
+        weights = (weight_os1, weight_os4, weight_os8)
+        loss_dict, total = {}, 0.0
+
+        def scales(name, fn, weight):
+            terms = [fn(a, w) for a, w in zip((a1, a4, a8), weights)]
+            loss_dict.update({f"{name}_os{s}": t for s, t in zip((1, 4, 8), terms)})
+            loss_dict[name] = terms[0] * 2 + terms[1] + terms[2]
+            return loss_dict[name] * weight
+
+        if self.loss_alpha_w > 0:
+            total = total + scales(
+                "loss_rec", lambda a, w: regression_loss(a, alphas, self.loss_alpha_type, w),
+                self.loss_alpha_w)
+        if self.loss_alpha_lap_w > 0:
+            hw = a8.shape[-2:]
+            n1hw = lambda t: t.reshape((-1, 1) + hw)
+            total = total + scales("loss_lap", lambda a, w: lap_loss(n1hw(a), n1hw(alphas), n1hw(w)),
+                                   self.loss_alpha_lap_w)
+        if self.loss_alpha_grad_w > 0:
+            total = total + scales("loss_grad", lambda a, w: gradient_loss(a, alphas, w),
+                                   self.loss_alpha_grad_w)
+        if self.loss_dtssd_w > 0:
+            r = lambda t: t.reshape(alpha_shape)
+            total = total + scales("loss_dtSSD", lambda a, w: loss_dtssd(r(a), r(alphas), r(w)),
+                                   self.loss_dtssd_w)
+        loss_dict["total"] = total
+        return loss_dict

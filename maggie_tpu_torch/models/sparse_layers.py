@@ -83,10 +83,29 @@ class SparseInverseConv(_SpconvWeight):
 
 
 class MaskedBatchNorm(BatchNorm):
-    """Eval BatchNorm1d over sparse features (eps 1e-5): the dense eval
-    BatchNorm (f32 compute, running statistics), output masked to the active
-    set. Keys as the reference's BatchNorm1d. Train-mode masked statistics come
-    with the training slice."""
+    """BatchNorm1d over sparse features (eps 1e-5, momentum 0.1), output masked
+    to the active set. Keys as the reference's BatchNorm1d.
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return super().forward(x) * mask.to(x.dtype)
+    Eval: the dense eval BatchNorm (f32 compute, running statistics). Train
+    (``maggie_tpu/models/sparse_layers.py:106-147``): statistics over the
+    active sites only, the sites of ``stats_mask`` when given (the block
+    ladder passes the halo-free cores of valid blocks, so that each active
+    site counts once) and of ``mask`` otherwise; biased variance to
+    normalize, unbiased (count / (count - 1)) for the running estimate."""
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                stats_mask: torch.Tensor | None = None) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x) * mask.to(x.dtype)
+        m = (mask if stats_mask is None else stats_mask).float()
+        xf = x.float()
+        count = torch.clamp(m.sum(), min=1.0)
+        mean = (xf * m).sum(dim=(0, 2, 3)) / count
+        var = ((xf - mean[:, None, None]) ** 2 * m).sum(dim=(0, 2, 3)) / count
+        with torch.no_grad():
+            unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+        y = ((xf - mean[:, None, None]) * torch.rsqrt(var + self.eps)[:, None, None]
+             * self.weight[:, None, None] + self.bias[:, None, None])
+        return (y * mask.float()).to(x.dtype)

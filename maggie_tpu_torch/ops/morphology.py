@@ -1,4 +1,4 @@
-"""Elliptical dilation and uncertainty-region extraction (eval mode).
+"""Elliptical dilation and uncertainty-region extraction.
 
 Port of ``maggie_tpu/ops/morphology.py``. The cv2 ``MORPH_ELLIPSE`` structuring
 element is reproduced bit-exactly (cv2's banker's rounding and even-width anchor
@@ -9,8 +9,9 @@ element's row runs of vertically shifted horizontal run-maxes.
 erosion of float maps, in numpy for the eval data pipeline's transition band.
 
 Eval-mode ``compute_unknown`` (threshold, then this dilation) lives beside its
-CUDA kernel in ``ops/kernels/unknown.py``. Train mode (a random width per map,
-``dilate_ellipse_random``) comes with the training slice.
+CUDA kernel in ``ops/kernels/unknown.py``. Train mode draws a random width per
+map (``compute_unknown_random``): one grouped convolution with a bank of the
+elements of every width, in plain torch as in the JAX package.
 """
 
 from __future__ import annotations
@@ -99,6 +100,53 @@ def dilate_ellipse(binary: torch.Tensor, width: int) -> torch.Tensor:
         shifted = _vshift(hmax[(a, b)], dy)
         out = shifted if out is None else torch.maximum(out, shifted)
     return (out > 0.0).reshape(lead + (H, W)).to(binary.dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _embedded_offset_kernel(width: int, buf: int) -> np.ndarray:
+    """The width-sized element in a (buf, buf) kernel centred on its anchor:
+    entry [buf//2 + dy, buf//2 + dx] = SE[anchor + (dy, dx)], anchor = width//2
+    (cv2's default). ``buf`` is odd and at least the element's offset span."""
+    se = ellipse_kernel(width)
+    a = width // 2
+    out = np.zeros((buf, buf), dtype=np.float32)
+    for sy, sx in zip(*np.nonzero(se)):
+        out[buf // 2 + sy - a, buf // 2 + sx - a] = 1.0
+    return out
+
+
+def dilate_ellipse_random(binary: torch.Tensor, k_size: int,
+                          generator: torch.Generator | None = None,
+                          widths: torch.Tensor | None = None) -> torch.Tensor:
+    """Dilate each 0/1 map of (..., H, W) with a cv2 ellipse of its own width
+    in [1, k_size): the train-mode branch of ``compute_unknown`` (reference
+    ``maggie/utils/utils.py:46-47``, ``np.random.randint(1, k_size)`` per map;
+    ``maggie_tpu/ops/morphology.py:146-170``). The widths are ``widths`` (one
+    per map) when given, else drawn from ``generator``. One grouped conv with
+    each map's element from a bank of every width; the 0/1 products sum to
+    whole numbers, which the threshold at 0.5 reads exactly whatever the
+    convolution algorithm's rounding."""
+    lead = binary.shape[:-2]
+    n = int(np.prod(lead)) if lead else 1
+    h, w = binary.shape[-2:]
+    buf = max(k_size - 1 if (k_size - 1) % 2 == 1 else k_size, 3)
+    bank = torch.from_numpy(np.stack([_embedded_offset_kernel(wd, buf) for wd in range(1, k_size)]))
+    if widths is None:
+        if generator is None:
+            raise ValueError("dilate_ellipse_random needs widths or a torch.Generator")
+        widths = torch.randint(1, k_size, (n,), generator=generator, device=generator.device)
+    kernels = bank.to(binary.device)[widths.to(binary.device) - 1]          # (n, buf, buf)
+    y = F.conv2d(binary.reshape(1, n, h, w).float(), kernels[:, None], padding=buf // 2, groups=n)
+    return (y > 0.5).reshape(binary.shape).to(binary.dtype)
+
+
+def compute_unknown_random(masks: torch.Tensor, k_size: int,
+                           generator: torch.Generator | None = None) -> torch.Tensor:
+    """Train-mode uncertainty region: threshold to (1/255, 254/255) in f32, then
+    ``dilate_ellipse_random``; a 0/1 map in the input dtype, without gradient."""
+    lo, hi = float(np.float32(LOWER_THRES)), float(np.float32(UPPER_THRES))
+    uncertain = ((masks > lo) & (masks < hi)).float()
+    return dilate_ellipse_random(uncertain, k_size, generator).to(masks.dtype)
 
 
 def grey_dilate_ellipse(x: np.ndarray, width: int) -> np.ndarray:

@@ -109,3 +109,37 @@ def avg_pool2d(x: torch.Tensor, kernel: int, stride: int | None = None) -> torch
     lead = x.shape[:-2]
     y = F.avg_pool2d(x.reshape((-1, 1) + x.shape[-2:]).float(), kernel, stride or kernel)
     return y.reshape(lead + y.shape[-2:]).to(x.dtype)
+
+
+def max_pool2d(x: torch.Tensor, kernel: int, stride: int | None = None) -> torch.Tensor:
+    """Max pool over the last two dims (VALID padding)."""
+    lead = x.shape[:-2]
+    y = F.max_pool2d(x.reshape((-1, 1) + x.shape[-2:]), kernel, stride or kernel)
+    return y.reshape(lead + y.shape[-2:])
+
+
+def resize_any_shape(x: torch.Tensor, scale_factor: float | None = None,
+                     size: tuple[int, int] | None = None, mode: str = "bilinear",
+                     align_corners: bool = False, use_max_pool: bool = False,
+                     use_avg_pool_binary: bool = False) -> torch.Tensor:
+    """Rank-agnostic resize over the last two dims (``maggie_tpu/ops/resize.py:136-168``;
+    reference ``resizeAnyShape``, ``maggie/utils/utils.py:7-25``): ``use_max_pool``
+    is a binary-preserving downsample by a max pool of stride round(1/scale),
+    ``use_avg_pool_binary`` an average pool thresholded at 0; otherwise a
+    bilinear (computed in f32) or nearest resize to ``size`` or the scaled size."""
+    if use_max_pool or use_avg_pool_binary:
+        if scale_factor is None or scale_factor >= 1.0:
+            raise ValueError(f"pooled resizes downsample: scale_factor < 1, got {scale_factor}")
+        stride = int(round(1.0 / scale_factor))
+        if use_max_pool:
+            return max_pool2d(x.float(), stride).to(x.dtype)
+        return (avg_pool2d(x.float(), stride) > 0.0).to(x.dtype)
+    if size is None:
+        if scale_factor is None:
+            raise ValueError("resize_any_shape needs scale_factor or size")
+        size = (int(x.shape[-2] * scale_factor), int(x.shape[-1] * scale_factor))
+    if mode == "bilinear":
+        return resize_bilinear(x.float(), size, align_corners).to(x.dtype)
+    if mode == "nearest":
+        return resize_nearest(x, size)
+    raise ValueError(f"Unsupported mode {mode}")

@@ -1,51 +1,44 @@
-"""Carry the JAX package's variables across to the port.
+"""Carry the JAX package's variables across to the port, and back.
 
 ``convert_jax(flat, model)`` takes the JAX variables as a flat dict
 ``{"params/encoder_mod/...": array, "batch_stats/...", "spectral/..."}`` and
-returns a ``state_dict`` for the port's ``model``. It inverts the JAX package's
-torch-checkpoint converter (``maggie_tpu/utils/convert_torch.py::Converter.maggie``,
-``:270-288``) for the flagship config, with the port's own copy of the key map:
-the port's modules carry the original torch reference's ``state_dict`` names,
-so the map is the reference's.
+returns a ``state_dict`` for the port's ``model`` (unfolded, so that a JAX
+train state's spectral u/v load too; ``flatten_collections`` makes the flat
+dict from a train state's ``params``, ``batch_stats`` and ``spectral`` trees).
+It inverts the JAX package's torch-checkpoint converter
+(``maggie_tpu/utils/convert_torch.py::Converter.maggie``, ``:270-288``) for the
+flagship config, with the port's own copy of the key map: the port's modules
+carry the original torch reference's ``state_dict`` names, so the map is the
+reference's. ``to_jax`` is the reverse map, for holding the port's tensors
+(parameters, their gradients, running statistics, u/v) against the JAX
+package's after a step.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Mapping
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 
-def _conv_w(t):    # JAX HWIO -> torch conv (O, I, kh, kw)
-    return np.transpose(t, (3, 2, 0, 1))
-
-
-def _convT_w(t):   # JAX HWIO -> torch transposed conv (I, O, kh, kw)
-    return np.transpose(t, (2, 3, 0, 1))
-
-
-def _spconv_w(t):  # JAX HWIO -> spconv 2 (O, kh, kw, I)
-    return np.transpose(t, (3, 0, 1, 2))
-
-
-def _linear_w(t):  # flax Dense (in, out) -> torch Linear (out, in)
-    return np.transpose(t, (1, 0))
-
-
-def _same(t):
-    return t
+# JAX -> torch axis permutations (None: the same layout)
+_conv_w = (3, 2, 0, 1)     # JAX HWIO -> torch conv (O, I, kh, kw)
+_convT_w = (2, 3, 0, 1)    # JAX HWIO -> torch transposed conv (I, O, kh, kw)
+_spconv_w = (3, 0, 1, 2)   # JAX HWIO -> spconv 2 (O, kh, kw, I)
+_linear_w = (1, 0)         # flax Dense (in, out) -> torch Linear (out, in)
+_same = None
 
 
 class _KeyMap:
-    """(torch key, JAX flat key, JAX -> torch transform) triples, method for
-    method the counterpart of ``Converter``."""
+    """(torch key, JAX flat key, JAX -> torch axis permutation) triples,
+    method for method the counterpart of ``Converter``."""
 
     def __init__(self):
-        self.entries: list[tuple[str, str, Callable]] = []
+        self.entries: list[tuple[str, str, tuple | None]] = []
 
-    def put(self, tkey: str, jkey: str, fn: Callable = _same):
+    def put(self, tkey: str, jkey: str, fn: tuple | None = _same):
         self.entries.append((tkey, jkey, fn))
 
     def bn(self, tkey, dst, masked=False):
@@ -182,7 +175,7 @@ class _KeyMap:
                 self.bn(f"{tkey}.{seq}.{i}", f"{dst}/{name}", masked=True)
 
 
-def key_map(n_block: int = 2) -> list[tuple[str, str, Callable]]:
+def key_map(n_block: int = 2) -> list[tuple[str, str, tuple | None]]:
     """The flagship MaGGIe map: encoder res_shortcut_embed_29, ASPP, decoder
     res_shortcut_inst_matt_spconv_22 with ``n_block`` attention blocks."""
     km = _KeyMap()
@@ -203,7 +196,8 @@ def convert_jax(flat: dict, model: nn.Module, n_block: int = 2) -> dict[str, tor
             continue
         if jkey not in flat:
             continue
-        value = torch.from_numpy(np.array(fn(np.asarray(flat[jkey]))))
+        value = np.asarray(flat[jkey])
+        value = torch.from_numpy(np.array(value if fn is None else np.transpose(value, fn)))
         if tuple(value.shape) != tuple(sd[tkey].shape):
             raise ValueError(f"{jkey} -> {tkey}: shape {tuple(value.shape)} != "
                              f"{tuple(sd[tkey].shape)}")
@@ -218,4 +212,33 @@ def convert_jax(flat: dict, model: nn.Module, n_block: int = 2) -> dict[str, tor
         raise KeyError(f"convert_jax: {len(missing)} port tensors without a JAX value "
                        f"(e.g. {missing[:5]}), {len(leftover)} JAX arrays unused "
                        f"(e.g. {leftover[:5]})")
+    return out
+
+
+def flatten_collections(**trees) -> dict:
+    """Nested collections (``params=..., batch_stats=..., spectral=...``, as a
+    JAX train state holds them, leaves convertible by ``np.asarray``) -> the
+    flat dict ``convert_jax`` reads."""
+    flat = {}
+
+    def walk(prefix, node):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(f"{prefix}/{k}", v)
+        else:
+            flat[prefix] = np.asarray(node)
+    for name, tree in trees.items():
+        walk(name, tree)
+    return flat
+
+
+def to_jax(tensors: Mapping[str, torch.Tensor], n_block: int = 2) -> dict[str, np.ndarray]:
+    """Port tensors under their ``state_dict`` names (parameters, their
+    gradients, buffers) -> ``{JAX flat key: array}`` in the JAX layout. Names
+    without a JAX counterpart (``num_batches_tracked``) are left out."""
+    out = {}
+    for tkey, jkey, fn in key_map(n_block):
+        if tkey in tensors and jkey not in out:
+            value = tensors[tkey].detach().float().cpu().numpy()
+            out[jkey] = value if fn is None else np.transpose(value, np.argsort(fn))
     return out

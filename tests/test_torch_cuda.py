@@ -218,3 +218,66 @@ def test_eval_image_on_the_card(card, tmp_path):
     assert all(np.isfinite(v) for v in results["cuda"].values())
     for k, v in results["cpu"].items():
         assert abs(results["cuda"][k] - v) <= 1e-2 * abs(v), (k, results)
+
+
+def _train_gather_cases():
+    import chip_smoke as cs
+    return [case for case in cs.train_gather_cases() if case[-1]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _train_gather_cases(), ids=lambda c: c[0])
+def test_gather_bwd_kernel_equals_twin_at_train_shapes(card, case, dtype):
+    """K1's backward at each differentiable train call of the card condition
+    (``chip_smoke.TRAIN_GATHER_CALLS``: per-instance and per-image entries, and
+    per-instance maps whose tiles the capacity overflows), in its layout:
+    bit-equal to its twin, one launch, ``dfeat`` in the forward's layout."""
+    import chip_smoke as cs
+    name, shape, block, halo, per_image, layout, _ = case
+    idx = cs.train_indices(shape, block, per_image, card, np.random.RandomState(len(name)))
+    size = block + 2 * halo
+    g = torch.randn((cs.TRAIN_CAP, size, size, shape[-1]), device=card,
+                    generator=torch.Generator(device=card).manual_seed(block)).to(dtype)
+    plane = layout == "plane"
+    before = kg.bwd_launches
+    out = kg.gather_patches_bwd(g, *idx, shape, block, halo, plane)
+    assert kg.bwd_launches == before + 1
+    ref = kg.gather_patches_bwd_plain(g, *idx, shape, block, halo, plane)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.stride() == ref.stride() and torch.equal(out, ref)
+
+
+def test_gather_autograd_launches_the_backward_kernel(card):
+    """A differentiable feature's gradient through the autograd Function on
+    the card: one backward launch, none for a gathered mask."""
+    feat = torch.randn(2, 64, 64, 8, device=card, requires_grad=True)
+    mask = (torch.rand(2, 64, 64, 1, device=card) > 0.5).float()
+    idx = [t.to(card) for t in _indices(np.random.RandomState(0), 2, 4, 4, 12, 1)]
+    before = kg.bwd_launches
+    (kg.gather_patches(feat, *idx, 16, 3) * kg.gather_patches(mask, *idx, 16, 3)).sum().backward()
+    assert kg.bwd_launches == before + 1 and feat.grad is not None
+
+
+def test_gather_bwd_kernel_rejects_what_it_does_not_take(card):
+    g = torch.zeros(2, 20, 20, 4, device=card)
+    idx = torch.zeros(2, dtype=torch.int64, device=card)
+    with pytest.raises(TypeError):
+        kg.gather_patches_bwd(g.half(), idx, idx, idx, (1, 64, 64, 4), 16, 2)
+    with pytest.raises(ValueError):
+        kg.gather_patches_bwd(g[:, ::2], idx, idx, idx, (1, 64, 64, 4), 16, 2)
+    with pytest.raises(ValueError):
+        kg.gather_patches_bwd(g, idx.int(), idx, idx, (1, 64, 64, 4), 16, 2)
+
+
+def test_train_step_on_the_card_matches_cpu(card):
+    """One f32 ``make_train_step`` step of the full-width model on the card
+    against the same step on the CPU (plain twins) at the reduced size
+    (batch 2, 256x256, 10 slots), within ``chip_smoke``'s STEP_* limits."""
+    import chip_smoke as cs
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        check = cs.card_vs_cpu_step(card)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert check["within"], check

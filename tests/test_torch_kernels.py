@@ -79,6 +79,107 @@ def test_gather_plain_matches_jax(c, block, halo, n_i, dtype):
             np.testing.assert_array_equal(out.float().numpy(), ref)
 
 
+def _train_indices(rs, n, nby, nbx, cap, n_i, overflow):
+    """select_blocks' entries: distinct (instance, by, bx) tiles in random
+    order, // n_i for per-image maps; with ``overflow`` the instances have
+    fewer tiles than ``cap`` and the rest repeat tile 0, as select_blocks pads."""
+    tiles = rs.permutation(n * n_i * nby * nbx)[:cap]
+    if overflow:
+        assert len(tiles) < cap
+    tiles = np.concatenate([tiles, np.zeros(cap - len(tiles), np.int64)])
+    inst, rem = tiles // (nby * nbx), tiles % (nby * nbx)
+    return [a.astype(np.int64) for a in (inst // n_i, rem // nbx, rem % nbx)]
+
+
+# (n, h, w, C, block, halo, n_i, cap, layout): the train ladder's six
+# differentiable gathers at reduced sizes -- x8 (block 8, halo 3), fea3 (16, 4,
+# per image), the os4 hand-off (16, 1), fea2 (32, 0, per image), the os2
+# hand-off (32, 2), fea1 (64, 3, per image) -- and capacities past the tile
+# count (the padding entries repeat tile 0).
+_BWD_CASES = [
+    (6, 24, 32, 8, 8, 3, 1, 9, "pixel"),
+    (2, 48, 64, 16, 16, 4, 3, 14, "plane"),
+    (6, 48, 64, 8, 16, 1, 1, 10, "pixel"),
+    (2, 64, 96, 8, 32, 0, 3, 12, "plane"),
+    (6, 64, 96, 8, 32, 2, 1, 20, "pixel"),
+    (2, 128, 128, 4, 64, 3, 3, 10, "plane"),
+    (2, 24, 32, 8, 8, 3, 1, 30, "pixel"),
+    (1, 64, 96, 8, 32, 2, 1, 9, "plane"),
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,block,halo,n_i,cap,layout", _BWD_CASES)
+def test_gather_bwd_plain_matches_jax_vjp(n, h, w, c, block, halo, n_i, cap, layout):
+    """K1's backward twin against ``jax.vjp`` of the JAX package's gather with
+    ``dup_bound`` n_i (its routed strips, and its scatter-add fallback past
+    that bound): 1e-6 relative to the largest element, the two summing
+    duplicate windows in another order. The autograd Function's gradient is
+    the twin's, in the layout the forward read; bf16 rounds the twin's f32
+    sum once."""
+    import jax
+    rs = np.random.RandomState(n * h + c + halo)
+    nby, nbx = h // block, w // block
+    overflow = cap > n * n_i * nby * nbx
+    idx = _train_indices(rs, n, nby, nbx, cap, n_i, overflow)
+    feat = rs.randn(n, h, w, c).astype(np.float32)
+    size = block + 2 * halo
+    g = rs.randn(cap, size, size, c).astype(np.float32)
+    _, vjp = jax.vjp(lambda x: jbs.gather_patches(x, *map(jnp.asarray, idx), block, halo, n_i),
+                     jnp.asarray(feat))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    tidx = [torch.from_numpy(a) for a in idx]
+    plane = layout == "plane"
+    got = kg.gather_patches_bwd_plain(torch.from_numpy(g), *tidx, (n, h, w, c), block, halo, plane)
+    assert got.shape == (n, h, w, c)
+    assert got.permute(0, 3, 1, 2).is_contiguous() if plane else got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+    tfeat = torch.from_numpy(feat)
+    if plane:
+        tfeat = tfeat.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    tfeat.requires_grad_()
+    kg.gather_patches(tfeat, *tidx, block, halo).backward(torch.from_numpy(g))
+    assert torch.equal(tfeat.grad, got) and tfeat.grad.stride() == got.stride()
+
+    gb = torch.from_numpy(g).to(torch.bfloat16)
+    got_bf = kg.gather_patches_bwd_plain(gb, *tidx, (n, h, w, c), block, halo, plane)
+    ref_bf = kg.gather_patches_bwd_plain(gb.float(), *tidx, (n, h, w, c), block, halo, plane)
+    assert got_bf.dtype == torch.bfloat16 and torch.equal(got_bf, ref_bf.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("layout,n_i,cap", [("pixel", 1, 7), ("plane", 2, 12), ("pixel", 1, 20)])
+def test_gather_autograd_gradcheck(layout, n_i, cap):
+    """``torch.autograd.gradcheck`` of the gather's autograd Function in
+    float64 on the CPU (plain twins both ways), with repeated tiles and a
+    capacity past the tile count (fast mode: random projections of the
+    Jacobian, not each of its columns)."""
+    rs = np.random.RandomState(cap)
+    n, h, w, c, block, halo = 2, 16, 24, 3, 8, 3
+    idx = [torch.from_numpy(a) for a in
+           _train_indices(rs, n, 2, 3, cap, n_i, cap > n * n_i * 6)]
+    feat = torch.from_numpy(rs.randn(n, h, w, c))
+    if layout == "plane":
+        feat = feat.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    feat.requires_grad_()
+    assert torch.autograd.gradcheck(lambda x: kg.gather_patches(x, *idx, block, halo), (feat,),
+                                    fast_mode=True)
+
+
+def test_gather_backward_runs_only_for_inputs_that_need_it(monkeypatch):
+    """A gathered mask (no grad) beside a gathered feature: one backward call,
+    for the feature."""
+    calls = []
+    bwd = kg.gather_patches_bwd
+    monkeypatch.setattr(kg, "gather_patches_bwd", lambda *a, **k: calls.append(a[4]) or bwd(*a, **k))
+    rs = np.random.RandomState(0)
+    idx = [torch.from_numpy(a) for a in _train_indices(rs, 2, 2, 2, 5, 1, False)]
+    feat = torch.randn(2, 16, 16, 4, requires_grad=True)
+    mask = (torch.rand(2, 16, 16, 1) > 0.5).float()
+    out = kg.gather_patches(feat, *idx, 8, 2) * kg.gather_patches(mask, *idx, 8, 2)
+    out.sum().backward()
+    assert calls == [(2, 16, 16, 4)] and feat.grad is not None
+
+
 _GATHER_CU = (Path(kg.__file__).parent / "csrc" / "gather_patches.cu").read_text()
 
 

@@ -82,7 +82,7 @@ def test_snconv(in_ch, out_ch, k, stride, bias):
     if bias:
         v = {**v, "params": {**v["params"], "bias": jnp.asarray(rs.randn(out_ch), jnp.float32)}}
     want = jmod.apply(v, jnp.asarray(x))
-    mod = tlayers.SNConv(in_ch, out_ch, k, stride, k // 2, bias)
+    mod = tlayers.SNConv(in_ch, out_ch, k, stride, k // 2, bias).eval()   # eval: no power step
     sd = {"module.weight_bar": torch.from_numpy(np.array(v["params"]["weight_bar"]))
           .permute(3, 2, 0, 1),
           "module.weight_u": torch.from_numpy(np.array(v["spectral"]["u"])),
@@ -105,7 +105,7 @@ def test_snconv_transpose(in_ch, out_ch):
     x = rs.randn(1, 5, 7, in_ch).astype(np.float32)
     v = jmod.init(jax.random.PRNGKey(1), jnp.asarray(x))
     want = jmod.apply(v, jnp.asarray(x))
-    mod = tlayers.SNConvTranspose(in_ch, out_ch)
+    mod = tlayers.SNConvTranspose(in_ch, out_ch).eval()
     mod.load_state_dict({
         "module.weight_bar": torch.from_numpy(np.array(v["params"]["weight_bar"]))
         .permute(2, 3, 0, 1),
@@ -161,7 +161,7 @@ def test_instance_matte_decoder(models):
     out = _apply(jm, jv, lambda m, z, k: m.decoder.refine_OS8(z, k), jnp.asarray(z),
                  jnp.asarray(masks5))
     with torch.inference_mode():
-        logits, feat, tk = tm.decoder.refine_OS8(nchw(z), torch.from_numpy(masks5))
+        logits, feat, tk, _ = tm.decoder.refine_OS8(nchw(z), torch.from_numpy(masks5))
     assert logits.shape == (1, 10, 8, 12) and logits.dtype == torch.float32
     close(logits.numpy(), out[0], msg="instance logits")
     close(to_nhwc(feat), out[1], msg="smoothed features")
@@ -280,7 +280,7 @@ def test_sparse_layers():
     stats = {"mean": rs.randn(8).astype(np.float32), "var": rs.rand(8).astype(np.float32) + 0.5}
     prm = {"scale": rs.rand(8).astype(np.float32) + 0.5, "bias": rs.randn(8).astype(np.float32)}
     want = jbn.apply({"params": prm, "batch_stats": stats}, jnp.asarray(x), jnp.asarray(mc))
-    bn = tsp.MaskedBatchNorm(8)
+    bn = tsp.MaskedBatchNorm(8).eval()
     _load(bn, {"weight": prm["scale"], "bias": prm["bias"], "running_mean": stats["mean"],
                "running_var": stats["var"], "num_batches_tracked": np.array(0)})
     close(to_nhwc(bn(nchw(x), nchw(mc))), want)
