@@ -2,10 +2,13 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --outputs PATH [--against REF]
+    python3 chip_smoke.py --gather-bwd
 
 The second form only answers requests 0 and 1 in f32 and bf16 and saves the
 outputs to PATH; with REF, saved by the same form from another version, it
-exits non-zero unless every output is equal bit for bit.
+exits non-zero unless every output is equal bit for bit. The third runs only
+K1's backward: its checks of phase 2 and its timing of phase 6.3 (run it in a
+copy of another version to compare the two in one call).
 
 Phases (any failure exits non-zero):
 1. print the card's name and power limit; build the CUDA kernels from the
@@ -43,10 +46,13 @@ Phases (any failure exits non-zero):
    at ``tools/bench_train.py``'s condition (batch 2, 512x512, 10 instance
    slots, synthetic batch from a seed), checking finite losses and 10 K1, 6
    K1-backward and 1 K2 launches per step, with ms/step, peak memory and the
-   kernels' device time; K1's backward timed per call beside its bound, its
-   twin and an ``index_put_`` yardstick. Phase 2 also holds K1's forward at
-   every train call and its backward at every differentiable one (f32, bf16,
-   per-instance, per-image, and a capacity past the tile count) bit for bit.
+   kernels' device time (failing if a kernel that launched reads no device
+   time under its CUDA names); K1's backward timed per call, split into its
+   index pass and pull, beside its bound, its twin and an ``index_put_``
+   yardstick. Phase 2 also holds K1's forward at every train call and its
+   backward at every differentiable one (f32, bf16, per-instance, per-image,
+   and a capacity past the tile count) and at its design's edges
+   (``BWD_EDGE_CASES``) bit for bit, with equal strides and repeatable bits.
 
 Prints a ``{"kernels": [...]}`` line and the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to output/torch_port/chip_smoke.json.
@@ -100,6 +106,35 @@ TRAIN_GATHER_CALLS = (
     ("fea1", (2, 512, 512, 32), 64, 3, True, "plane", True),
 )
 TRAIN_STEPS = 5
+# K1 backward's edges beyond the train calls: (name, map (N, H, W, C), block,
+# halo, layout, cap, entries, offset of g in elements). Entries: "random" tiles
+# with repeats over the whole grid, edge tiles included; "tile0", every entry on
+# tile 0 (a list longer than the kernel's 256 staged windows); "sparse", a few
+# entries on a large grid, so that most neighbourhoods list none; "off_grid",
+# random with a third of the entries outside [0, N) x the tile grid. An offset
+# of 1 puts g off 16-byte alignment (a contiguous view into a larger buffer).
+# The last two have tiles smaller than a bf16 box, so a box holds two tiles
+# side by side, and a ragged last group of columns.
+BWD_EDGE_CASES = (
+    ("ragged", (3, 50, 75, 8), 16, 3, "pixel", 40, "random", 0),
+    ("ragged_plane", (2, 50, 75, 8), 16, 3, "plane", 40, "random", 0),
+    ("halo_eq_block", (2, 64, 64, 16), 8, 8, "plane", 60, "random", 0),
+    ("halo_gt_block", (2, 48, 40, 8), 8, 11, "pixel", 50, "random", 0),
+    ("halo_gt_block_plane", (2, 48, 40, 8), 8, 11, "plane", 50, "random", 0),
+    ("c3", (2, 64, 48, 3), 16, 4, "pixel", 24, "random", 0),
+    ("c3_plane", (2, 64, 48, 3), 16, 4, "plane", 24, "random", 0),
+    ("c1", (2, 64, 48, 1), 16, 4, "pixel", 24, "random", 0),
+    ("long_list", (1, 32, 32, 8), 16, 2, "pixel", 300, "tile0", 0),
+    ("long_list_plane", (1, 32, 32, 8), 16, 2, "plane", 300, "tile0", 0),
+    ("sparse", (2, 256, 256, 32), 16, 2, "plane", 6, "sparse", 0),
+    ("off_grid", (2, 64, 64, 8), 16, 2, "pixel", 30, "off_grid", 0),
+    ("misaligned_g", (2, 64, 64, 32), 16, 2, "pixel", 30, "random", 1),
+    ("misaligned_g_plane", (2, 64, 64, 32), 16, 2, "plane", 30, "random", 1),
+    ("wide_c", (1, 4, 6, 8200), 2, 1, "plane", 5, "random", 0),
+    ("wide_c_pixel", (1, 4, 6, 8200), 2, 1, "pixel", 5, "random", 0),
+    ("tiles_per_box", (2, 24, 40, 64), 8, 3, "pixel", 20, "random", 0),
+    ("tiles_per_box_plane", (2, 24, 40, 64), 8, 10, "plane", 20, "random", 0),
+)
 # phase 6's card-vs-CPU step: the full-width model on a smaller batch, so that
 # the CPU step (plain twins) takes seconds: batch 2 at 256x256, 10 slots.
 REDUCED_BATCH, REDUCED_HW = 2, 256
@@ -131,6 +166,12 @@ ENGINE_BF16_RTOL = 1e-3
 # f32 resize may round the model input differently): the first reading was
 # 7.65e-8 (PERF.md), as the host chain's, so it keeps the f32 limit.
 ENGINE_DP_RTOL = ENGINE_F32_RTOL
+
+
+# CUDA function names of each ported kernel, as torch.profiler lists them
+KERNEL_NAMES = {"gather_patches": ("gather_pixel_major", "gather_plane_major"),
+                "gather_patches_bwd": ("build_tile_lists", "gather_bwd_pull"),
+                "compute_unknown": ("compute_unknown_kernel",)}
 
 
 def fail(msg: str) -> None:
@@ -218,6 +259,26 @@ def train_gather_cases():
             yield name + "_overflow", (8,) + shape[1:], block, halo, per_image, layout, grad
 
 
+def bwd_edge_inputs(case, dtype, dev, seed):
+    """(g, [idx_n, idx_by, idx_bx]) of one BWD_EDGE_CASES row, from ``seed``."""
+    _, (n, h, w, c), block, halo, _, cap, entries, shift = case
+    rs = np.random.RandomState(seed)
+    nby, nbx = -(-h // block), -(-w // block)
+    idx = np.stack([rs.randint(0, n, cap), rs.randint(0, nby, cap), rs.randint(0, nbx, cap)])
+    if entries == "tile0":
+        idx[:] = 0
+    elif entries == "off_grid":
+        bounds = (n, nby, nbx)
+        for p in np.flatnonzero(rs.rand(cap) < 1 / 3):
+            axis = rs.randint(3)
+            idx[axis, p] = rs.choice([-1, bounds[axis], bounds[axis] + 5])
+    size = block + 2 * halo
+    numel = cap * size * size * c
+    flat = torch.randn(numel + shift, generator=torch.Generator().manual_seed(seed))
+    g = flat.to(dev, dtype)[shift:].view(cap, size, size, c)
+    return g, [torch.from_numpy(a.astype(np.int64)).to(dev) for a in idx]
+
+
 def gather_map(shape, layout, dtype, dev, seed=None) -> torch.Tensor:
     """A map (N, H, W, C) in the memory layout the main path hands the kernel:
     random normal from ``seed``, else uniform on the card."""
@@ -246,6 +307,83 @@ def touched_bytes(shape, idx_n, idx_by, idx_bx, block, halo, esize) -> int:
     return int(cover[:, halo:halo + h, halo:halo + w].sum()) * c * esize
 
 
+def window_bytes(shape, idx_n, idx_by, idx_bx, block, halo, esize) -> int:
+    """In-map elements of every entry's window, counted per window (what the
+    transpose must read of g: the off-map halo carries nothing); entries off
+    the grid count 0."""
+    n, h, w, c = shape
+    size = block + 2 * halo
+    ok = ((idx_n >= 0) & (idx_n < n) & (idx_by >= 0) & (idx_by * block < h)
+          & (idx_bx >= 0) & (idx_bx * block < w))
+
+    def extent(b, length):
+        lo = b * block - halo
+        return (torch.clamp(lo + size, max=length) - torch.clamp(lo, min=0)).clamp(min=0)
+    area = extent(idx_by, h) * extent(idx_bx, w) * ok
+    return int(area.sum()) * c * esize
+
+
+def check_train_gathers(dev, rs, out, worst) -> None:
+    """The train path: K1's forward at every train call, and its backward (bit
+    for bit: the twin sums in the kernel's order) at every differentiable one,
+    with the twin's strides. Appends to ``out`` and ``worst``."""
+    from maggie_tpu_torch.ops.kernels import gather as kg
+    out.setdefault("gather", [])
+    out["gather_bwd"] = []
+    worst["gather_bwd"] = 0.0
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for name, shape, block, halo, per_image, layout, grad in train_gather_cases():
+        idx = train_indices(shape, block, per_image, dev, rs)
+        for dt in gather_dtypes(shape):
+            feat = gather_map(shape, layout, dt, dev)
+            got = kg.gather_patches(feat, *idx, block, halo)
+            ref = kg.gather_patches_plain(feat, *idx, block, halo)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                fail(f"gather train {name} {dt}: kernel != plain twin "
+                     f"(max |diff| {float((got.float() - ref.float()).abs().max())})")
+            out["gather"].append({"call": "train_" + name, "dtype": str(dt), "shape": list(shape),
+                                  "layout": layout, "out": list(got.shape), "equal": True})
+            if not grad:
+                continue
+            g = torch.randn(got.shape, device=dev, generator=gen).to(dt)
+            check_bwd(name, g, idx, shape, block, halo, layout, out, worst)
+            out["gather_bwd"][-1]["per_image"] = per_image
+
+
+def check_bwd(name, g, idx, shape, block, halo, layout, out, worst) -> None:
+    """K1's backward on the card against its twin: equal bits, equal strides,
+    and the same bits from a second run (no float atomics)."""
+    from maggie_tpu_torch.ops.kernels import gather as kg
+    plane = layout == "plane"
+    got = kg.gather_patches_bwd(g, *idx, shape, block, halo, plane)
+    again = kg.gather_patches_bwd(g, *idx, shape, block, halo, plane)
+    ref = kg.gather_patches_bwd_plain(g, *idx, shape, block, halo, plane)
+    torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max()) if got.numel() else 0.0
+    if not torch.equal(got, ref) or got.stride() != ref.stride():
+        fail(f"gather backward {name} {g.dtype}: kernel != plain twin (max |diff| {err}, "
+             f"strides {got.stride()} vs {ref.stride()})")
+    bits = torch.int16 if g.dtype == torch.bfloat16 else torch.int32
+    if not torch.equal(got.view(bits), again.view(bits)):
+        fail(f"gather backward {name} {g.dtype}: two runs differ")
+    worst["gather_bwd"] = max(worst.get("gather_bwd", 0.0), err)
+    out.setdefault("gather_bwd", []).append({"call": name, "dtype": str(g.dtype),
+                                             "shape": list(shape), "layout": layout,
+                                             "equal": True, "repeatable": True})
+
+
+def check_bwd_edges(dev, out, worst) -> None:
+    """K1's backward at every BWD_EDGE_CASES row, f32 and bf16."""
+    for case in BWD_EDGE_CASES:
+        name, shape, block, halo, layout = case[:5]
+        for dt in (torch.float32, torch.bfloat16):
+            g, idx = bwd_edge_inputs(case, dt, dev, len(name))
+            if (g.data_ptr() % 16 == 0) != (case[-1] == 0):
+                fail(f"gather backward {name}: g not at the intended alignment")
+            check_bwd("edge_" + name, g, idx, shape, block, halo, layout, out, worst)
+
+
 def phase_kernels(dev, detail) -> dict:
     from maggie_tpu_torch.flagship import blob_alpha
     from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
@@ -266,38 +404,8 @@ def phase_kernels(dev, detail) -> dict:
             out["gather"].append({"call": name, "dtype": str(dt), "shape": list(shape),
                                   "layout": layout, "out": list(got.shape), "equal": True})
 
-    # the train path: K1's forward at every train call, and its backward (bit
-    # for bit: the twin sums in the kernel's order) at every differentiable one
-    out["gather_bwd"] = []
-    worst["gather_bwd"] = 0.0
-    gen = torch.Generator(device=dev).manual_seed(1)
-    for name, shape, block, halo, per_image, layout, grad in train_gather_cases():
-        idx = train_indices(shape, block, per_image, dev, rs)
-        for dt in gather_dtypes(shape):
-            feat = gather_map(shape, layout, dt, dev)
-            got = kg.gather_patches(feat, *idx, block, halo)
-            ref = kg.gather_patches_plain(feat, *idx, block, halo)
-            torch.cuda.synchronize()
-            if not torch.equal(got, ref):
-                fail(f"gather train {name} {dt}: kernel != plain twin "
-                     f"(max |diff| {float((got.float() - ref.float()).abs().max())})")
-            out["gather"].append({"call": "train_" + name, "dtype": str(dt), "shape": list(shape),
-                                  "layout": layout, "out": list(got.shape), "equal": True})
-            if not grad:
-                continue
-            g = torch.randn(got.shape, device=dev, generator=gen).to(dt)
-            plane = layout == "plane"
-            got = kg.gather_patches_bwd(g, *idx, shape, block, halo, plane)
-            ref = kg.gather_patches_bwd_plain(g, *idx, shape, block, halo, plane)
-            torch.cuda.synchronize()
-            err = float((got.float() - ref.float()).abs().max())
-            if not torch.equal(got, ref) or got.stride() != ref.stride():
-                fail(f"gather backward {name} {dt}: kernel != plain twin (max |diff| {err}, "
-                     f"strides {got.stride()} vs {ref.stride()})")
-            worst["gather_bwd"] = max(worst["gather_bwd"], err)
-            out["gather_bwd"].append({"call": name, "dtype": str(dt), "shape": list(shape),
-                                      "layout": layout, "per_image": per_image,
-                                      "equal": True})
+    check_train_gathers(dev, rs, out, worst)
+    check_bwd_edges(dev, out, worst)
 
     def check_unknown(a, k, label):
         got = ku.compute_unknown(a, k)
@@ -398,6 +506,11 @@ def main() -> int:
         args = sys.argv[1:]
         against = args[args.index("--against") + 1] if "--against" in args else None
         return forward_outputs(args[args.index("--outputs") + 1], against)
+    if "--gather-bwd" in sys.argv:
+        print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                         "--format=csv,noheader"], capture_output=True,
+                                        text=True, check=True).stdout.strip(), flush=True)
+        return gather_bwd_only(torch.device("cuda"))
     from maggie_tpu_torch.flagship import blob_batch
     from maggie_tpu_torch.ops.kernels import build, gather as kg, unknown as ku
 
@@ -726,13 +839,7 @@ def phase_train(dev, worst, detail) -> dict:
     t = time_gather_bwd(dev, detail)
     for frame in ("fp32", "bf16"):
         f = t[frame]
-        print(f"phase 6: K1 backward per {frame} step (6 calls): kernel {f['ms']:.4f} ms, bound "
-              f"{f['bound_ms']:.4f} ms, twin {f['plain_ms']:.4f} ms, index_put_ "
-              f"{f['library_ms']:.4f} ms", flush=True)
-    for row in t["calls"]:
-        print(f"    {row['call']} {row['dtype']} {row['layout']}: kernel {row['ms'] * 1e3:.2f} us, "
-              f"bound {row['bound_ms'] * 1e3:.2f} us, index_put_ {row['library_ms'] * 1e3:.2f} us",
-              flush=True)
+    print_gather_bwd_times(t)
     launches = runs["fp32"]["launches"]["gather_patches_bwd"]
     return {"name": "gather_patches_bwd", "route": "cuda",
             "source": "maggie_tpu_torch/ops/kernels/csrc/gather_patches_bwd.cu",
@@ -742,7 +849,41 @@ def phase_train(dev, worst, detail) -> dict:
             "ms": t["fp32"]["ms"], "plain_ms": t["fp32"]["plain_ms"],
             "bound_ms": t["fp32"]["bound_ms"], "bound_by": "bytes",
             "library_ms": t["fp32"]["library_ms"],
-            "bf16_ms": t["bf16"]["ms"], "bf16_bound_ms": t["bf16"]["bound_ms"]}
+            "bf16_ms": t["bf16"]["ms"], "bf16_bound_ms": t["bf16"]["bound_ms"],
+            "index_ms": t["fp32"]["index_ms"], "pull_ms": t["fp32"]["pull_ms"],
+            "bf16_index_ms": t["bf16"]["index_ms"], "bf16_pull_ms": t["bf16"]["pull_ms"]}
+
+
+def print_gather_bwd_times(t) -> None:
+    for frame in ("fp32", "bf16"):
+        f = t[frame]
+        print(f"phase 6: K1 backward per {frame} step (6 calls): kernel {f['ms']:.4f} ms (index "
+              f"pass {f['index_ms']:.4f}, pull {f['pull_ms']:.4f}), bound {f['bound_ms']:.4f} ms, "
+              f"twin {f['plain_ms']:.4f} ms, index_put_ {f['library_ms']:.4f} ms", flush=True)
+    for row in t["calls"]:
+        print(f"    {row['call']} {row['dtype']} {row['layout']}: kernel {row['ms'] * 1e3:.2f} us "
+              f"(index pass {row['index_ms'] * 1e3:.2f}, pull {row['pull_ms'] * 1e3:.2f}), bound "
+              f"{row['bound_ms'] * 1e3:.2f} us, index_put_ {row['library_ms'] * 1e3:.2f} us",
+              flush=True)
+
+
+def gather_bwd_only(dev) -> int:
+    """``--gather-bwd``: build, hold K1's backward against its twin at every
+    train and edge case, and time it per call as phase 6.3 does; details to
+    output/torch_port/gather_bwd.json."""
+    from maggie_tpu_torch.ops.kernels import build
+    build.build_all(("gather_patches", "gather_patches_bwd"))
+    out, worst = {"gather": []}, {}
+    check_train_gathers(dev, np.random.RandomState(7), out, worst)
+    check_bwd_edges(dev, out, worst)
+    print(f"gather backward: {len(out['gather_bwd'])} cases bit-equal to the twin and "
+          f"repeatable", flush=True)
+    detail = {}
+    print_gather_bwd_times(time_gather_bwd(dev, detail))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "gather_bwd.json"), "w") as f:
+        json.dump({"checks": out, **detail}, f, indent=1)
+    return 0
 
 
 def one_step(model, batch, generator, cfg) -> dict:
@@ -860,43 +1001,83 @@ def train_run(dev, precision: str) -> dict:
     return out
 
 
+def device_us(event) -> float:
+    return (event.self_device_time_total if hasattr(event, "self_device_time_total")
+            else event.self_cuda_time_total)
+
+
 def step_kernel_split(step, state, batch, gen, step_ms: float) -> dict:
     """Device time of two steps by torch.profiler: every kernel's, and K1's
-    forward and backward and K2's by their CUDA function names."""
+    forward and backward and K2's by their CUDA function names (KERNEL_NAMES).
+    Fails if a ported kernel launched in those steps but no device time was
+    found under its names (a renamed kernel would otherwise read 0)."""
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    counts = lambda: {"gather_patches": kg.launches, "gather_patches_bwd": kg.bwd_launches,
+                      "compute_unknown": ku.launches}
+    before = counts()
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(2):
             step(state, batch, gen, **TRAIN_FLAGS)
         torch.cuda.synchronize()
-    names = {"gather_patches": ("gather_pixel_major", "gather_plane_major"),
-             "gather_patches_bwd": ("build_tile_lists", "gather_bwd_pull"),
-             "compute_unknown": ("compute_unknown_kernel",)}
-    split = dict.fromkeys(names, 0.0)
+    launched = {k: v - before[k] for k, v in counts().items()}
+    split = dict.fromkeys(KERNEL_NAMES, 0.0)
     total = 0.0
     for e in prof.key_averages():
         if e.key.startswith(("aten::", "cuda")):
             continue
-        us = (e.self_device_time_total if hasattr(e, "self_device_time_total")
-              else e.self_cuda_time_total)
+        us = device_us(e)
         total += us
-        for k, subs in names.items():
-            if any(s in e.key for s in subs):
+        for k, subs in KERNEL_NAMES.items():
+            if any(sub in e.key for sub in subs):
                 split[k] += us
+    for k, n in launched.items():
+        if n and split[k] <= 0.0:
+            fail(f"profiled train steps: {k} launched {n} times but no device time was found "
+                 f"under {KERNEL_NAMES[k]}")
     kernel_ms = total / 1e3 / 2
     return {"kernel_ms_per_step": kernel_ms, "busy_share": kernel_ms / step_ms,
             "ported_kernels_ms_per_step": {k: v / 1e3 / 2 for k, v in split.items()}}
 
 
+def bwd_split_ms(fn, reps: int = 10) -> dict:
+    """Device ms per launch of K1 backward's index pass and of its pull, by
+    their CUDA function names under torch.profiler over ``reps`` eager calls:
+    each name's device time over the launches the profiler recorded under it
+    (after earlier profilers in one process it may record fewer than
+    ``reps``). Fails if either name recorded none."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names = dict(zip(("index_ms", "pull_ms"), KERNEL_NAMES["gather_patches_bwd"]))
+    us, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+    for e in prof.key_averages():
+        for k, name in names.items():
+            if name in e.key and not e.key.startswith(("aten::", "cuda")):
+                us[k] += device_us(e)
+                count[k] += e.count
+    if min(count.values()) == 0 or min(us.values()) <= 0.0:
+        fail(f"K1 backward: no device time under {tuple(names.values())}: {us} over {count}")
+    return {k: us[k] / 1e3 / count[k] for k in names}
+
+
 def time_gather_bwd(dev, detail) -> dict:
     """Phase 6.3: K1's backward per call at the train shapes, f32 and bf16, by
-    CUDA-graph replay, beside its byte bound (g read, dfeat written, indices
-    read, over the HBM rate), its twin and the library yardstick: one
+    CUDA-graph replay, split into its index pass and pull (device time by
+    name, torch.profiler over eager calls), beside its byte bound (each
+    window's in-map part of g read, dfeat written, indices read, over the HBM
+    rate), its twin and the library
+    yardstick: one
     ``index_put_(accumulate=True)`` of every window into a zeroed padded map
     (these two eagerly between CUDA events: the twin reads a count back to
     the host, so it cannot be captured)."""
     from maggie_tpu_torch.ops.kernels import gather as kg
     rs = np.random.RandomState(13)
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    keys = ("ms", "index_ms", "pull_ms", "plain_ms", "library_ms", "bound_ms")
     res = {"calls": [], "fp32": dict.fromkeys(keys, 0.0), "bf16": dict.fromkeys(keys, 0.0)}
     for name, shape, block, halo, per_image, layout, grad in TRAIN_GATHER_CALLS:
         if not grad:
@@ -915,12 +1096,14 @@ def time_gather_bwd(dev, detail) -> dict:
             def library():
                 padded.zero_()
                 padded.index_put_(ii, g, accumulate=True)
-            row = {"call": name, "dtype": str(dt), "layout": layout,
-                   "ms": graph_ms(lambda: kg.gather_patches_bwd(g, *idx, shape, block, halo, plane)),
+            kern = lambda: kg.gather_patches_bwd(g, *idx, shape, block, halo, plane)
+            row = {"call": name, "dtype": str(dt), "layout": layout, "ms": graph_ms(kern),
+                   **bwd_split_ms(kern),
                    "plain_ms": cuda_ms(lambda: kg.gather_patches_bwd_plain(
                        g, *idx, shape, block, halo, plane), iters=3, warmup=1),
                    "library_ms": cuda_ms(library, iters=5, warmup=1)}
-            row["bytes"] = (g.numel() + n * h * w * c) * g.element_size() + 3 * TRAIN_CAP * 8
+            row["bytes"] = (window_bytes(shape, *idx, block, halo, g.element_size())
+                            + n * h * w * c * g.element_size() + 3 * TRAIN_CAP * 8)
             row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
             res["calls"].append(row)
             for k in keys:
@@ -974,8 +1157,7 @@ def stage_split(model, batch, frame_ms: float) -> dict:
     kernel_us = 0.0
     for e in prof.key_averages():  # device rows only: ops and runtime calls excluded
         if not e.key.startswith(("aten::", "cuda")):
-            kernel_us += (e.self_device_time_total if hasattr(e, "self_device_time_total")
-                          else e.self_cuda_time_total)
+            kernel_us += device_us(e)
     kernel_ms = kernel_us / 1e3 / SPLIT_FRAMES
     return {"stage_ms": ms, "hooked_frame_ms": hooked_ms, "kernel_ms": kernel_ms,
             "busy_share": kernel_ms / frame_ms}

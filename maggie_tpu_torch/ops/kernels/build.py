@@ -68,10 +68,18 @@ def _finish(name: str, job: tuple[subprocess.Popen, Path, Path] | None) -> None:
 
 
 def build_all(names: tuple[str, ...] = SOURCES) -> None:
-    """Compile every missing library, one ``nvcc`` per source, all at once."""
+    """Compile every missing library, one ``nvcc`` per source, all at once;
+    if one fails, the others are stopped before the error propagates."""
     jobs = {name: _start(name) for name in names}
-    for name, job in jobs.items():
-        _finish(name, job)
+    try:
+        for name, job in jobs.items():
+            _finish(name, job)
+    finally:
+        for job in jobs.values():
+            if job is not None and job[0].poll() is None:
+                job[0].kill()
+                job[0].wait()
+                job[1].unlink(missing_ok=True)
 
 
 def load(name: str) -> ctypes.CDLL:

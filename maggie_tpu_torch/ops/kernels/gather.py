@@ -22,7 +22,12 @@ entry's window is added back into ``dfeat``, duplicate and padding entries
 included, in a fixed order (the kernel's header says which), and ``dfeat``
 comes back in the layout the forward read. It replaces the JAX package's
 custom VJP (``maggie_tpu/ops/blocksparse.py:80-176``), whose ``dup_bound``
-the port does not need: the kernel lists every tile's entries, however many.
+the port does not need: an index pass lists every tile's entries, however
+many. The pull then runs one thread block per box of an output tile, stages
+the windows that cover the box with 16-byte ``cp.async`` copies and sums them
+in f32 registers, and writes plane-major ``dfeat`` through a turn in shared
+memory. The pull's shared memory is fixed (a 64 KB ring), so the wrapper
+checks only the index pass's against the card's limit.
 """
 
 from __future__ import annotations
@@ -122,7 +127,6 @@ bwd_launches = 0
 _bwd_fn = None  # the C entry point, set up at first launch
 INDEX_THREADS = 1024          # csrc/gather_patches_bwd.cu kIndexThreads
 MAX_SMEM_BYTES = 232448       # shared memory one thread block may use on the H100
-MAX_PULL_ELEMENTS = 2**31 - 1 - 256 * 2**20   # the pull's int32 grid-stride bound
 
 
 def _tile_grid(shape, block: int) -> tuple[int, int, int]:
@@ -207,9 +211,6 @@ def _launch_bwd(g, idx_n, idx_by, idx_bx, shape, block, halo, plane):
                 or t.device != g.device or t.shape[0] != cap:
             raise ValueError(f"{name} must be a contiguous int64 vector of length cap "
                              f"on {g.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if n * h * w * c > MAX_PULL_ELEMENTS:
-        raise ValueError(f"gather_patches backward kernel indexes dfeat in 32 bits: at most "
-                         f"{MAX_PULL_ELEMENTS} elements, got {(n, h, w, c)}")
     _, _, n_tiles = _tile_grid(shape, block)
     smem = (cap + n_tiles + 1 + INDEX_THREADS) * 4
     if smem > MAX_SMEM_BYTES:

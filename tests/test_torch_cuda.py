@@ -247,6 +247,64 @@ def test_gather_bwd_kernel_equals_twin_at_train_shapes(card, case, dtype):
     assert out.dtype == dtype and out.stride() == ref.stride() and torch.equal(out, ref)
 
 
+def _bwd_edge_cases():
+    import chip_smoke as cs
+    return cs.BWD_EDGE_CASES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _bwd_edge_cases(), ids=lambda c: c[0])
+def test_gather_bwd_kernel_edges_equal_twin(card, case, dtype):
+    """K1's backward at the edges of its design (``chip_smoke.BWD_EDGE_CASES``:
+    ragged grids, halo = block and halo > block, C = 3 and C = 1, a tile listed
+    more times than one staging round holds, neighbourhoods that list no entry,
+    entries off the grid, a g off 16-byte alignment, channels split over
+    boxes): bit-equal to its twin with the twin's strides, one launch, and the
+    same bits from a second run."""
+    import chip_smoke as cs
+    name, shape, block, halo, layout, *_, shift = case
+    g, idx = cs.bwd_edge_inputs(case, dtype, card, len(name))
+    assert g.is_contiguous() and (g.data_ptr() % 16 == 0) == (shift == 0)
+    plane = layout == "plane"
+    before = kg.bwd_launches
+    out = kg.gather_patches_bwd(g, *idx, shape, block, halo, plane)
+    assert kg.bwd_launches == before + 1
+    again = kg.gather_patches_bwd(g, *idx, shape, block, halo, plane)
+    ref = kg.gather_patches_bwd_plain(g, *idx, shape, block, halo, plane)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.stride() == ref.stride() and torch.equal(out, ref)
+    assert torch.equal(out.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       again.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+@pytest.mark.parametrize("layout", ["pixel", "plane"])
+def test_gather_bwd_kernel_past_32_bit_positions(card, layout):
+    """K1's backward on a map of more than 2**31 elements (1 x 8200 x 4096 x
+    64 bf16, ragged last tile row): the windows of tiles in the last two tile
+    rows land past element 2**31 (pixel-major: the rows below 8192;
+    plane-major: every channel plane but the first), and equal the twin on
+    the crop that holds them; every other element is zero."""
+    shape, block, halo, top = (1, 8200, 4096, 64), 64, 3, 126 * 64
+    assert np.prod(shape) > 2**31
+    rs = np.random.RandomState(31)
+    by = np.concatenate([[128, 128], rs.randint(127, 129, 14)])
+    bx = np.concatenate([[0, 63], rs.randint(0, 64, 14)])
+    idx = [torch.from_numpy(a.astype(np.int64)).to(card) for a in (np.zeros(16), by, bx)]
+    size = block + 2 * halo
+    g = torch.randn(16, size, size, 64, generator=torch.Generator().manual_seed(31))
+    g = g.to(card, torch.bfloat16)
+    plane = layout == "plane"
+    out = kg.gather_patches_bwd(g, *idx, shape, block, halo, plane)
+    crop = (1, shape[1] - top) + shape[2:]
+    ref = kg.gather_patches_bwd_plain(g, idx[0], idx[1] - top // block, idx[2], crop, block,
+                                      halo, plane)
+    torch.cuda.synchronize()
+    n, h, w, c = shape
+    assert out.stride() == ((c * h * w, w, 1, h * w) if plane else (h * w * c, w * c, c, 1))
+    assert torch.equal(out[:, top:], ref)
+    assert int(torch.count_nonzero(out[:, :top])) == 0
+
+
 def test_gather_autograd_launches_the_backward_kernel(card):
     """A differentiable feature's gradient through the autograd Function on
     the card: one backward launch, none for a gathered mask."""

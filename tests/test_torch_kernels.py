@@ -95,7 +95,9 @@ def _train_indices(rs, n, nby, nbx, cap, n_i, overflow):
 # differentiable gathers at reduced sizes -- x8 (block 8, halo 3), fea3 (16, 4,
 # per image), the os4 hand-off (16, 1), fea2 (32, 0, per image), the os2
 # hand-off (32, 2), fea1 (64, 3, per image) -- and capacities past the tile
-# count (the padding entries repeat tile 0).
+# count (the padding entries repeat tile 0); then halo = block and halo > block
+# (reach 1 and 2: the JAX VJP's scatter-add branch), and capacities past
+# n_tiles * dup_bound with dup_bound > 1 (the same branch).
 _BWD_CASES = [
     (6, 24, 32, 8, 8, 3, 1, 9, "pixel"),
     (2, 48, 64, 16, 16, 4, 3, 14, "plane"),
@@ -105,6 +107,12 @@ _BWD_CASES = [
     (2, 128, 128, 4, 64, 3, 3, 10, "plane"),
     (2, 24, 32, 8, 8, 3, 1, 30, "pixel"),
     (1, 64, 96, 8, 32, 2, 1, 9, "plane"),
+    (2, 32, 48, 8, 8, 8, 1, 12, "pixel"),
+    (2, 32, 48, 4, 8, 8, 3, 14, "plane"),
+    (2, 32, 48, 8, 8, 11, 1, 12, "plane"),
+    (2, 32, 48, 4, 8, 11, 3, 20, "pixel"),
+    (1, 32, 32, 8, 16, 2, 3, 20, "pixel"),
+    (1, 32, 32, 8, 16, 2, 3, 20, "plane"),
 ]
 
 
@@ -178,6 +186,211 @@ def test_gather_backward_runs_only_for_inputs_that_need_it(monkeypatch):
     out = kg.gather_patches(feat, *idx, 8, 2) * kg.gather_patches(mask, *idx, 8, 2)
     out.sum().backward()
     assert calls == [(2, 16, 16, 4)] and feat.grad is not None
+
+
+def test_gather_bwd_plain_on_a_ragged_grid_equals_index_put():
+    """The twin on a grid whose edge tiles are cut (H, W not multiples of the
+    block), with repeated, padding and off-grid entries, against a direct
+    ``index_put_(accumulate=True)`` of every on-grid window into a zero-padded
+    map, in float64 (the JAX VJP takes ``h // block`` tiles, so it cannot be
+    the reference here). Both layouts."""
+    rs = np.random.RandomState(5)
+    n, h, w, c, block, halo, cap = 3, 50, 75, 4, 16, 5, 40
+    nby, nbx = -(-h // block), -(-w // block)
+    idx = [rs.randint(0, n, cap), rs.randint(0, nby, cap), rs.randint(0, nbx, cap)]
+    idx[1][:4], idx[2][:4] = nby - 1, nbx - 1                   # the cut corner tile, 4 times
+    idx[0][4], idx[1][5], idx[2][6] = n, -1, nbx                # off the grid
+    idx = [torch.from_numpy(a.astype(np.int64)) for a in idx]
+    size = block + 2 * halo
+    g = torch.from_numpy(rs.randn(cap, size, size, c))
+    on = ((idx[0] >= 0) & (idx[0] < n) & (idx[1] >= 0) & (idx[1] < nby)
+          & (idx[2] >= 0) & (idx[2] < nbx))
+    ar = torch.arange(size)
+    padded = torch.zeros(n, nby * block + 2 * halo, nbx * block + 2 * halo, c, dtype=g.dtype)
+    padded.index_put_((idx[0][on][:, None, None], (idx[1][on] * block)[:, None, None] + ar[:, None],
+                       (idx[2][on] * block)[:, None, None] + ar), g[on], accumulate=True)
+    want = padded[:, halo:halo + h, halo:halo + w]
+    for plane in (False, True):
+        got = kg.gather_patches_bwd_plain(g, *idx, (n, h, w, c), block, halo, plane)
+        assert got.shape == (n, h, w, c) and got.dtype == torch.float64
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-12)
+
+
+_BWD_CU = (Path(kg.__file__).parent / "csrc" / "gather_patches_bwd.cu").read_text()
+
+
+def _bwd_const(name):
+    """A ``constexpr int`` of the backward kernel's source (a number or a product)."""
+    a, b = re.search(rf"constexpr int {name} = (\d+)(?: \* (\d+))?;", _BWD_CU).groups()
+    return int(a) * int(b or 1)
+
+
+def _gather_bwd_kernel_emulation(g, idx, shape, block, halo, plane, g_addr=0):
+    """numpy emulation of csrc/gather_patches_bwd.cu's work plan: the index
+    pass (arrivals in an arbitrary order, as the atomics give them, the scan,
+    the unordered placement, then each entry's move to its rank among its
+    tile's lower entries), then the pull's boxes (the host's box shape and
+    instance choice, each block's owned vectors, its neighbour filter and window
+    list in the contract's order, each window's masked 16-byte reads with their
+    f32 adds) and its stores: pixel-major straight from the sums, plane-major
+    through the turn buffer. It asserts that every vector access is aligned,
+    that the staged list equals a stable sort of the keys, that the turn fits
+    in the ring and that each output element is written once. Returns the f32
+    sums in the (N, H, W, C) view of the kernel's layout, and (K, vector out,
+    whether a box listed more windows than one staging round holds, the box's
+    columns)."""
+    threads, windows = _bwd_const("kThreads"), _bwd_const("kWindows")
+    n_maps, h, w, c = shape
+    esize = g.element_size()
+    gf = g.float().numpy().reshape(-1)
+    cap, size = g.shape[0], block + 2 * halo
+    nby, nbx = -(-h // block), -(-w // block)
+    n_tiles = n_maps * nby * nbx
+    i_n, i_y, i_x = (t.numpy() for t in idx)
+    ok = (i_n >= 0) & (i_n < n_maps) & (i_y >= 0) & (i_y < nby) & (i_x >= 0) & (i_x < nbx)
+    keys = np.where(ok, (i_n * nby + i_y) * nbx + i_x, -1)
+    assert (cap * n_tiles < 2**31) or cap == 0                  # the packed tile * cap + arrival
+    arrival, seen = np.zeros(cap, np.int64), np.zeros(n_tiles, np.int64)
+    for p in np.random.RandomState(cap).permutation(cap):       # the atomics' order
+        if ok[p]:
+            arrival[p], seen[keys[p]] = seen[keys[p]], seen[keys[p]] + 1
+    starts = np.concatenate([[0], np.cumsum(seen)]).astype(np.int64)
+    unordered = np.full(int(ok.sum()), -1, np.int64)
+    unordered[starts[keys[ok]] + arrival[ok]] = np.flatnonzero(ok)
+    assert (unordered >= 0).all()
+    lst = np.full(unordered.shape, -1, np.int64)
+    for i, p in enumerate(unordered):
+        t = np.searchsorted(starts, i, side="right") - 1          # the kernel's binary search
+        seg = unordered[starts[t]:starts[t + 1]]
+        lst[starts[t] + int((seg < p).sum())] = p
+    np.testing.assert_array_equal(lst, np.flatnonzero(ok)[np.argsort(keys[ok], kind="stable")])
+
+    k16 = 16 // esize
+    vec = c % k16 == 0 and g_addr % 16 == 0
+    kk = k16 if vec else 1
+    box = threads * (_bwd_const("kVectors") * k16 if vec else _bwd_const("kElements"))
+    ring = box * esize * _bwd_const("kStages")
+    cc_ = min(c, box)
+    wc = min(block, box // cc_)
+    r = min(block, box // (wc * cc_))
+    if r == block and wc == block:                               # whole tiles side by side
+        wc = block * max(1, min(box // (block * block * cc_), nbx))
+    span = max(wc, block)
+    cper, rper = -(-span // wc), -(-block // r)
+    nbr, nbc, nbch = nby * rper, -(-w // span) * cper, -(-c // cc_)
+    vec_out = w % k16 == 0 and block % k16 == 0 and wc % k16 == 0
+    e_n = box // threads // kk
+    reach = -(-halo // block)
+    out = np.zeros(n_maps * h * w * c, np.float32)
+    written = np.zeros(out.shape, np.int64)
+    vec_idx = np.arange(threads)[:, None] + np.arange(e_n)[None, :] * threads
+    most = 0                                                     # windows of one box
+    for blk in range(n_maps * nbr * nbc * nbch):
+        b, bch = divmod(blk, nbch)
+        b, bc = divmod(b, nbc)
+        n, br = divmod(b, nbr)
+        ty, gcol = br // rper, bc // cper
+        y0 = ty * block + br % rper * r
+        y1 = min(y0 + r, ty * block + block, h)
+        xa = gcol * span + bc % cper * wc
+        x1 = min(xa + wc, gcol * span + span, w)
+        c0 = bch * cc_
+        if y0 >= y1 or xa >= x1:
+            continue
+        c1 = min(c0 + cc_, c)
+        f = vec_idx * kk
+        y, x, ch = y0 + (f // cc_) // wc, xa + (f // cc_) % wc, c0 + f % cc_
+        valid = (y < y1) & (x < x1) & (ch < c1)
+        acc = np.zeros(vec_idx.shape + (kk,), np.float32)
+        wins = []
+        sy0, sx0 = y0 // block - reach, xa // block - reach
+        nsx = (x1 - 1) // block - xa // block + 1 + 2 * reach
+        for nb in range(((y1 - 1) // block - y0 // block + 1 + 2 * reach) * nsx):
+            sy, sx = sy0 + nb // nsx, sx0 + nb % nsx
+            wy, wx = sy * block - halo, sx * block - halo
+            if (0 <= sy < nby and 0 <= sx < nbx and wy < y1 and wy + size > y0
+                    and wx < x1 and wx + size > xa):
+                t = (n * nby + sy) * nbx + sx
+                wins += [(p, wy, wx) for p in lst[starts[t]:starts[t + 1]]]
+        most = max(most, len(wins))
+        for p, wy, wx in wins:
+            ry, rx = y - wy, x - wx
+            inside = valid & (ry >= 0) & (ry < size) & (rx >= 0) & (rx < size)
+            src = p * size * size * c + (ry * size + rx) * c + ch
+            assert ((g_addr + src[inside] * esize) % (kk * esize) == 0).all()
+            acc[inside] += gf[src[inside][:, None] + np.arange(kk)]
+        if not plane:
+            dst = (((n * h + y) * w + x) * c + ch)[valid]
+            assert (dst * esize % (kk * esize) == 0).all()
+            for k in range(kk):
+                out[dst + k] = acc[valid][:, k]
+                written[dst + k] += 1
+            continue
+        stride = r * wc + 1
+        assert cc_ * stride * esize <= ring
+        turn = np.full(cc_ * stride, np.nan, np.float32)
+        at = ((ch - c0) * stride + (y - y0) * wc + (x - xa))[valid]
+        for k in range(kk):
+            turn[at + k * stride] = acc[valid][:, k]
+        ko = k16 if vec_out else 1
+        nv = wc // ko
+        i = np.arange(cc_ * r * nv)
+        xv, t = i % nv, i // nv
+        yy, xx, cch = y0 + t % r, xa + xv * ko, c0 + t // r
+        keep = (yy < y1) & (xx < x1) & (cch < c1)
+        src = ((cch - c0) * stride + (yy - y0) * wc + (xx - xa))[keep]
+        dst = (((n * c + cch) * h + yy) * w + xx)[keep]
+        assert (dst * esize % (ko * esize) == 0).all()
+        for k in range(ko):
+            assert not np.isnan(turn[src + k]).any()
+            out[dst + k] = turn[src + k]
+            written[dst + k] += 1
+    assert (written == 1).all()
+    view = out.reshape(n_maps, c, h, w).transpose(0, 2, 3, 1) if plane else \
+        out.reshape(n_maps, h, w, c)
+    return view, (kk, vec_out, most > windows, wc)
+
+
+# The train ladder's box shapes at reduced map sizes (chip_smoke.BWD_EDGE_CASES's
+# row format): x8's one box per tile, fea3's and the os4 hand-off's 4-row boxes,
+# fea1's 2-row boxes with per-image repeats.
+_BWD_PLAN_TRAIN = (
+    ("x8", (4, 32, 32, 64), 8, 3, "pixel", 40, "random", 0),
+    ("fea3", (1, 64, 48, 64), 16, 4, "plane", 30, "random", 0),
+    ("x4", (4, 48, 48, 64), 16, 1, "pixel", 30, "random", 0),
+    ("fea1", (1, 128, 128, 32), 64, 3, "plane", 12, "random", 0),
+)
+
+
+def _bwd_plan_cases():
+    import chip_smoke as cs
+    return list(cs.BWD_EDGE_CASES + _BWD_PLAN_TRAIN)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _bwd_plan_cases(), ids=lambda c: c[0])
+def test_gather_bwd_kernel_plan_matches_plain(case, dtype):
+    """The CUDA backward's work plan gives the twin's dfeat bit for bit at
+    every edge case the card tests hold (ragged grids, halo >= block, C = 1
+    and 3, lists longer than one staging round, empty neighbourhoods, off-grid
+    entries, a misaligned g, channels split over boxes, boxes of two tiles)
+    and at the train ladder's box shapes, and takes the 16-byte instance where
+    it should."""
+    import chip_smoke as cs
+    name, shape, block, halo, layout, *_, shift = case
+    g, idx = cs.bwd_edge_inputs(case, dtype, "cpu", len(name))
+    plane = layout == "plane"
+    got, (k, vec_out, rounds, box_cols) = _gather_bwd_kernel_emulation(
+        g, idx, shape, block, halo, plane, g_addr=g.data_ptr() % 16)
+    ref = kg.gather_patches_bwd_plain(g, *idx, shape, block, halo, plane)
+    assert torch.equal(torch.from_numpy(np.ascontiguousarray(got)).to(dtype), ref)
+    k16 = 16 // g.element_size()
+    assert k == (k16 if shape[-1] % k16 == 0 and not shift else 1)
+    if name in ("x8", "fea3", "x4", "fea1"):
+        assert k == k16 and (vec_out or not plane)
+    assert rounds == name.startswith("long_list")
+    if name in ("tiles_per_box", "tiles_per_box_plane", "x8"):    # 8x8x64 tiles
+        assert box_cols == (2 * block if dtype == torch.bfloat16 else block)
 
 
 _GATHER_CU = (Path(kg.__file__).parent / "csrc" / "gather_patches.cu").read_text()
