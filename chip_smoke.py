@@ -52,7 +52,23 @@ Phases (any failure exits non-zero):
    yardstick. Phase 2 also holds K1's forward at every train call and its
    backward at every differentiable one (f32, bf16, per-instance, per-image,
    and a capacity past the tile count) and at its design's edges
-   (``BWD_EDGE_CASES``) bit for bit, with equal strides and repeatable bits.
+   (``BWD_EDGE_CASES``) bit for bit, with equal strides and repeatable bits;
+7. the trainer through the CLI: a synthetic HIM set written with PIL into a
+   temp dir (a train split of 8 JPEG frames at 720x1280 with 1-5 blob
+   instances as PNG alphas, an eval split of 2 frames with guidance masks);
+   ``maggie_tpu_torch.main.main`` trains ``configs/maggie_image.yaml`` at full
+   width (batch 2, 6 iterations, validation every 3, a loss logged every
+   iteration), resumes to 8, trains 3 iterations with ``--precision 16``, and
+   then 60 f32 iterations logging every 10 without validation (long enough to
+   drain the loader's and the infeed's queues, so that its meters say which of
+   the loader and the step sets the pace); checks finite losses, 10 K1, 6 K1-backward and 1 K2 launches per train
+   iteration and 5 K1 and 3 K2 per val frame, the checkpoint files, that the
+   resumed run starts at iteration 6 from the saved state bit for bit, and that
+   ``best_model.npz`` loads into the ``--eval-only`` model with the saved
+   parameters bit for bit and its eval forward on a val frame agrees with the
+   trainer's model in eval mode; prints samples/s, ``data_time``, the infeed
+   stall share, ms/step and peak memory beside phase 6's ms/step, and the host
+   cost of one train sample by transform (mean over the 8 frames).
 
 Prints a ``{"kernels": [...]}`` line and the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to output/torch_port/chip_smoke.json.
@@ -63,8 +79,10 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -643,6 +661,11 @@ def main() -> int:
     for kern in kernels[:2]:
         kern["train_launches"] = detail["train"]["fp32"]["launches"][kern["name"]]
 
+    # ---- phase 7: the trainer through the CLI ----
+    trainer = phase_trainer(detail)
+    for kern in kernels:
+        kern["trainer_launches"] = trainer["launches"][kern["name"]]
+
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1)
@@ -785,6 +808,310 @@ def phase_engine(cpu_model, model, bf16_model, detail) -> dict:
     print(f"phase 5: CPU frame 0 in {out['cpu']['wall_s']:.1f} s "
           f"({out['cpu_device_preprocess']['wall_s']:.1f} s with device_preprocess); metrics "
           f"{out['cpu']['per_frame'][0]}", flush=True)
+    return out
+
+
+# phase 7: the trainer on a synthetic HIM set written to disk
+TRAINER_FRAMES, TRAINER_VAL_FRAMES = 8, 2
+TRAINER_SRC = (720, 1280)     # ResizeShort(576) -> 576x1024, then 512x512 crops
+PER_ITER = {"gather_patches": 10, "gather_patches_bwd": 6, "compute_unknown": 1}
+PER_VAL_FRAME = {"gather_patches": 5, "gather_patches_bwd": 0, "compute_unknown": 3}
+# a longer f32 run, logging every 10 iterations (the config's cadence) and not
+# validating: enough iterations to drain the loader's and the infeed's queues
+# (up to 5 batches ahead), so that its meters show which of the loader and the
+# step sets the pace
+SUSTAINED_ITERS = 60
+CKPT_FILES = ("last_state.pt", "best_model.npz", "best_score.txt", "last_step.txt",
+              "train_meters.json", "config.yaml")
+
+
+def trainer_set(root: str) -> None:
+    """Write the HIM layouts with PIL: ``root/train/images/*.jpg`` with
+    ``root/train/alphas/<image>/*.png`` (1-5 blob instances a frame), and
+    ``root/images/val/*.jpg`` with ``root/{alphas,<mask dir>}/val/<image>/*.png``
+    (3 instances, the masks the alphas binarized), from seeds."""
+    from PIL import Image
+    from maggie_tpu_torch.flagship import blob_alpha, flagship_cfg
+    mask_dir = flagship_cfg().dataset.test.mask_dir_name
+    h, w = TRAINER_SRC
+
+    def frame(rs):   # smooth colour fields with grain, as a photo has
+        small = Image.fromarray(rs.randint(0, 256, (h // 16, w // 16, 3)).astype(np.uint8))
+        f = np.asarray(small.resize((w, h), Image.BILINEAR)).astype(np.int16)
+        return np.clip(f + rs.randint(-12, 13, f.shape), 0, 255).astype(np.uint8)
+
+    def save(arr, path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(arr).save(path, **({"quality": 90} if path.endswith(".jpg") else {}))
+
+    for i in range(TRAINER_FRAMES):
+        rs = np.random.RandomState(200 + i)
+        save(frame(rs), os.path.join(root, "train", "images", f"f{i}.jpg"))
+        for j, a in enumerate(blob_alpha(h, w, 1 + i % 5, rs)):
+            save(np.round(a * 255).astype(np.uint8),
+                 os.path.join(root, "train", "alphas", f"f{i}", f"{j:02d}.png"))
+    for i in range(TRAINER_VAL_FRAMES):
+        rs = np.random.RandomState(300 + i)
+        save(frame(rs), os.path.join(root, "images", "val", f"v{i}.jpg"))
+        for j, a in enumerate(blob_alpha(h, w, N_INST, rs)):
+            a = np.round(a * 255).astype(np.uint8)
+            save(a, os.path.join(root, "alphas", "val", f"v{i}", f"{j:02d}.png"))
+            save(((a > 127) * 255).astype(np.uint8),
+                 os.path.join(root, mask_dir, "val", f"v{i}", f"{j:02d}.png"))
+
+
+def kernel_counts() -> dict:
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+    return {"gather_patches": kg.launches, "gather_patches_bwd": kg.bwd_launches,
+            "compute_unknown": ku.launches}
+
+
+def trainer_run(args: list, record: dict, keep_start: bool = False) -> dict:
+    """One ``main.main(args)`` with the launches of each train iteration and
+    of each validation (and its frames) recorded; with ``keep_start``, the
+    state the first iteration starts from, on the host. ``record`` also
+    collects a copy of the model each time ``best_model.npz`` is written."""
+    import maggie_tpu_torch.engine.test as eng
+    import maggie_tpu_torch.engine.train as tr
+    import maggie_tpu_torch.utils.checkpoint as ck
+    from maggie_tpu_torch import main as cli
+    steps, vals, start = [], [], {}
+    make, evaluate, save_npz, metrics = (tr.make_train_step, tr.eval_image,
+                                         ck.save_variables_npz, eng.compute_metrics)
+    frames = []
+
+    def counted_make(model, optimizer, schedule):
+        step = make(model, optimizer, schedule)
+
+        def counted(state, *a, **kw):
+            if keep_start and not start:
+                torch.cuda.synchronize()
+                start.update(step=state.step,
+                             model={k: v.cpu().clone() for k, v in model.state_dict().items()},
+                             optimizer=copy.deepcopy(optimizer.state_dict()))
+            before = kernel_counts()
+            out = step(state, *a, **kw)
+            steps.append({k: v - before[k] for k, v in kernel_counts().items()})
+            return out
+        return counted
+
+    def counted_eval(*a, **kw):
+        before, n0 = kernel_counts(), len(frames)
+        out = evaluate(*a, **kw)
+        vals.append({"frames": len(frames) - n0,
+                     **{k: v - before[k] for k, v in kernel_counts().items()}})
+        return out
+
+    def counted_metrics(*a, **kw):
+        frames.append(1)
+        return metrics(*a, **kw)
+
+    def keep_best(path, model):
+        record["best_model"] = copy.deepcopy(model).eval()
+        save_npz(path, model)
+    tr.make_train_step, tr.eval_image, ck.save_variables_npz, eng.compute_metrics = (
+        counted_make, counted_eval, keep_best, counted_metrics)
+    try:
+        torch.cuda.synchronize()
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        state = cli.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v - before[k] for k, v in kernel_counts().items()}
+    finally:
+        tr.make_train_step, tr.eval_image, ck.save_variables_npz, eng.compute_metrics = (
+            make, evaluate, save_npz, metrics)
+    return {"state_step": state.step, "wall_s": wall, "steps": steps, "vals": vals,
+            "launches": launches, "start": start}
+
+
+def check_trainer_run(name: str, run: dict, out_dir: str, n_steps: int, n_vals: int,
+                      log_iter: int = 1, files=CKPT_FILES, first_iter: int = 0) -> dict:
+    """Launches per iteration and per val frame, the run's own logged
+    iterations (those after ``first_iter``, where it started) with finite
+    losses, the files; returns the run's meters and log numbers."""
+    if len(run["steps"]) != n_steps or len(run["vals"]) != n_vals:
+        fail(f"trainer {name}: {len(run['steps'])} iterations and {len(run['vals'])} "
+             f"validations, not {n_steps} and {n_vals}")
+    for i, c in enumerate(run["steps"]):
+        if c != PER_ITER:
+            fail(f"trainer {name}: iteration {i + 1} launched {c}, not {PER_ITER}")
+    for v in run["vals"]:
+        want = {k: n * v["frames"] for k, n in PER_VAL_FRAME.items()}
+        if v["frames"] != TRAINER_VAL_FRAMES or {k: v[k] for k in want} != want:
+            fail(f"trainer {name}: a validation launched {v}, not {PER_VAL_FRAME} per frame "
+                 f"over {TRAINER_VAL_FRAMES} frames")
+    total = {k: n_steps * PER_ITER[k] + n_vals * TRAINER_VAL_FRAMES * PER_VAL_FRAME[k]
+             for k in PER_ITER}
+    if run["launches"] != total:
+        fail(f"trainer {name}: launches {run['launches']} != {total}")
+    with open(os.path.join(out_dir, "log_rank0.log")) as f:
+        log = f.read()
+    iters, losses, peaks = [], [], []
+    for line in log.splitlines():
+        m = re.search(r"Iter: (\d+)/\d+, .*?total: ([-\w.]+)", line)
+        if m and int(m[1]) > first_iter:
+            iters.append(int(m[1]))
+            losses.append(float(m[2]))
+            peaks += [float(x) for x in re.findall(r"max_mem: (\d+)MB", line)]
+    want = [i for i in range(first_iter + 1, first_iter + n_steps + 1) if i % log_iter == 0]
+    if iters != want or len(peaks) != len(want) or not all(np.isfinite(losses)):
+        fail(f"trainer {name}: logged iterations {iters} (want {want}), losses {losses}, "
+             f"{len(peaks)} peak memory readings")
+    for f in files:
+        if not os.path.isfile(os.path.join(out_dir, f)):
+            fail(f"trainer {name}: {f} was not written")
+    with open(os.path.join(out_dir, "train_meters.json")) as f:
+        meters = json.load(f)
+    return {"meters": meters, "logged_losses": losses, "log_max_mem_mb": max(peaks),
+            "launches": run["launches"], "wall_s": run["wall_s"],
+            "val_launches": run["vals"], "iterations": n_steps}
+
+
+def host_cost_by_transform(cfg) -> dict:
+    """Host ms of one train sample by transform, mean over the train frames
+    (each drawn once), with the transition band and the rest of the sample;
+    only this thread's calls count."""
+    from maggie_tpu_torch.data import build_dataset
+    import maggie_tpu_torch.data.him as him
+    ds = build_dataset(cfg, is_train=True, random_seed=0)
+    ms: dict[str, float] = {}
+
+    me = threading.get_ident()
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if threading.get_ident() == me:
+                ms[name] = ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+    ds.transforms.transforms = [timed(type(t).__name__, t) for t in ds.transforms.transforms]
+    transition = him.gen_transition_gt
+    him.gen_transition_gt = timed("transition_gt", transition)
+    try:
+        t0 = time.perf_counter()
+        for i in range(len(ds)):
+            ds[i]
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        him.gen_transition_gt = transition
+    out = {k: v / len(ds) for k, v in ms.items()}
+    out["rest"] = total / len(ds) - sum(out.values())
+    out["total"] = total / len(ds)
+    return out
+
+
+def phase_trainer(detail) -> dict:
+    """Phase 7: the trainer through ``main.main`` on a synthetic HIM set: a
+    fresh f32 run, its resume, a bf16 run; returns the launches of all three."""
+    import tempfile
+    from maggie_tpu_torch.config import load_config
+    from maggie_tpu_torch.pretrained import from_pretrained
+    from maggie_tpu_torch.utils.checkpoint import load_model_weights
+    from maggie_tpu_torch.models import build_model
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        trainer_set(root)
+        base = ["--config", "configs/maggie_image.yaml"]
+        opts = ["output_dir", os.path.join(root, "out"),
+                "dataset.train.root_dir", root, "dataset.train.split", "train",
+                "dataset.test.root_dir", root, "dataset.test.split", "val",
+                "train.batch_size", str(TRAIN_BATCH), "train.val_iter", "3",
+                "train.log_iter", "1", "test.log_iter", "1"]
+        out["host_ms_per_sample"] = host_cost_by_transform(
+            load_config("configs/maggie_image.yaml", opts))
+        f32_dir = os.path.join(root, "out", "f32")
+        record = {}
+        fresh = trainer_run(base + opts + ["name", "f32", "train.max_iter", "6"], record)
+        out["fp32"] = check_trainer_run("f32", fresh, f32_dir, 6, 2)
+        saved = torch.load(os.path.join(f32_dir, "last_state.pt"), map_location="cpu",
+                           weights_only=True)
+        best_model = record.pop("best_model")
+        resumed = trainer_run(base + opts + ["name", "f32", "train.max_iter", "8",
+                                             "train.resume_last", "True"], record,
+                              keep_start=True)
+        out["resume"] = check_trainer_run("resume", resumed, f32_dir, 2, 0, first_iter=6)
+        start = resumed["start"]
+        if start["step"] != 6 or saved["step"] != 6 or resumed["state_step"] != 8:
+            fail(f"trainer resume: started at {start['step']} (saved {saved['step']}), "
+                 f"ended at {resumed['state_step']}; want 6, 6 and 8")
+        differ = [k for k, v in saved["model"].items() if not torch.equal(start["model"][k], v)]
+        st, sv = start["optimizer"]["state"], saved["optimizer"]["state"]
+        differ += [f"optimizer {i} {k}" for i in sv for k in ("exp_avg", "exp_avg_sq", "step")
+                   if not torch.equal(st[i][k].cpu(), sv[i][k])]
+        if differ or set(st) != set(sv):
+            fail(f"trainer resume: the loaded state differs from last_state.pt at {differ[:5]}")
+        out["resume"]["state_tensors_equal"] = len(saved["model"]) + 3 * len(sv)
+
+        # best_model.npz into the --eval-only model: parameters bit for bit
+        # (unfolded load), and the folded model's forward against the
+        # trainer's model in eval mode on a val frame
+        cfg = load_config("configs/maggie_image.yaml", opts)
+        cfg.model.weights = os.path.join(f32_dir, "best_model.npz")
+        loaded = load_model_weights(build_model(cfg.model, device="cpu"), cfg).state_dict()
+        want = best_model.state_dict()
+        differ = [k for k, v in loaded.items() if not k.endswith("num_batches_tracked")
+                  and not torch.equal(v, want[k].cpu())]
+        if differ:
+            fail(f"best_model.npz: {len(differ)} tensors differ from the saved model: {differ[:5]}")
+        eval_model, _ = from_pretrained(cfg.model.weights, config=cfg, device="cuda")
+        from maggie_tpu_torch.data import build_dataset
+        sample = build_dataset(cfg, is_train=False, device="cpu")[0]
+        batch = {k: torch.from_numpy(sample[k][None]).cuda() for k in ("image", "mask")}
+        with torch.inference_mode():
+            got = {k: v.cpu() for k, v in eval_model(batch).items()}
+            ref = {k: v.cpu() for k, v in best_model(batch).items()}
+        near, n_diff, unexplained, region = detail_mask_check(got, ref)
+        err = (got["refined_masks"] - ref["refined_masks"]).abs()[0, 0]
+        err_outside = float(err[~region].max()) if bool((~region).any()) else 0.0
+        out["best_model_check"] = {"tensors_equal": len(loaded), "detail_mask_diff": n_diff,
+                                   "near_threshold_pixels": near,
+                                   "refined_max_abs_err_outside_flips": err_outside,
+                                   "refined_max_abs_err": float(err.max())}
+        if unexplained or err_outside > REFINED_ATOL:
+            fail(f"best_model.npz eval forward vs the trainer's model: {out['best_model_check']}")
+        del eval_model, best_model
+
+        bf16 = trainer_run(["--precision", "16"] + base + opts
+                           + ["name", "bf16", "train.max_iter", "3"], record)
+        out["bf16"] = check_trainer_run("bf16", bf16, os.path.join(root, "out", "bf16"), 3, 1)
+        long = trainer_run(base + opts + ["name", "sustained", "train.max_iter",
+                                          str(SUSTAINED_ITERS), "train.val_iter", "1000",
+                                          "train.log_iter", "10"], record)
+        out["sustained"] = check_trainer_run("sustained", long,
+                                             os.path.join(root, "out", "sustained"),
+                                             SUSTAINED_ITERS, 0, 10,
+                                             ("train_meters.json", "config.yaml"))
+        out["launches"] = {k: sum(r["launches"][k] for r in (fresh, resumed, bf16, long))
+                           for k in PER_ITER}
+    detail["trainer"] = out
+    step6 = {p: detail["train"][p]["ms_per_step_median"] for p in ("fp32", "bf16")}
+    for name in ("fp32", "bf16", "sustained"):
+        m = out[name]["meters"]
+        print(f"phase 7: trainer {name} (batch {m['batch_size']}, {m['iters_measured']} "
+              f"iterations after the first): {m['samples_per_sec_sustained']:.4f} samples/s, "
+              f"{m['batch_time_avg_s'] * 1e3:.1f} ms/iteration against phase 6's "
+              f"{step6.get(name, step6['fp32']):.1f} ms/step, data_time {m['data_time_avg_s'] * 1e3:.1f} ms, "
+              f"infeed stall share {m['infeed_stall_frac']:.3f}, peak device memory "
+              f"{m['peak_mem_mb']:.0f} MB (log {out[name]['log_max_mem_mb']:.0f} MB); launches "
+              f"{out[name]['launches']}; losses {out[name]['logged_losses']}", flush=True)
+    r = out["resume"]
+    print(f"phase 7: resume started at iteration 6 from the saved state ({r['state_tensors_equal']} "
+          f"tensors bit-equal), ran to 8; best_model.npz: {out['best_model_check']}", flush=True)
+    m, h = out["sustained"]["meters"], out["host_ms_per_sample"]
+    loader_ms = h["total"] * m["batch_size"]
+    print(f"phase 7: pace at batch {m['batch_size']} (sustained f32): one loader thread needs "
+          f"{loader_ms:.1f} ms of host work a batch (samples alone) against "
+          f"{(m['batch_time_avg_s'] - m['data_time_avg_s']) * 1e3:.1f} ms an iteration outside "
+          f"the wait for data; {m['data_time_avg_s'] * 1e3:.1f} ms of each "
+          f"{m['batch_time_avg_s'] * 1e3:.1f} ms iteration waits for the infeed", flush=True)
+    print("phase 7: host ms per train sample by transform (mean over "
+          f"{TRAINER_FRAMES} frames): " + ", ".join(f"{k} {v:.1f}" for k, v in h.items()),
+          flush=True)
     return out
 
 

@@ -1,4 +1,4 @@
-"""Dataset registry (port of ``maggie_tpu/data/__init__.py``): HIM eval only."""
+"""Dataset registry (port of ``maggie_tpu/data/__init__.py``): HIM, train and eval."""
 
 from __future__ import annotations
 

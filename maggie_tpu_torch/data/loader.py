@@ -1,11 +1,11 @@
-"""Host data loader for eval: per-process sharding, batching, background
-prefetch (port of ``maggie_tpu/data/loader.py``; its training options,
-shuffling, ``drop_last`` and endless epochs, come with training, ROADMAP item
-10).
+"""Host data loader: per-process sharding, batching, shuffling, background
+prefetch (port of ``maggie_tpu/data/loader.py``).
 
-Each process takes a strided shard of the index space; a daemon thread keeps a
-small prefetch queue warm so host decoding overlaps device compute. An error in
-that thread is raised by the iterator (the JAX package's loader ends the epoch
+Each process takes a strided shard of the index space, reshuffled from the
+loader's own ``RandomState(seed)`` at every epoch when ``shuffle``; a daemon
+thread keeps a small prefetch queue warm so host decoding overlaps device
+compute, and with ``infinite`` it runs epoch after epoch. An error in that
+thread is raised by the iterator (the JAX package's loader ends the epoch
 early instead, ``maggie_tpu/data/loader.py:84-85``).
 """
 
@@ -41,38 +41,72 @@ def _collate(samples: list[dict]) -> dict:
 
 
 class DataLoader:
-    def __init__(self, dataset, batch_size: int = 1, num_shards: int = 1,
-                 shard_index: int = 0, prefetch: int = 2):
+    def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 0, num_shards: int = 1,
+                 shard_index: int = 0, prefetch: int = 2, infinite: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.rng = np.random.RandomState(seed)
         self.num_shards = num_shards
         self.shard_index = shard_index
         self.prefetch = prefetch
+        self.infinite = infinite
 
     def _indices(self) -> np.ndarray:
-        return np.arange(len(self.dataset))[self.shard_index::self.num_shards]
+        """This shard's indices of the next epoch (a shuffle draws from ``rng``)."""
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            self.rng.shuffle(idx)
+        return idx[self.shard_index::self.num_shards]
 
     def __len__(self) -> int:
-        return (len(self._indices()) + self.batch_size - 1) // self.batch_size
+        """This shard's batches an epoch (the JAX package's loader counts a
+        shuffled shard as the largest one)."""
+        n = len(range(self.shard_index, len(self.dataset), self.num_shards))
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
 
-    def _produce(self, q: queue.Queue):
+    def _epoch_batches(self) -> Iterator[dict]:
         idx = self._indices()
+        for i in range(0, len(idx), self.batch_size):
+            chunk = idx[i:i + self.batch_size]
+            if self.drop_last and len(chunk) < self.batch_size:
+                return
+            yield _collate([self.dataset[int(j)] for j in chunk])
+
+    def _produce(self, q: queue.Queue, stop: threading.Event):
         try:
-            for i in range(0, len(idx), self.batch_size):
-                q.put(_collate([self.dataset[int(j)] for j in idx[i:i + self.batch_size]]))
+            while True:
+                for b in self._epoch_batches():
+                    if stop.is_set():
+                        return
+                    q.put(b)
+                if not self.infinite:
+                    break
         except Exception as exc:  # the consumer re-raises it
             q.put(exc)
             return
         q.put(None)
 
     def __iter__(self) -> Iterator[dict]:
+        """Batches from a producer thread. Closing the iterator (or dropping
+        it) stops that thread after the batch it is making."""
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
-        t = threading.Thread(target=self._produce, args=(q,), daemon=True)
+        stop = threading.Event()
+        t = threading.Thread(target=self._produce, args=(q, stop), daemon=True)
         t.start()
-        while True:
-            b = q.get()
-            if b is None:
-                return
-            if isinstance(b, Exception):
-                raise b
-            yield b
+        try:
+            while True:
+                b = q.get()
+                if b is None:
+                    return
+                if isinstance(b, Exception):
+                    raise b
+                yield b
+        finally:
+            stop.set()
+            while not q.empty():   # a put that waits for room returns
+                q.get_nowait()

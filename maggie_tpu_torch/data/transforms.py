@@ -1,10 +1,12 @@
-"""Eval transforms (port of the eval classes of ``maggie_tpu/data/transforms.py``;
+"""Image transforms (port of the image classes of ``maggie_tpu/data/transforms.py``;
 reference ``maggie/dataloader/transforms.py``), numpy only.
 
 cv2 is replaced by ``data/imgproc.py`` (bit-exact for the calls made here), and
 images are decoded by a function the caller may pass to ``Load``; the default
-decodes with PIL, imported on the first decode. The train augmentations come
-with the training slice (ROADMAP item 10).
+decodes with PIL, imported on the first decode. The train augmentations of
+the HIM set draw from the dataset's ``numpy.random.RandomState`` in the JAX
+package's order and count, so a seed gives its samples bit for bit. The
+video-only transforms come with video (ROADMAP item 11).
 
 Output layout is NHWC float32 (``frames``: (T, H, W, 3)). Geometry ops record
 ``transform_info`` entries for ``utils/postprocess.reverse_transform``.
@@ -39,10 +41,31 @@ class Compose:
 
 class Load:
     """Decode image/alpha/mask paths (reference ``:38-66``) with ``decode(path,
-    mode)``, which returns a uint8 array: (H, W, 3) for "RGB", (H, W) for "L"."""
+    mode)``, which returns a uint8 array: (H, W, 3) for "RGB", (H, W) for "L".
 
-    def __init__(self, decode: Callable[[str, str], np.ndarray] | None = None):
-        self.decode = decode or pil_decode
+    ``cache_gb`` > 0 keeps decoded arrays in host RAM up to that budget, as the
+    JAX package's ``Load`` does (training epochs revisit the same files); a
+    cached array is served as a copy, so in-place augmentations cannot change
+    the cache."""
+
+    def __init__(self, decode: Callable[[str, str], np.ndarray] | None = None,
+                 cache_gb: float = 0.0):
+        self._decode = decode or pil_decode
+        self._cache: dict | None = {} if cache_gb > 0 else None
+        self._budget = int(cache_gb * (1 << 30))
+        self._bytes = 0
+
+    def decode(self, path: str, mode: str) -> np.ndarray:
+        if self._cache is None:
+            return self._decode(path, mode)
+        arr = self._cache.get((path, mode))
+        if arr is None:
+            arr = self._decode(path, mode)
+            if self._bytes + arr.nbytes > self._budget:
+                return arr  # over budget: serve the fresh decode
+            self._cache[(path, mode)] = arr
+            self._bytes += arr.nbytes
+        return arr.copy()
 
     def __call__(self, d: dict) -> dict:
         d["frames"] = [self.decode(p, "RGB") for p in d["frames"]]
@@ -54,10 +77,13 @@ class Load:
 
 class ResizeShort:
     """Resize so the short side equals ``short_size`` (reference ``:104-135``);
-    saves pre-resize alphas as ``ori_alphas`` and records the inverse info."""
+    saves pre-resize alphas as ``ori_alphas`` and records the inverse info.
+    With ``transform_alphas`` False the alphas keep their size (an eval set
+    with guidance masks reads only ``ori_alphas``)."""
 
-    def __init__(self, short_size: int):
+    def __init__(self, short_size: int, transform_alphas: bool = True):
         self.short_size = short_size
+        self.transform_alphas = transform_alphas
 
     def __call__(self, d: dict) -> dict:
         frames, alphas, masks = d["frames"], d["alphas"], d.get("masks")
@@ -67,7 +93,8 @@ class ResizeShort:
         if ratio != 1:
             size = (int(w * ratio), int(h * ratio))
             frames = [imgproc.resize_linear(f, size) for f in frames]
-            alphas = [imgproc.resize_linear(a, size) for a in alphas]
+            if self.transform_alphas:
+                alphas = [imgproc.resize_linear(a, size) for a in alphas]
             if masks is not None:
                 masks = [imgproc.resize_nearest(m, size) for m in masks]
         d["transform_info"].append({"name": "resize", "ori_size": (h, w), "ratio": ratio})
@@ -76,10 +103,12 @@ class ResizeShort:
 
 
 class PaddingMultiplyBy:
-    """Zero-pad bottom/right to a multiple of ``divisor`` (reference ``:137-166``)."""
+    """Zero-pad bottom/right to a multiple of ``divisor`` (reference ``:137-166``);
+    the alphas only with ``transform_alphas``."""
 
-    def __init__(self, divisor: int = 32):
+    def __init__(self, divisor: int = 32, transform_alphas: bool = True):
         self.divisor = divisor
+        self.transform_alphas = transform_alphas
 
     def __call__(self, d: dict) -> dict:
         frames, alphas, masks = d["frames"], d["alphas"], d.get("masks")
@@ -87,7 +116,8 @@ class PaddingMultiplyBy:
         ph = (self.divisor - h % self.divisor) % self.divisor
         pw = (self.divisor - w % self.divisor) % self.divisor
         d["frames"] = [imgproc.pad_bottom_right(f, ph, pw) for f in frames]
-        d["alphas"] = [imgproc.pad_bottom_right(a, ph, pw) for a in alphas]
+        if self.transform_alphas:
+            d["alphas"] = [imgproc.pad_bottom_right(a, ph, pw) for a in alphas]
         if masks is not None:
             d["masks"] = [imgproc.pad_bottom_right(m, ph, pw) for m in masks]
         d["transform_info"].append({"name": "padding", "pad_size": (ph, pw)})
@@ -100,6 +130,171 @@ class Stack:
         d["alphas"] = np.stack(d["alphas"], axis=0)
         if d.get("masks") is not None:
             d["masks"] = np.stack(d["masks"], axis=0)
+        return d
+
+
+class RandomCropByAlpha:
+    """Crop around the alpha region, or pad-to-square+resize with prob
+    ``padding_prob`` (reference ``:191-274``)."""
+
+    def __init__(self, crop_size, random, padding_prob=0.5):
+        self.crop_size = tuple(crop_size)
+        self.random = random
+        self.padding_prob = padding_prob
+
+    def __call__(self, d: dict) -> dict:
+        frames, alphas, masks = d["frames"], d["alphas"], d.get("masks")
+        h, w = frames[0].shape[:2]
+        ch, cw = self.crop_size
+        if h < ch or w < cw:
+            raise ValueError(f"Crop size {self.crop_size} larger than image {(h, w)}")
+        # mean(0) > 127 in integers: the same pixels, without a float64 pass
+        ys, xs = np.where(alphas.sum(0, dtype=np.int32) > 127 * alphas.shape[0])
+        if len(xs) > 0:
+            min_x, max_x, min_y, max_y = xs.min(), xs.max(), ys.min(), ys.max()
+        else:
+            min_x, max_x, min_y, max_y = 0, w, 0, h
+
+        if self.random.rand() > self.padding_prob:
+            max_x = max(max_x - cw, min_x + 1)
+            max_y = max(max_y - ch, min_y + 1)
+            for _ in range(3):
+                x = min(self.random.randint(min_x, max_x), w - cw)
+                y = min(self.random.randint(min_y, max_y), h - ch)
+                ca = alphas[:, y:y + ch, x:x + cw]
+                if (ca > 127).sum() > 0:
+                    break
+            d["frames"] = frames[:, y:y + ch, x:x + cw, :]
+            d["alphas"] = ca
+            if masks is not None:
+                d["masks"] = masks[:, y:y + ch, x:x + cw]
+        else:
+            if h > w:
+                pw, ph = (h - w) // 2, 0
+            else:
+                pw, ph = 0, (w - h) // 2
+
+            def pad(im):
+                return imgproc.copy_make_border(im, ph, ph, pw, pw)
+            # cv2's size is (w, h): the crop's (ch, cw) is read as cv2 reads it
+            d["frames"] = np.stack([imgproc.resize_linear(pad(f), self.crop_size) for f in frames])
+            d["alphas"] = np.stack([imgproc.resize_linear(pad(a), self.crop_size) for a in alphas])
+            if masks is not None:
+                d["masks"] = np.stack([imgproc.resize_nearest(pad(m), self.crop_size)
+                                       for m in masks])
+        return d
+
+
+class RandomHorizontalFlip:
+    def __init__(self, random, p=0.5):
+        self.random, self.p = random, p
+
+    def __call__(self, d: dict) -> dict:
+        if self.random.rand() < self.p:
+            d["frames"] = np.ascontiguousarray(d["frames"][:, :, ::-1, :])
+            d["alphas"] = np.ascontiguousarray(d["alphas"][:, :, ::-1])
+            if d.get("masks") is not None:
+                d["masks"] = np.ascontiguousarray(d["masks"][:, :, ::-1])
+        return d
+
+
+class GammaContrast:
+    """255*(x/255)^gamma with gamma ~ TruncNormal(1.0, 0.2) in [0.5, 1.5]
+    (imgaug GammaContrast equivalent, reference ``:812-839``)."""
+
+    def __init__(self, random, p=0.3):
+        self.random, self.p = random, p
+
+    def _gamma(self):
+        for _ in range(100):
+            g = self.random.normal(1.0, 0.2)
+            if 0.5 <= g <= 1.5:
+                return g
+        return 1.0
+
+    def __call__(self, d: dict) -> dict:
+        if self.random.rand() > self.p:
+            return d
+        g = self._gamma()
+        f = d["frames"].astype(np.float32) / 255.0
+        d["frames"] = (np.power(f, g) * 255.0).astype(np.uint8)
+        return d
+
+
+class AdditiveGaussianNoise:
+    """Additive N(0, s), s ~ U(0, 0.03*255) (imgaug equivalent, ``:865-891``)."""
+
+    def __init__(self, random, p=0.3):
+        self.random, self.p = random, p
+
+    def __call__(self, d: dict) -> dict:
+        if self.random.rand() > self.p:
+            return d
+        scale = self.random.uniform(0, 0.03 * 255)
+        frames = d["frames"].astype(np.float32)
+        noise = self.random.normal(0, scale, frames.shape).astype(np.float32)
+        d["frames"] = np.clip(frames + noise, 0, 255).astype(np.uint8)
+        return d
+
+
+class JpegCompression:
+    """JPEG round-trip at quality 100-c, c ~ U(20, 80) (imgaug equivalent,
+    ``:893-920``), through PIL (``imgproc.jpeg_roundtrip``)."""
+
+    def __init__(self, random, p=0.3):
+        self.random, self.p = random, p
+
+    def __call__(self, d: dict) -> dict:
+        if self.random.rand() > self.p:
+            return d
+        quality = int(100 - self.random.uniform(20, 80))
+        d["frames"] = np.stack([imgproc.jpeg_roundtrip(f, quality) for f in d["frames"]])
+        return d
+
+
+class RandomAffine:
+    """Small rotation/shear/zoom/channel-shift (reference ``:922-966``)."""
+
+    def __init__(self, random, p=0.5):
+        self.random, self.p = random, p
+
+    def __call__(self, d: dict) -> dict:
+        if self.random.rand() > self.p:
+            return d
+        from .utils import random_transform
+        frames, alphas = d["frames"], d["alphas"]
+        ys = random_transform(list(frames) + list(alphas), self.random, rt=10, sh=5,
+                              zm=[0.95, 1.05], sc=[1, 1], cs=0.03 * 255.0, hf=False)
+        d["frames"] = np.stack(ys[:len(frames)])
+        d["alphas"] = np.stack(ys[len(frames):])
+        return d
+
+
+class RandomBinarizedMask:
+    """Corrupt masks: random threshold + random dilate/erode (reference ``:388-464``)."""
+
+    def __init__(self, random, binarize_max_k=30):
+        self.random = random
+        self.max_k = binarize_max_k
+
+    def _single(self, alpha):
+        threshold = self.random.uniform(0.1, 0.95) * 255
+        binarized = (np.asarray(alpha) > threshold).astype(np.uint8)
+        kd = self.random.randint(1, self.max_k)
+        ke = self.random.randint(1, self.max_k)
+        order = self.random.choice(["dilate_erode", "erode_dilate", "dilate", "erode"])
+        if order == "dilate_erode":
+            out = imgproc.erode_rect(imgproc.dilate_rect(binarized, kd), ke)
+        elif order == "erode_dilate":
+            out = imgproc.dilate_rect(imgproc.erode_rect(binarized, ke), kd)
+        elif order == "dilate":
+            out = imgproc.dilate_rect(binarized, kd)
+        else:
+            out = imgproc.erode_rect(binarized, ke)
+        return out * 255
+
+    def __call__(self, d: dict) -> dict:
+        d["masks"] = np.stack([self._single(m) for m in d["masks"]], axis=0)
         return d
 
 
@@ -127,6 +322,45 @@ class DownUpMask:
 
     def __call__(self, d: dict) -> dict:
         d["masks"] = np.stack([self._single(m) for m in d["masks"]], axis=0)
+        return d
+
+
+class CutMask:
+    """Swap internal regions within a mask or between two instances (reference ``:499-534``)."""
+
+    def __init__(self, random):
+        self.random = random
+        self.internal_perturb_prob = 0.5
+        self.external_perturb_prob = 0.5
+
+    def _internal(self, mask):
+        if self.random.rand() < self.internal_perturb_prob:
+            h, w = mask.shape
+            ph, pw = self.random.randint(h // 8, h // 4), self.random.randint(w // 8, w // 4)
+            x, y = self.random.randint(0, h - ph), self.random.randint(0, w - pw)
+            x1, y1 = self.random.randint(0, h - ph), self.random.randint(0, w - pw)
+            mask[x:x + ph, y:y + pw] = mask[x1:x1 + ph, y1:y1 + pw].copy()
+        return mask
+
+    def _external(self, mask):
+        if self.random.rand() < self.external_perturb_prob and mask.shape[0] > 1:
+            ids = self.random.choice(mask.shape[0], 2, replace=False)
+            i, j = int(ids[0]), int(ids[1])
+            h, w = mask.shape[-2:]
+            ph, pw = self.random.randint(h // 8, h // 4), self.random.randint(w // 8, w // 4)
+            x, y = self.random.randint(0, h - ph), self.random.randint(0, w - pw)
+            a = mask[i, x:x + ph, y:y + pw].copy()
+            b = mask[j, x:x + ph, y:y + pw].copy()
+            mask[i, x:x + ph, y:y + pw] = b
+            mask[j, x:x + ph, y:y + pw] = a
+        return mask
+
+    def __call__(self, d: dict) -> dict:
+        if self.random.rand() < 0.5:
+            d["masks"] = np.stack([self._internal(d["masks"][i])
+                                   for i in range(d["masks"].shape[0])])
+        else:
+            d["masks"] = self._external(d["masks"])
         return d
 
 

@@ -5,8 +5,11 @@ element is reproduced bit-exactly (cv2's banker's rounding and even-width anchor
 asymmetry included), and the dilation of a 0/1 map is the max over the
 element's row runs of vertically shifted horizontal run-maxes.
 
-``grey_dilate_ellipse`` and ``grey_erode_ellipse`` are cv2's dilation and
-erosion of float maps, in numpy for the eval data pipeline's transition band.
+``grey_dilate_runs`` and ``grey_erode_runs`` are cv2's dilation and erosion
+of host maps by an element given by its row runs: the ellipse, the Minkowski
+sum of ``iterations`` ellipses (cv2's iterated morphology in one pass,
+``ellipse_sum_runs``) or a rectangle; the data pipeline's transition band and
+mask corruption use them.
 
 Eval-mode ``compute_unknown`` (threshold, then this dilation) lives beside its
 CUDA kernel in ``ops/kernels/unknown.py``. Train mode draws a random width per
@@ -149,32 +152,56 @@ def compute_unknown_random(masks: torch.Tensor, k_size: int,
     return dilate_ellipse_random(uncertain, k_size, generator).to(masks.dtype)
 
 
-def grey_dilate_ellipse(x: np.ndarray, width: int) -> np.ndarray:
-    """``cv2.dilate(x, MORPH_ELLIPSE(width))`` of float32 maps (..., H, W), on
-    the host: the max over the element of in-map pixels.
+@functools.lru_cache(maxsize=64)
+def ellipse_sum_runs(width: int, iterations: int = 1) -> tuple[tuple[int, int, int], ...]:
+    """Row runs (dy, a, b) of the Minkowski sum of ``iterations`` copies of the
+    cv2 ``MORPH_ELLIPSE`` element of ``width``, each at its anchor ``width // 2``
+    (so the sum's anchor is ``(width // 2) * iterations``). One dilation with
+    this element equals cv2's ``iterations`` dilations with the ellipse, and
+    likewise for erosion, also at the borders, which cv2 ignores. Each row of
+    the sum is one run: the ellipse's runs are nested intervals, so the spans
+    that land on a row overlap."""
+    base = _ellipse_row_runs(width)
+    rows = {0: (0, 0)}
+    for _ in range(iterations):
+        nxt: dict[int, tuple[int, int]] = {}
+        for y, (lo, hi) in rows.items():
+            for dy, a, b in base:
+                cur = nxt.get(y + dy)
+                span = (lo + a, hi + b)
+                nxt[y + dy] = span if cur is None else (min(cur[0], span[0]), max(cur[1], span[1]))
+        rows = nxt
+    return tuple((dy, a, b) for dy, (a, b) in sorted(rows.items()))
 
-    Pixels outside the map are ignored, as cv2 ignores them, by padding with
-    -inf: the zero padding of ``dilate_ellipse`` is exact only for maps that
-    are 0 or above, and would break ``grey_erode_ellipse``, which dilates the
-    negated map. Each row run's horizontal max comes from a doubling table
-    (max over 1, 2, 4, ... columns; two lookups per run), then one vertical
-    max per row of the element."""
-    if width <= 1:
+
+def _order_flip(x: np.ndarray) -> np.ndarray:
+    """An order-reversing map of ``x``'s values onto its own dtype."""
+    return ~x if np.issubdtype(x.dtype, np.unsignedinteger) else -x
+
+
+def grey_dilate_runs(x: np.ndarray, runs: tuple[tuple[int, int, int], ...]) -> np.ndarray:
+    """``cv2.dilate`` of maps (..., H, W) with the element given by its row runs
+    ``(dy, a, b)``: out[y, x] = max of in[y + dy, x + a .. x + b] over the runs,
+    pixels outside the map ignored, as cv2 ignores them. Float maps are padded
+    with -inf, unsigned ones with 0. Each run's horizontal max comes from a
+    doubling table (max over 1, 2, 4, ... columns; two lookups per run), then
+    one vertical max per row of the element."""
+    if len(runs) == 1 and runs[0] == (0, 0, 0):
         return x
-    runs = _ellipse_row_runs(width)
+    fill = -np.inf if np.issubdtype(x.dtype, np.floating) else np.iinfo(x.dtype).min
     H, W = x.shape[-2:]
     lead = x.shape[:-2]
-    left, right = max(-a for _, a, _ in runs), max(b for _, _, b in runs)
-    up, down = max(-dy for dy, _, _ in runs), max(dy for dy, _, _ in runs)
-    table = [np.full(lead + (H, left + W + right), -np.inf, np.float32)]
+    left, right = max(0, max(-a for _, a, _ in runs)), max(0, max(b for _, _, b in runs))
+    up, down = max(0, max(-dy for dy, _, _ in runs)), max(0, max(dy for dy, _, _ in runs))
+    table = [np.full(lead + (H, left + W + right), fill, x.dtype)]
     table[0][..., left:left + W] = x
     span = 1
     while 2 * span <= max(b - a + 1 for _, a, b in runs):
         t = table[-1]
         table.append(np.maximum(t[..., :-span], t[..., span:]))
         span *= 2
-    out = np.full(lead + (H, W), -np.inf, np.float32)
-    hrun = np.full(lead + (up + H + down, W), -np.inf, np.float32)
+    out = np.full(lead + (H, W), fill, x.dtype)
+    hrun = np.full(lead + (up + H + down, W), fill, x.dtype)
     for a, b in dict.fromkeys((a, b) for _, a, b in runs):
         k = (b - a + 1).bit_length() - 1
         lo, hi = left + a, left + b - (1 << k) + 1
@@ -186,7 +213,28 @@ def grey_dilate_ellipse(x: np.ndarray, width: int) -> np.ndarray:
     return out
 
 
-def grey_erode_ellipse(x: np.ndarray, width: int) -> np.ndarray:
-    """``cv2.erode(x, MORPH_ELLIPSE(width))`` of float32 maps: the dual of
-    ``grey_dilate_ellipse``, the min over the element of in-map pixels."""
-    return -grey_dilate_ellipse(-x, width)
+def grey_erode_runs(x: np.ndarray, runs: tuple[tuple[int, int, int], ...]) -> np.ndarray:
+    """``cv2.erode`` with the same element: the min over it of in-map pixels."""
+    return _order_flip(grey_dilate_runs(_order_flip(x), runs))
+
+
+def grey_dilate_ellipse(x: np.ndarray, width: int, iterations: int = 1) -> np.ndarray:
+    """``cv2.dilate(x, MORPH_ELLIPSE(width), iterations=iterations)`` of float32
+    maps (..., H, W), on the host, in one pass (``ellipse_sum_runs``).
+
+    Pixels outside the map are ignored, as cv2 ignores them, by padding with
+    -inf: the zero padding of ``dilate_ellipse`` is exact only for maps that
+    are 0 or above, and would break ``grey_erode_ellipse``, which dilates the
+    negated map."""
+    if width <= 1 or iterations < 1:
+        return x
+    return grey_dilate_runs(x, ellipse_sum_runs(width, iterations))
+
+
+def grey_erode_ellipse(x: np.ndarray, width: int, iterations: int = 1) -> np.ndarray:
+    """``cv2.erode(x, MORPH_ELLIPSE(width), iterations=iterations)`` of float32
+    maps: the dual of ``grey_dilate_ellipse``, the min over the element of
+    in-map pixels."""
+    if width <= 1 or iterations < 1:
+        return x
+    return grey_erode_runs(x, ellipse_sum_runs(width, iterations))

@@ -1,6 +1,18 @@
-"""Weight loading and inference-time spectral-norm folding (port of
-``maggie_tpu/utils/checkpoint.py::load_model_weights``, ``_load_torch_file``
-and ``fold_spectral_norm``)."""
+"""Weights and train checkpoints (port of ``maggie_tpu/utils/checkpoint.py``).
+
+- ``load_model_weights``: a torch file, a snapshot dir or a JAX-package
+  ``.npz`` into an eval model; ``fold_spectral_norm`` for inference;
+- ``save_train_state`` / ``restore_train_state``: the train loop's
+  ``last_state.pt``, the model's ``state_dict`` (BatchNorm statistics and
+  spectral-norm u/v included), the optimizer's state and the update count
+  (the JAX package writes an orbax dir; its roles, ``last_model`` with the
+  optimizer and the iteration, are the reference's, ``engine/train.py:313-343``);
+- ``save_variables_npz``: the model in the JAX package's variables layout
+  (``params/...``, ``batch_stats/...``, ``spectral/...``), as its
+  ``best_model.npz``, so that both packages' eval reads it;
+- ``partial_load``: the shape-tolerant load of pretrained parameters from such
+  an ``.npz`` (reference ``engine/train.py:80-96``).
+"""
 
 from __future__ import annotations
 
@@ -12,6 +24,7 @@ import torch
 import torch.nn as nn
 
 from ..models.layers import _SpectralNorm
+from .convert_jax import key_map, to_jax
 
 logger = logging.getLogger(__name__)
 
@@ -84,3 +97,64 @@ def fold_spectral_norm(model: nn.Module) -> nn.Module:
         if isinstance(m, _SpectralNorm):
             m.fold()
     return model
+
+
+def _n_block(model: nn.Module) -> int:
+    """The attention blocks of the flagship decoder (its ``atten_block``)."""
+    return len(model.decoder.refine_OS8.sa_layers)
+
+
+def save_train_state(path: str, state) -> None:
+    """``state`` (``engine.train_step.TrainState``) to ``path``: the model's
+    ``state_dict``, the optimizer's and the update count."""
+    torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+                "step": int(state.step)}, path)
+
+
+def restore_train_state(path: str, state) -> None:
+    """Load ``path`` (``save_train_state``) into ``state`` in place, on the
+    model's device; every tensor equals the saved one bit for bit."""
+    dev = next(state.model.parameters()).device
+    saved = torch.load(path, map_location=dev, weights_only=True)
+    state.model.load_state_dict(saved["model"], strict=True)
+    state.optimizer.load_state_dict(saved["optimizer"])
+    state.step = int(saved["step"])
+
+
+def save_variables_npz(path: str, model: nn.Module) -> None:
+    """The (unfolded) model's parameters, BatchNorm statistics and spectral u/v
+    in the JAX package's flat variables layout (``save_variables_npz`` there),
+    through ``convert_jax.to_jax``."""
+    np.savez(path, **to_jax(model.state_dict(), n_block=_n_block(model)))
+
+
+@torch.no_grad()
+def partial_load(model: nn.Module, flat: dict[str, np.ndarray]) -> tuple[list, list, list]:
+    """Copy the ``params/...`` arrays of a JAX-layout flat dict into the model's
+    parameters where the key maps to one and the shapes agree; keep the rest
+    and log the missing, unexpected and shape-mismatched keys (JAX names).
+    Returns ``(missing, unexpected, mismatched)``."""
+    flat = {k: v for k, v in flat.items() if k.startswith("params/")}
+    params = dict(model.named_parameters())
+    missing, mismatched, used = [], [], set()
+    for tkey, jkey, fn in key_map(_n_block(model)):
+        if tkey not in params or not jkey.startswith("params/"):
+            continue
+        if jkey not in flat:
+            missing.append(jkey)
+            continue
+        value = np.asarray(flat[jkey])
+        value = value if fn is None else np.transpose(value, fn)
+        used.add(jkey)
+        if tuple(value.shape) != tuple(params[tkey].shape):
+            mismatched.append((jkey, tuple(params[tkey].shape), tuple(value.shape)))
+            continue
+        params[tkey].copy_(torch.from_numpy(np.ascontiguousarray(value)))
+    unexpected = sorted(k for k in flat if k not in used)
+    if missing:
+        logger.warning(f"Missing keys ({len(missing)}): {missing[:10]}...")
+    if unexpected:
+        logger.warning(f"Unexpected keys ({len(unexpected)}): {unexpected[:10]}...")
+    if mismatched:
+        logger.warning(f"Shape-mismatched keys: {mismatched[:10]}...")
+    return missing, unexpected, mismatched

@@ -339,3 +339,23 @@ def test_train_step_on_the_card_matches_cpu(card):
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     assert check["within"], check
+
+
+def test_infeed_copies_batches_to_the_card(card):
+    """The train infeed's pinned, side-stream copies: each device batch equals
+    its host batch once the consumer's stream has waited on its event, and
+    ``close()`` ends the producer with batches still queued."""
+    from maggie_tpu_torch.engine.infeed import DeviceInfeed
+    rs = np.random.RandomState(0)
+    batches = [{k: rs.rand(2, 1, 3, 64, 64).astype(np.float32)
+                for k in ("image", "mask", "alpha", "transition")} for _ in range(6)]
+    feed = DeviceInfeed(iter(batches), card, depth=2)
+    for host, dev in feed:
+        assert set(dev) == set(host)
+        for k, v in dev.items():
+            assert v.is_cuda and torch.equal(v.cpu(), torch.from_numpy(host[k]))
+    feed.close()
+    feed = DeviceInfeed(iter(batches), card, depth=2)
+    next(feed)
+    feed.close()
+    assert not feed._thread.is_alive() and feed._q.empty()

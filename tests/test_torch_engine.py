@@ -225,7 +225,7 @@ def test_entry_points_run_on_cuda_unless_asked(him_root):
         port_engine.test(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         from_pretrained("", config=cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         main(["--config", CONFIG])
     with pytest.raises(NotImplementedError, match="item 11"):
         port_engine.eval_video()
