@@ -3,12 +3,14 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --outputs PATH [--against REF]
     python3 chip_smoke.py --gather-bwd
+    python3 chip_smoke.py --video
 
 The second form only answers requests 0 and 1 in f32 and bf16 and saves the
 outputs to PATH; with REF, saved by the same form from another version, it
 exits non-zero unless every output is equal bit for bit. The third runs only
 K1's backward: its checks of phase 2 and its timing of phase 6.3 (run it in a
-copy of another version to compare the two in one call).
+copy of another version to compare the two in one call). The fourth runs the
+video path only: phase 2's video shapes and phase 8.
 
 Phases (any failure exits non-zero):
 1. print the card's name and power limit; build the CUDA kernels from the
@@ -68,7 +70,27 @@ Phases (any failure exits non-zero):
    parameters bit for bit and its eval forward on a val frame agrees with the
    trainer's model in eval mode; prints samples/s, ``data_time``, the infeed
    stall share, ms/step and peak memory beside phase 6's ms/step, and the host
-   cost of one train sample by transform (mean over the 8 frames).
+   cost of one train sample by transform (mean over the 8 frames);
+8. the video model (``configs/maggie_video.yaml``, arch MaGGIe_Temp, the
+   ConvGRU memory and the bidirectional fusion) at full width with seeded
+   random weights, SN folded: one synthetic video of 10 frames at 576x1024
+   (3 blob instances that move a few pixels a frame) streamed in 8 windows of
+   3 frames with the feature cache (``encode_frames`` on the new frame,
+   ``decode_window`` on the rolled pack) in f32, TF32 off; checks 5 K1 and 3
+   K2 launches and one encoded frame per window after the first, and holds
+   windows 0 and 1 against the CPU port within phase 3's budget (flips only
+   where a value lies near a threshold of the path, at most 16 of them;
+   detail_mask equal outside K2's reach of such values); times ms per
+   window cached and uncached in f32 and bf16 (CUDA events, host launch cost
+   included) and prints peak memory. Then the video eval engine:
+   ``maggie_tpu_torch.main.main`` with ``--eval-only --config
+   configs/maggie_video.yaml`` on a synthetic VIM set written with PIL (2
+   videos of 6 frames at 720x1280, 3 instances, JPEG frames, PNG alphas and
+   masks) at full width with the seven metrics; checks the run's launches
+   (counted from 0) and those of each window, finite metrics and
+   results.csv; prints frames/s with metrics on, the forward / loader / host
+   split per window and MESSDdt's host seconds.
+   Phase 2 holds K1 and K2 at the video path's shapes too.
 
 Prints a ``{"kernels": [...]}`` line and the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to output/torch_port/chip_smoke.json.
@@ -105,6 +127,20 @@ GATHER_CALLS = (
     ("sc0_input", (1, 576, 1024, 6), 64, 5, True, "plane"),
 )
 UNKNOWN_K = (30, 27, 15)
+# The video path's K1 calls per 3-frame window (decoder_video.py through
+# decoder_sparse.py predict_details_block on b * n_f = 3 frames), at 576x1024
+# with 3 instances: the os1 mask and x8 per instance and frame (N = 9), the
+# encoder maps per frame (N = 3); the capacity covers the window,
+# round(0.5 * 9 maps * 144 blocks) = 648.
+VIDEO_FRAMES = 3
+VIDEO_CAP = 648
+VIDEO_GATHER_CALLS = (
+    ("os1_mask", (9, 576, 1024, 1), 64, 32, False, "pixel"),
+    ("x8", (9, 72, 128, 64), 8, 3, False, "pixel"),
+    ("fea3", (3, 144, 256, 64), 16, 4, True, "plane"),
+    ("fea2", (3, 288, 512, 32), 32, 2, True, "plane"),
+    ("sc0_input", (3, 576, 1024, 6), 64, 5, True, "plane"),
+)
 # Train-path K1 calls per step (decoder_sparse.py predict_details_block_train)
 # at the card condition (tools/bench_train.py's: batch 2, 512x512, 10 slots, so
 # N = 20 instance maps, an 8x8 grid of os1 blocks, cap 640): (name, map shape
@@ -235,18 +271,19 @@ def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
     return start.elapsed_time(end) / (iters * reps)
 
 
-def sample_indices(shape, block, per_image, dev, rs):
-    """CAP entries over the block grid: every corner and edge block first, then
-    random blocks; per-image calls index with n // N_INST (repeated tiles)."""
+def sample_indices(shape, block, per_image, dev, rs, cap=CAP, maps=N_INST):
+    """``cap`` entries over the block grid: every corner and edge block first,
+    then random blocks, over ``maps`` instance maps; per-image calls index
+    with n // N_INST (repeated tiles)."""
     n, h, w, _ = shape
     nby, nbx = 576 // 64, 1024 // 64
     assert (h // block, w // block) == (nby, nbx), (shape, block)
     border = [(0, 0), (0, nbx - 1), (nby - 1, 0), (nby - 1, nbx - 1)]
     border += [(0, x) for x in range(nbx)] + [(nby - 1, x) for x in range(nbx)]
     border += [(y, 0) for y in range(nby)] + [(y, nbx - 1) for y in range(nby)]
-    by = np.array([b[0] for b in border] + list(rs.randint(0, nby, CAP)))[:CAP]
-    bx = np.array([b[1] for b in border] + list(rs.randint(0, nbx, CAP)))[:CAP]
-    inst = rs.randint(0, N_INST, CAP)
+    by = np.array([b[0] for b in border] + list(rs.randint(0, nby, cap)))[:cap]
+    bx = np.array([b[1] for b in border] + list(rs.randint(0, nbx, cap)))[:cap]
+    inst = rs.randint(0, maps, cap)
     idx_n = inst // N_INST if per_image else inst
     return [torch.from_numpy(a.astype(np.int64)).to(dev) for a in (idx_n, by, bx)]
 
@@ -341,6 +378,25 @@ def window_bytes(shape, idx_n, idx_by, idx_bx, block, halo, esize) -> int:
     return int(area.sum()) * c * esize
 
 
+def check_video_gathers(dev, rs, out, worst) -> None:
+    """K1 at the video path's five calls of a window, in their layouts, f32
+    and bf16 (the os1 mask f32), against its twin; appends to ``out``."""
+    from maggie_tpu_torch.ops.kernels import gather as kg
+    for name, shape, block, halo, per_image, layout in VIDEO_GATHER_CALLS:
+        idx = sample_indices(shape, block, per_image, dev, rs, VIDEO_CAP, VIDEO_FRAMES * N_INST)
+        for dt in gather_dtypes(shape):
+            feat = gather_map(shape, layout, dt, dev, seed=len(out["gather"]))
+            got = kg.gather_patches(feat, *idx, block, halo)
+            ref = kg.gather_patches_plain(feat, *idx, block, halo)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            if not torch.equal(got, ref):
+                fail(f"gather video {name} {dt}: kernel != plain twin (max |diff| {err})")
+            worst["gather"] = max(worst["gather"], err)
+            out["gather"].append({"call": "video_" + name, "dtype": str(dt), "shape": list(shape),
+                                  "layout": layout, "out": list(got.shape), "equal": True})
+
+
 def check_train_gathers(dev, rs, out, worst) -> None:
     """The train path: K1's forward at every train call, and its backward (bit
     for bit: the twin sums in the kernel's order) at every differentiable one,
@@ -402,9 +458,32 @@ def check_bwd_edges(dev, out, worst) -> None:
             check_bwd("edge_" + name, g, idx, shape, block, halo, layout, out, worst)
 
 
+def check_unknown(a, k, label, out, worst) -> None:
+    """K2 on ``a`` at ``k`` against its plain twin, exactly."""
+    from maggie_tpu_torch.ops.kernels import unknown as ku
+    got = ku.compute_unknown(a, k)
+    ref = ku.compute_unknown_plain(a, k)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not torch.equal(got, ref):
+        fail(f"compute_unknown k={k} {label}: kernel != plain twin "
+             f"({int((got != ref).sum())} pixels differ)")
+    worst["unknown"] = max(worst["unknown"], err)
+    out["unknown"].append({"k": k, "case": label, "shape": list(a.shape),
+                           "ones": int(got.sum()), "equal": True})
+
+
+def check_video_unknown(dev, out, worst) -> None:
+    """K2's three calls of a video window on its 3 frames x 3 instances, f32
+    in both precisions (the os8 alpha comes from f32 logits)."""
+    alphas = torch.from_numpy(video_alphas(VIDEO_FRAMES, H, W)[0]).to(dev)
+    for k in UNKNOWN_K:
+        check_unknown(alphas, k, "video", out, worst)
+
+
 def phase_kernels(dev, detail) -> dict:
     from maggie_tpu_torch.flagship import blob_alpha
-    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+    from maggie_tpu_torch.ops.kernels import gather as kg
     rs = np.random.RandomState(7)
     out = {"gather": [], "unknown": []}
     worst = {"gather": 0.0, "unknown": 0.0}
@@ -422,21 +501,11 @@ def phase_kernels(dev, detail) -> dict:
             out["gather"].append({"call": name, "dtype": str(dt), "shape": list(shape),
                                   "layout": layout, "out": list(got.shape), "equal": True})
 
+    check_video_gathers(dev, rs, out, worst)
     check_train_gathers(dev, rs, out, worst)
     check_bwd_edges(dev, out, worst)
 
-    def check_unknown(a, k, label):
-        got = ku.compute_unknown(a, k)
-        ref = ku.compute_unknown_plain(a, k)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        if not torch.equal(got, ref):
-            fail(f"compute_unknown k={k} {label}: kernel != plain twin "
-                 f"({int((got != ref).sum())} pixels differ)")
-        worst["unknown"] = max(worst["unknown"], err)
-        out["unknown"].append({"k": k, "case": label, "shape": list(a.shape),
-                               "ones": int(got.sum()), "equal": True})
-
+    check_video_unknown(dev, out, worst)
     for k in UNKNOWN_K:
         for seed in range(2):
             rr = np.random.RandomState(seed)
@@ -444,7 +513,7 @@ def phase_kernels(dev, detail) -> dict:
             if seed == 1:  # speckle: isolated uncertain pixels everywhere, tile seams too
                 alpha = np.where(rr.rand(*alpha.shape) < 0.002, 0.5, np.round(alpha))
             check_unknown(torch.from_numpy(alpha.astype(np.float32))[None].to(dev), k,
-                          f"seed={seed}")
+                          f"seed={seed}", out, worst)
     # the element instance: W not a multiple of 4 (nor of the 128-column strip),
     # and a contiguous view 4 bytes off 16-byte alignment
     for label, shape, shift in (("ragged", (2, N_INST, 301, 1021), 0),
@@ -456,7 +525,7 @@ def phase_kernels(dev, detail) -> dict:
         if (a.data_ptr() % 16 == 0) != (shift == 0):
             fail(f"compute_unknown {label}: view not at the intended alignment")
         for k in UNKNOWN_K:
-            check_unknown(a, k, label)
+            check_unknown(a, k, label, out, worst)
     detail["kernel_checks"] = out
     return worst
 
@@ -524,6 +593,8 @@ def main() -> int:
         args = sys.argv[1:]
         against = args[args.index("--against") + 1] if "--against" in args else None
         return forward_outputs(args[args.index("--outputs") + 1], against)
+    if "--video" in sys.argv:
+        return video_only(torch.device("cuda"))
     if "--gather-bwd" in sys.argv:
         print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                          "--format=csv,noheader"], capture_output=True,
@@ -665,6 +736,12 @@ def main() -> int:
     trainer = phase_trainer(detail)
     for kern in kernels:
         kern["trainer_launches"] = trainer["launches"][kern["name"]]
+
+    # ---- phase 8: the video model and the video eval engine ----
+    video = phase_video(dev, detail)
+    for kern in kernels[:2]:
+        kern["video_launches"] = video["model"]["launches"][kern["name"]]
+        kern["video_engine_launches"] = video["engine"]["launches"][kern["name"]]
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -819,8 +896,8 @@ PER_VAL_FRAME = {"gather_patches": 5, "gather_patches_bwd": 0, "compute_unknown"
 # a longer f32 run, logging every 10 iterations (the config's cadence) and not
 # validating: enough iterations to drain the loader's and the infeed's queues
 # (up to 5 batches ahead), so that its meters show which of the loader and the
-# step sets the pace
-SUSTAINED_ITERS = 60
+# step sets the pace (60 until phase 8 came, which needed the time)
+SUSTAINED_ITERS = 30
 CKPT_FILES = ("last_state.pt", "best_model.npz", "best_score.txt", "last_step.txt",
               "train_meters.json", "config.yaml")
 
@@ -1580,6 +1657,518 @@ def time_kernels(dev, worst, launches, detail) -> list:
          "bound_by": "bytes", "library_ms": None, "uniform_ms": u["uniform_ms"],
          "copy_ms": u["copy_ms"]},
     ]
+
+
+# ---------------------------------------------------------------- phase 8
+# the video model (configs/maggie_video.yaml, arch MaGGIe_Temp) streaming one
+# synthetic video window by window, then the video eval engine through the CLI
+VIDEO_CONFIG = os.path.join("configs", "maggie_video.yaml")
+VIDEO_STREAM_FRAMES = 10      # 8 windows of 3 frames, overlap 2
+PER_WINDOW = {"gather_patches": 5, "compute_unknown": 3}
+VIDEO_TIMING_REPS = 3
+VIDEO_SRC = (720, 1280)       # ResizeShort(576) -> 576x1024
+VIDEO_SET = (("vid0", 6), ("vid1", 6))   # (video, frames): 4 windows each
+# the card's windows against the CPU port's (``video_window_check``):
+# refined_masks within phase 3's REFINED_ATOL outside the pixels that a value
+# within NEAR of one of the path's discrete decisions may move on rounding:
+# K2's 1/255 and 254/255 on its three inputs and the snap's 0.95 on the os8
+# alpha, dilated by VIDEO_FLIP_REACH (K2 at k=30, 27 and 15 dilates by
+# ellipses of width 15, 13 and 7: radii 7 + 6 + 3 chained); where the two
+# boxes differ (the box thresholds the smoothed os8 alpha at 0.1); and in
+# frames 1 and 2, which the temporal rule makes pixel by pixel from the
+# window's three frames and the previous window's frame 1: the region of any
+# frame at that pixel, the change maps near 0.5, its exact comparison of two
+# candidates (``rule_near``) and the previous window's frame-1 flips. Within
+# that region too, at most VIDEO_MAX_FLIPS pixels may be off by more than
+# REFINED_ATOL, and the mean |error| of the other pixels is at most
+# VIDEO_MEAN_ATOL: the whole window's mean read 7.7e-9 to 2e-8 with 0-2 flips
+# (PERF.md), and a wrong frame or instance moves it by about 1e-2.
+NEAR = 1e-4
+VIDEO_FLIP_REACH = 33
+VIDEO_MAX_FLIPS = 16
+VIDEO_MEAN_ATOL = 1e-7
+
+
+def video_alphas(n_f: int, h: int, w: int, n_i: int = N_INST, seed: int = 0) -> np.ndarray:
+    """(1, n_f, n_i, h, w) soft discs of radius h/4 that move 4 px right and
+    2 px down a frame, from ``seed``."""
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    cy = [h // 2 + rs.randint(-h // 8, h // 8) for _ in range(n_i)]
+    out = np.zeros((1, n_f, n_i, h, w), np.float32)
+    r = h // 4
+    for t in range(n_f):
+        for j in range(n_i):
+            d = np.sqrt((yy - cy[j] - 2 * t) ** 2 + (xx - (j + 1) * w // (n_i + 1) - 4 * t) ** 2)
+            out[0, t, j] = np.clip((r - d) / (r * 0.2), 0, 1)
+    return out
+
+
+def video_stream(n_f: int, seed: int = 0) -> dict:
+    """One synthetic video at 576x1024: uniform frames and 3 moving blob
+    instances, masks the alphas above 0.5 (full size, as VIM eval gives)."""
+    alpha = video_alphas(n_f, H, W, seed=seed)
+    rs = np.random.RandomState(seed + 1)
+    return {"image": torch.from_numpy(rs.rand(1, n_f, H, W, 3).astype(np.float32)),
+            "mask": torch.from_numpy((alpha > 0.5).astype(np.float32))}
+
+
+def stream_windows(model, video: dict, cache: bool = True, keep=(), record=None):
+    """The engine's streaming loop over ``video``'s 3-frame windows (overlap
+    2): with ``cache`` only the new frame is encoded and the feature pack
+    rolls; the previous window's frame-1 alpha is carried. Returns the
+    outputs of the windows in ``keep``; ``record`` (a list) gets each
+    window's launches and encoded frames."""
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+    n = video["image"].shape[1]
+    feats = prev = None
+    kept = {}
+    for i in range(n - VIDEO_FRAMES + 1):
+        win = {k: v[:, i:i + VIDEO_FRAMES] for k, v in video.items()}
+        k0, u0 = kg.launches, ku.launches
+        if cache and feats is not None:
+            new = model.encode_frames({k: v[:, VIDEO_FRAMES - 1:] for k, v in win.items()})
+            feats = {k: torch.cat([feats[k][1:], new[k]]) for k in feats}
+            encoded = new["masks"].shape[0]
+        else:
+            feats = model.encode_frames(win)
+            encoded = feats["masks"].shape[0]
+        out = model.decode_window(feats, prev_pred=prev)
+        prev = out["refined_masks"][:, 1]
+        if record is not None:
+            record.append({"gather_patches": kg.launches - k0,
+                           "compute_unknown": ku.launches - u0, "encoded": encoded})
+        if i in keep:
+            kept[i] = out
+    return kept
+
+
+def video_models(dev):
+    """The video model of configs/maggie_video.yaml at full width, seed 0, SN
+    folded: on the CPU, its copy on ``dev`` in f32, and bf16 on ``dev``."""
+    from maggie_tpu_torch.config import load_config
+    from maggie_tpu_torch.models import build_model
+    from maggie_tpu_torch.utils.checkpoint import fold_spectral_norm
+    cfg = load_config(VIDEO_CONFIG)
+    cpu_model = fold_spectral_norm(build_model(cfg.model, device="cpu",
+                                               generator=torch.Generator().manual_seed(0)))
+    cfg.model.precision = "bf16"
+    bf16_model = fold_spectral_norm(build_model(cfg.model, device="cpu"))
+    bf16_model.load_state_dict(cpu_model.state_dict())
+    return cfg, cpu_model, copy.deepcopy(cpu_model).to(dev), bf16_model.to(dev)
+
+
+def rule_near(out: dict, prev_pred) -> torch.Tensor:
+    """(1, n_i, H, W): where the temporal rule's exact comparison of its two
+    frame-1 candidates (``MaGGIeTemp._finalize_eval``) could go the other way
+    on rounding: candidates within NEAR of each other, unless both are
+    frame 1 itself (both change maps above 0.5) or equal at 0 or 1."""
+    a, f, b = out["refined_masks"], out["diff_pred_forward"], out["diff_pred_backward"]
+    pp = a[:, 0] if prev_pred is None else prev_pred
+    df, db = f[:, 1] > 0.5, b[:, 1] > 0.5
+    f01 = torch.where(df, a[:, 1], pp)
+    b21 = torch.where(db, a[:, 1], a[:, -1])
+    saturated = (f01 == b21) & ((f01 == 0) | (f01 == 1))
+    return ((f01 - b21).abs() < NEAR) & ~(df & db) & ~saturated
+
+
+class ThresholdRecorder:
+    """Records, while on, the inputs and results of the video path's discrete
+    decisions for the first ``windows`` windows, one dict a window: K2's
+    inputs (``k30``, the os8 alpha before the snap; ``k27`` and ``k15``, the
+    fusion's), the box and its smoothed-map pixels within NEAR of 0.1
+    (``box``, ``box_near``), the change maps the temporal rule reads
+    (``diffs``: forward frames 1-2, backward frames 0-1) and where its exact
+    comparison is near (``rule``). The kernels' wrappers are called as
+    before, so their launch counts do not change, and what is recorded is
+    worked out on the CPU, so the card's peak memory does not either."""
+
+    def __init__(self, windows: int):
+        import maggie_tpu_torch.models.decoder_sparse as ds
+        import maggie_tpu_torch.models.decoder_video as dv
+        from maggie_tpu_torch.models.maggie_temp import MaGGIeTemp
+        self.ds, self.dv, self.cls = ds, dv, MaGGIeTemp
+        self.windows, self.records = windows, []
+
+    def _on(self) -> bool:
+        return len(self.records) <= self.windows
+
+    def _keep(self, key, value):
+        if self._on():
+            self.records[-1][key] = value.detach().cpu()
+
+    def __enter__(self):
+        dec = self.dv.ResShortCutInstMattSpconvTempDec
+        unknown, box, finalize = self.dv.compute_unknown, dec._bbox_mask, self.cls._finalize_eval
+        self.saved = (unknown, self.ds.compute_unknown, box, finalize)
+
+        def spy_unknown(x, k_size):
+            if k_size == 30:          # a window's first decision
+                self.records.append({})
+            self._keep(f"k{k_size}", x)
+            return unknown(x, k_size)
+
+        def spy_box(x):
+            out = box(x)
+            if self._on():
+                self._keep("box", out)
+                smooth = self.dv.gaussian_smoothing(x.detach().cpu(), sigma=3)
+                self._keep("box_near", (smooth - 0.1).abs() < NEAR)
+            return out
+
+        def spy_finalize(model, out, prev_pred):
+            if self._on():
+                keys = ("refined_masks", "diff_pred_forward", "diff_pred_backward")
+                host = {k: out[k].detach().cpu() for k in keys}
+                self._keep("diffs_f", host["diff_pred_forward"][:, 1:])
+                self._keep("diffs_b", host["diff_pred_backward"][:, :-1])
+                self._keep("rule", rule_near(host, None if prev_pred is None
+                                             else prev_pred.cpu())[0])
+            return finalize(model, out, prev_pred)
+        self.dv.compute_unknown = self.ds.compute_unknown = spy_unknown
+        dec._bbox_mask = staticmethod(spy_box)
+        self.cls._finalize_eval = spy_finalize
+        return self
+
+    def __exit__(self, *exc):
+        unknown, ds_unknown, box, finalize = self.saved
+        self.dv.compute_unknown, self.ds.compute_unknown = unknown, ds_unknown
+        self.dv.ResShortCutInstMattSpconvTempDec._bbox_mask = staticmethod(box)
+        self.cls._finalize_eval = finalize
+
+
+def video_window_check(card_out, cpu_out, card_rec, cpu_rec, prev_flips=None) -> dict:
+    """A card window against the CPU port's (see NEAR for the region and the
+    gates): detail_mask equal outside K2's k=30 reach of near pixels and
+    where the boxes differ, each box difference in a map with a near pixel,
+    refined_masks within REFINED_ATOL outside the region, at most
+    VIDEO_MAX_FLIPS flips in all and the other pixels' mean |error| within
+    VIDEO_MEAN_ATOL. ``card_rec`` and ``cpu_rec`` are the two runs'
+    ``ThresholdRecorder`` records of the window; ``prev_flips`` (n_i, H, W)
+    the previous window's frame-1 flips. Returns the counts and the flips of
+    frame 1 under ``frame1_flips``."""
+    from maggie_tpu_torch.ops.morphology import LOWER_THRES, UPPER_THRES, dilate_ellipse
+
+    def near(x, *values):
+        return torch.stack([(x - v).abs() < NEAR for v in values]).any(dim=0)
+    k30 = near(cpu_rec["k30"], LOWER_THRES, UPPER_THRES)              # (3, n_i, H, W)
+    box_diff = card_rec["box"] != cpu_rec["box"]
+    dm_allowed = (dilate_ellipse(k30.float(), 15) > 0) | box_diff
+    dm_diff = card_out["detail_mask"][0].cpu() != cpu_out["detail_mask"][0]
+    seeds = k30 | near(cpu_rec["k30"], 0.95) | box_diff \
+        | near(cpu_rec["k27"], LOWER_THRES, UPPER_THRES) \
+        | near(cpu_rec["k15"], LOWER_THRES, UPPER_THRES)
+    region = dilate_ellipse(seeds.float(), VIDEO_FLIP_REACH) > 0
+    f, b = cpu_rec["diffs_f"][0], cpu_rec["diffs_b"][0]               # (2, n_i, H, W)
+    diff_near = near(f[0], 0.5) | near(f[1], 0.5) | near(b[1], 0.5)   # rule: f 1, 2; b 1
+    rule = region.any(dim=0) | diff_near | cpu_rec["rule"]
+    if prev_flips is not None:
+        rule |= prev_flips
+    region[1:] |= rule
+    err = (card_out["refined_masks"].float().cpu() - cpu_out["refined_masks"])[0].abs()
+    flips = err > REFINED_ATOL
+    box_maps = box_diff.flatten(2).any(dim=-1)                        # (3, n_i)
+    return {"near_threshold_pixels": int(seeds.sum()), "diff_near_pixels": int(diff_near.sum()),
+            "rule_near_pixels": int(cpu_rec["rule"].sum()),
+            "region_share": float(region.float().mean()),
+            "box_diff_pixels": int(box_diff.sum()),
+            "unexplained_box_maps": int((box_maps & ~cpu_rec["box_near"].flatten(2).any(-1)).sum()),
+            "detail_mask_diff": int(dm_diff.sum()),
+            "unexplained_detail_mask_diff": int((dm_diff & ~dm_allowed).sum()),
+            "refined_flips": int(flips.sum()), "unexplained_flips": int((flips & ~region).sum()),
+            "refined_max_abs_err": float(err.max()),
+            "refined_max_abs_err_outside_flips": float(err[~region].max())
+            if bool((~region).any()) else 0.0,
+            "refined_mean_abs_err": float(err.mean()),
+            "refined_mean_abs_err_unflipped": float(err[~flips].mean()),
+            "frame1_flips": flips[1]}
+
+
+def video_window_failures(c: dict) -> list:
+    """The gates of ``video_window_check``'s result that fail."""
+    return [name for name, bad in (
+        ("detail_mask differs outside K2's reach and the box difference",
+         c["unexplained_detail_mask_diff"] > 0),
+        ("a box differs in a map with no smoothed pixel near 0.1", c["unexplained_box_maps"] > 0),
+        ("refined_masks flips outside the region", c["unexplained_flips"] > 0),
+        (f"more than {VIDEO_MAX_FLIPS} refined_masks flips", c["refined_flips"] > VIDEO_MAX_FLIPS),
+        (f"mean |error| of the unflipped pixels above {VIDEO_MEAN_ATOL}",
+         c["refined_mean_abs_err_unflipped"] > VIDEO_MEAN_ATOL)) if bad]
+
+
+def time_stream(model, video, cache: bool) -> dict:
+    """ms per window over the whole stream (CUDA events around it, host
+    launch cost included), median of VIDEO_TIMING_REPS passes after one warm
+    pass."""
+    windows = video["image"].shape[1] - VIDEO_FRAMES + 1
+    with torch.inference_mode():
+        stream_windows(model, video, cache)
+        passes = []
+        for _ in range(VIDEO_TIMING_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            stream_windows(model, video, cache)
+            end.record()
+            end.synchronize()
+            passes.append(start.elapsed_time(end) / windows)
+    return {"ms_per_window_median": float(np.median(passes)), "ms_per_window": passes}
+
+
+def window_kernels(model, video) -> dict:
+    """torch.profiler over one cached window's decode (f32): the kernels'
+    device time, their 5 largest by name, and K1's and K2's share."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        feats = model.encode_frames({k: v[:, :VIDEO_FRAMES] for k, v in video.items()})
+        model.decode_window(feats)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            model.decode_window(feats)
+            torch.cuda.synchronize()
+    rows = [(e.key, device_us(e) / 1e3, e.count) for e in prof.key_averages()
+            if not e.key.startswith(("aten::", "cuda")) and device_us(e) > 0]
+    rows.sort(key=lambda r: -r[1])
+    ported = {k: sum(ms for name, ms, _ in rows if any(sub in name for sub in subs))
+              for k, subs in KERNEL_NAMES.items() if k != "gather_patches_bwd"}
+    for k, ms in ported.items():   # a renamed kernel would otherwise read 0
+        if ms <= 0.0:
+            fail(f"profiled video window: no device time under {KERNEL_NAMES[k]}")
+    return {"kernel_ms": sum(r[1] for r in rows), "ported_ms": ported,
+            "top": [{"name": n[:90], "ms": ms, "calls": c} for n, ms, c in rows[:5]]}
+
+
+def phase_video_model(dev, detail) -> dict:
+    """Phase 8 (model): the full-width video model streaming one synthetic
+    video on the card; launches and encoded frames per window, windows 0 and
+    1 against the CPU port, ms per window cached and uncached in f32 and
+    bf16, peak memory. Returns the launches of the checked stream."""
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+    t0 = time.perf_counter()
+    cfg, cpu_model, model, bf16_model = video_models(dev)
+    video = video_stream(VIDEO_STREAM_FRAMES)
+    on_dev = {k: v.to(dev) for k, v in video.items()}
+    windows = VIDEO_STREAM_FRAMES - VIDEO_FRAMES + 1
+    out = {"config": VIDEO_CONFIG, "frames": VIDEO_STREAM_FRAMES, "windows": windows,
+           "hw": [H, W], "instances": N_INST,
+           "temp_method": cfg.model.decoder_args.temp_method}
+    record = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kg.launches = 0
+    ku.launches = 0
+    with torch.inference_mode(), ThresholdRecorder(2) as card_rec:
+        card = stream_windows(model, on_dev, True, keep=(0, 1, windows - 1), record=record)
+    torch.cuda.synchronize()
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    out["launches"] = {"gather_patches": kg.launches, "compute_unknown": ku.launches}
+    out["per_window"] = record
+    for i, r in enumerate(record):
+        want = {**PER_WINDOW, "encoded": VIDEO_FRAMES if i == 0 else 1}
+        if r != want:
+            fail(f"video window {i}: {r}, not {want}")
+    if out["launches"] != {k: v * windows for k, v in PER_WINDOW.items()}:
+        fail(f"video stream: launches {out['launches']} over {windows} windows")
+    for i, o in card.items():
+        for k, v in o.items():
+            if k == "mem_feat":
+                continue
+            if tuple(v.shape) != (1, VIDEO_FRAMES, N_INST, H, W) or not bool(torch.isfinite(v).all()):
+                fail(f"video window {i}: {k} has shape {tuple(v.shape)} or non-finite values")
+        if float(o["refined_masks"].min()) < 0 or float(o["refined_masks"].max()) > 1:
+            fail(f"video window {i}: refined_masks outside [0, 1]")
+    out["detail_fraction"] = [float(card[i]["detail_mask"].mean()) for i in (0, 1)]
+    t1 = time.perf_counter()
+    with torch.inference_mode(), ThresholdRecorder(2) as cpu_rec:
+        cpu = stream_windows(cpu_model, {k: v[:, :VIDEO_FRAMES + 1] for k, v in video.items()},
+                             True, keep=(0, 1))
+    out["cpu_windows_s"] = time.perf_counter() - t1
+    out["cpu_check"], prev_flips = [], None
+    for i in (0, 1):
+        c = video_window_check(card[i], cpu[i], card_rec.records[i], cpu_rec.records[i],
+                               prev_flips)
+        prev_flips = c.pop("frame1_flips")
+        out["cpu_check"].append(c)
+        if video_window_failures(c):
+            fail(f"video window {i} vs the CPU port: {'; '.join(video_window_failures(c))}: {c}")
+    del card, cpu, card_rec, cpu_rec
+    out["timing"] = {}
+    for name, m in (("fp32", model), ("bf16", bf16_model)):
+        for cache in (True, False):
+            out["timing"][f"{name}_{'cached' if cache else 'uncached'}"] = time_stream(
+                m, on_dev, cache)
+    out["fp32_decode_kernels"] = window_kernels(model, on_dev)
+    detail["video_model"] = out
+    print(f"phase 8: video model ({VIDEO_CONFIG}, {cfg.model.decoder_args.temp_method}) streamed "
+          f"{VIDEO_STREAM_FRAMES} frames ({windows} windows, {H}x{W}, {N_INST} instances) with "
+          f"the feature cache in {time.perf_counter() - t0:.1f} s; launches {out['launches']} "
+          f"({PER_WINDOW} and one encoded frame a window after the first); peak device memory "
+          f"{out['peak_mem_bytes']} bytes", flush=True)
+    for i, c in enumerate(out["cpu_check"]):
+        print(f"phase 8: window {i} vs the CPU port: refined max |err| outside the region "
+              f"{c['refined_max_abs_err_outside_flips']:.3g} (mean {c['refined_mean_abs_err']:.3g}, "
+              f"unflipped {c['refined_mean_abs_err_unflipped']:.3g}), flips {c['refined_flips']} "
+              f"px ({c['unexplained_flips']} outside the region), detail_mask diff "
+              f"{c['detail_mask_diff']} px ({c['unexplained_detail_mask_diff']} unexplained), box "
+              f"diff {c['box_diff_pixels']} px; region share {c['region_share']:.4g} (near "
+              f"{c['near_threshold_pixels']} K2/snap px, {c['diff_near_pixels']} change-map px, "
+              f"{c['rule_near_pixels']} px of the rule's comparison)", flush=True)
+    t, kk = out["timing"], out["fp32_decode_kernels"]
+    print("phase 8: ms per window (= per new frame with the cache): "
+          + ", ".join(f"{k} {v['ms_per_window_median']:.3f}" for k, v in t.items()), flush=True)
+    print(f"phase 8: one f32 window's decode: kernels {kk['kernel_ms']:.3f} ms of device time "
+          f"(K1 {kk['ported_ms']['gather_patches']:.3f}, K2 "
+          f"{kk['ported_ms']['compute_unknown']:.3f}); largest: "
+          + "; ".join(f"{r['name'][:60]} {r['ms']:.3f} ms x{r['calls']}" for r in kk["top"]),
+          flush=True)
+    return out
+
+
+def phase_video(dev, detail) -> dict:
+    """Phase 8: the video model streaming on the card, then the video eval
+    engine through the CLI."""
+    return {"model": phase_video_model(dev, detail), "engine": phase_video_engine(detail)}
+
+
+def video_only(dev) -> int:
+    """``--video``: build the kernels, hold them against their twins at the
+    video path's shapes, then phase 8."""
+    from maggie_tpu_torch.ops.kernels import build
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                     "--format=csv,noheader"], capture_output=True,
+                                    text=True, check=True).stdout.strip(), flush=True)
+    build.build_all()
+    out, worst = {"gather": [], "unknown": []}, {"gather": 0.0, "unknown": 0.0}
+    check_video_gathers(dev, np.random.RandomState(7), out, worst)
+    check_video_unknown(dev, out, worst)
+    print(f"video kernels equal to their plain twins ({len(out['gather'])} gather, "
+          f"{len(out['unknown'])} compute_unknown cases)", flush=True)
+    detail = {"kernel_checks": out}
+    phase_video(dev, detail)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_video.json"), "w") as f:
+        json.dump(detail, f, indent=1)
+    return 0
+
+
+def video_set(root: str) -> None:
+    """Write a VIM eval set with PIL: ``root/chip/fgr/<video>/<frame>.jpg``,
+    ``root/chip/{pha,xmem}/<video>/<frame>/<instance>.png``: VIDEO_SET's videos
+    at 720x1280, 3 moving blob instances, the masks the alphas binarized."""
+    from PIL import Image
+    h, w = VIDEO_SRC
+    for v, (name, n_f) in enumerate(VIDEO_SET):
+        alpha = video_alphas(n_f, h, w, seed=40 + v)[0]
+        rs = np.random.RandomState(50 + v)
+        for t in range(n_f):
+            small = Image.fromarray(rs.randint(0, 256, (h // 16, w // 16, 3)).astype(np.uint8))
+            frame = np.asarray(small.resize((w, h), Image.BILINEAR))
+            path = os.path.join(root, "chip", "fgr", name, f"{t:04d}.jpg")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            Image.fromarray(frame).save(path, quality=90)
+            for j in range(N_INST):
+                a = np.round(alpha[t, j] * 255).astype(np.uint8)
+                for d, arr in (("pha", a), ("xmem", ((a > 127) * 255).astype(np.uint8))):
+                    path = os.path.join(root, "chip", d, name, f"{t:04d}", f"{j:02d}.png")
+                    os.makedirs(os.path.dirname(path), exist_ok=True)
+                    Image.fromarray(arr).save(path)
+
+
+def phase_video_engine(detail) -> dict:
+    """Phase 8 (engine): ``main.main(["--config", configs/maggie_video.yaml,
+    "--eval-only", ...])`` at full width on a synthetic VIM set; launches per
+    window, finite metrics, results.csv, frames/s with metrics on and the
+    per-window split."""
+    import tempfile
+    import maggie_tpu_torch.engine.test as eng
+    import maggie_tpu_torch.utils.metrics as pm
+    from maggie_tpu_torch import main as cli
+    from maggie_tpu_torch.models.maggie_temp import MaGGIeTemp
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+
+    windows, split, messddt, metric_s = [], {}, [], []
+    decode, eval_video, update, metrics = (MaGGIeTemp.decode_window, eng.eval_video,
+                                           pm.MESSDdt.update, eng.compute_metrics)
+
+    def counted_decode(model, *a, **kw):
+        k0, u0 = kg.launches, ku.launches
+        out = decode(model, *a, **kw)
+        windows.append({"gather_patches": kg.launches - k0, "compute_unknown": ku.launches - u0})
+        return out
+
+    def timed_eval_video(*a, **kw):
+        split["batch_time_s"], split["data_time_s"], split["host_time_s"] = eval_video(*a, **kw)
+        return split["batch_time_s"], split["data_time_s"], split["host_time_s"]
+
+    def timed_update(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = update(self, *a, **kw)
+        messddt.append(time.perf_counter() - t0)
+        return out
+
+    def timed_metrics(*a, **kw):
+        t0 = time.perf_counter()
+        out = metrics(*a, **kw)
+        metric_s.append(time.perf_counter() - t0)
+        return out
+
+    out = {"videos": [list(v) for v in VIDEO_SET], "source_hw": list(VIDEO_SRC)}
+    with tempfile.TemporaryDirectory() as root:
+        video_set(root)
+        out_dir = os.path.join(root, "out")
+        MaGGIeTemp.decode_window, eng.eval_video = counted_decode, timed_eval_video
+        pm.MESSDdt.update, eng.compute_metrics = timed_update, timed_metrics
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kg.launches = 0
+            ku.launches = 0
+            t0 = time.perf_counter()
+            results = cli.main(["--config", VIDEO_CONFIG, "--eval-only", "name", "video",
+                                "output_dir", out_dir, "dataset.test.root_dir", root,
+                                "dataset.test.split", "chip", "test.log_iter", "100"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"gather_patches": kg.launches, "compute_unknown": ku.launches}
+        finally:
+            MaGGIeTemp.decode_window, eng.eval_video = decode, eval_video
+            pm.MESSDdt.update, eng.compute_metrics = update, metrics
+        with open(os.path.join(out_dir, "video", "results.csv")) as f:
+            rows = f.read().strip().split("\n")
+    n_windows = sum(n - VIDEO_FRAMES + 1 for _, n in VIDEO_SET)
+    n_frames = sum(n for _, n in VIDEO_SET)
+    want = ["MAD", "MSE", "SAD", "Grad", "Conn", "dtSSD", "MESSDdt"]
+    if launches != {k: v * n_windows for k, v in PER_WINDOW.items()}:
+        fail(f"video engine: launches {launches} over {n_windows} windows, not {PER_WINDOW} each")
+    if len(windows) != n_windows or any(w != PER_WINDOW for w in windows):
+        fail(f"video engine: {len(windows)} windows launched {windows}, not {PER_WINDOW} "
+             f"each over {n_windows}")
+    if not all(k in results and np.isfinite(results[k]) for k in want):
+        fail(f"video engine: metrics {results}")
+    if len(rows) != 2 or rows[0].split(",")[2:] != list(results) or \
+            not all(np.isfinite(float(c)) for c in rows[1].split(",")[2:]):
+        fail(f"video engine: results.csv reads {rows}")
+    out.update(results={k: float(v) for k, v in results.items()}, wall_s=wall, frames=n_frames, windows=n_windows,
+               frames_per_s=n_frames / wall, per_window=split,
+               metrics_time_s_per_window=float(np.mean(metric_s)),
+               messddt_host_s_per_window=float(np.sum(messddt)) / n_windows,
+               messddt_calls=len(messddt),
+               launches=launches,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(), results_csv=rows)
+    detail["video_engine"] = out
+    print(f"phase 8: video engine (main --eval-only --config {VIDEO_CONFIG}): {n_frames} frames "
+          f"({len(VIDEO_SET)} videos, {VIDEO_SRC[0]}x{VIDEO_SRC[1]} -> 576x1024, {N_INST} "
+          f"instances, {n_windows} windows) in {wall:.3f} s, {out['frames_per_s']:.4f} frames/s "
+          f"with the seven metrics on; per window: forward (batch_time) "
+          f"{split['batch_time_s']:.4f} s, loader (data_time) {split['data_time_s']:.4f} s, host "
+          f"{split['host_time_s']:.4f} s (metrics {out['metrics_time_s_per_window']:.4f} s, of "
+          f"which MESSDdt {out['messddt_host_s_per_window']:.4f} s); peak device memory "
+          f"{out['peak_mem_bytes']} bytes; launches {out['launches']}; metrics "
+          + ", ".join(f"{k} {results[k]:.6g}" for k in want), flush=True)
+    return out
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""Dataset registry (port of ``maggie_tpu/data/__init__.py``): HIM, train and eval."""
+"""Dataset registry (port of ``maggie_tpu/data/__init__.py``): HIM, train and
+eval; VIM, eval (its train branch is ROADMAP item 11b)."""
 
 from __future__ import annotations
 
@@ -12,12 +13,11 @@ def build_dataset(cfg: Any, is_train: bool, random_seed: int = 2023, device=None
     replaces the PIL decoder (``data/transforms.py::Load``)."""
     sub = cfg.dataset.train if is_train else cfg.dataset.test
     if sub.name == "HIM":
-        from .him import HIMDataset
-        return HIMDataset(
-            root_dir=sub.root_dir, split=sub.split, is_train=is_train,
-            random_seed=random_seed, device=device, decode=decode,
-            **{k: v for k, v in sub.items() if k not in ("name", "root_dir", "split")})
-    if sub.name == "VIM":
-        raise NotImplementedError("the VIM video dataset is not ported yet: it comes "
-                                  "with video, ROADMAP.md queue 1 item 11")
-    raise KeyError(f"Unknown dataset '{sub.name}'")
+        from .him import HIMDataset as cls
+    elif sub.name == "VIM":
+        from .vim import VIMDataset as cls
+    else:
+        raise KeyError(f"Unknown dataset '{sub.name}'")
+    return cls(root_dir=sub.root_dir, split=sub.split, is_train=is_train,
+               random_seed=random_seed, device=device, decode=decode,
+               **{k: v for k, v in sub.items() if k not in ("name", "root_dir", "split")})

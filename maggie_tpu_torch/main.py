@@ -9,8 +9,10 @@ Without ``--eval-only`` it trains (``engine/train.py``), logging to
 ``config.yaml`` beside it; with it, it evaluates, logging to
 ``test-log_rank0.log``. Each log starts with the merged config, as the JAX
 package's CLI writes it, so ``tools/extract_results.py`` reads an eval log
-unchanged. The model runs on the card unless ``--device cpu``; asking for the
-card on a host without one raises before anything is written.
+unchanged; an eval also writes ``results.csv`` beside it (split, masks and
+every metric of the run, video metrics included). The model runs on the card
+unless ``--device cpu``; asking for the card on a host without one raises
+before anything is written.
 """
 
 from __future__ import annotations
@@ -32,6 +34,18 @@ def setup_logging(cfg, eval_only: bool) -> None:
     level = logging.DEBUG if os.environ.get("DEBUG") else logging.INFO
     logging.basicConfig(level=level, handlers=handlers,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s", force=True)
+
+
+def write_results_csv(cfg, results: dict) -> str:
+    """``<output_dir>/results.csv``: one row of the eval's metrics under the
+    split and the mask set, named as ``tools/extract_results.py`` names them."""
+    path = os.path.join(cfg.output_dir, "results.csv")
+    masks = str(cfg.dataset.test.get("mask_dir_name", "")).replace("masks_matched_", "")
+    with open(path, "w") as f:
+        f.write("split,masks," + ",".join(results) + "\n")
+        f.write(",".join([str(cfg.dataset.test.split), masks]
+                         + [str(v) for v in results.values()]) + "\n")
+    return path
 
 
 def main(argv: list[str] | None = None):
@@ -67,7 +81,10 @@ def main(argv: list[str] | None = None):
     np.random.seed(seed)
     if args.eval_only:
         from .engine.test import test
-        return test(cfg, device=dev)
+        results = test(cfg, device=dev)
+        if results:
+            logging.info(f"Wrote {write_results_csv(cfg, results)}")
+        return results
     with open(os.path.join(cfg.output_dir, "config.yaml"), "w") as f:
         f.write(cfg.dump())
     from .engine.train import train

@@ -1,5 +1,6 @@
-"""Model registries of the port. This slice holds the flagship MaGGIe image
-model only; every other name raises and points to ROADMAP.md."""
+"""Model registries of the port: the MaGGIe image model (arch ``MaGGIe``) and
+the MaGGIe video model's eval (arch ``MaGGIe_Temp``); every other name raises
+and points to ROADMAP.md."""
 
 from __future__ import annotations
 
@@ -30,11 +31,23 @@ def _dec_inst_matt_spconv(args: dict) -> nn.Module:
     return ResShortCutInstMattSpconvDec(**args)
 
 
+def _dec_inst_matt_spconv_temp(args: dict) -> nn.Module:
+    from .decoder_video import ResShortCutInstMattSpconvTempDec
+    return ResShortCutInstMattSpconvTempDec(**args)
+
+
+def _arch(name: str):
+    from .maggie import MaGGIe
+    from .maggie_temp import MaGGIeTemp
+    return {"MaGGIe": MaGGIe, "MaGGIe_Temp": MaGGIeTemp}.get(name)
+
+
 ENCODERS: dict[str, Callable[[dict], nn.Module]] = {
     "res_shortcut_embed_29": _enc_res_shortcut_embed_29,
 }
 DECODERS: dict[str, Callable[[dict], nn.Module]] = {
     "res_shortcut_inst_matt_spconv_22": _dec_inst_matt_spconv,
+    "res_shortcut_inst_matt_spconv_temp_22": _dec_inst_matt_spconv_temp,
 }
 
 
@@ -55,14 +68,14 @@ def build_model(model_cfg: Any, device: str | torch.device | None = None,
     """Build the model on ``device`` (CUDA unless the caller passes ``"cpu"``),
     in eval mode, with every parameter drawn on the CPU from ``generator``
     (``torch.Generator().manual_seed(0)`` when none is given)."""
-    from .maggie import MaGGIe
     dev = resolve_device(device)
-    if model_cfg.arch != "MaGGIe":
-        raise KeyError(f"arch '{model_cfg.arch}' {_LATER}. Ported: ['MaGGIe']")
+    arch = _arch(model_cfg.arch)
+    if arch is None:
+        raise KeyError(f"arch '{model_cfg.arch}' {_LATER}. Ported: ['MaGGIe', 'MaGGIe_Temp']")
     # construct on the meta device so that no default initializer draws from
     # the global RNG; every tensor is then filled from the explicit generator
     with torch.device("meta"):
-        model = MaGGIe(model_cfg)
+        model = arch(model_cfg)
     model = model.to_empty(device="cpu")
     init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
     return model.to(dev).eval()

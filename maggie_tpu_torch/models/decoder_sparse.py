@@ -362,7 +362,7 @@ class ResShortCutInstMattSpconvDec(nn.Module):
                                             scale_factor=masks5.shape[-1] / gt_masks.shape[-1])
         z = self.layer1(x) + fea5
         z = self.layer2(z) + fea4
-        x_os8_logit, feat8, queries, loss_max_atten = self.refine_OS8(
+        x_os8_logit, feat8, queries, loss_max_atten, _ = self.refine_OS8(
             z, masks5, gt_masks, use_mask_atten)
         if not train:
             # slice the instance slots before the full-resolution upsample

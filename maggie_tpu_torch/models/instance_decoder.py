@@ -8,9 +8,11 @@ cross-attention, FFN, token self-attention, feat<-token cross-attention), a fina
 token<-feat cross-attention, and the token-feature product that gives one matte
 logit map per instance slot.
 
-This port runs the flagship setting: ``atten_stride`` 1, no temporal
-positional embedding, no memory hook. Train mode adds the attention
-supervision by the GT masks (the max-attention loss) or, with
+This port runs ``atten_stride`` 1 without the temporal positional embedding
+(no config reaches it: ``maggie_tpu/models/decoder_sparse.py:89``). The video
+decoder passes ``aggregate_mem_fn``, its ConvGRU memory
+(``maggie_tpu/models/instance_decoder.py:222-231``). Train mode adds the
+attention supervision by the GT masks (the max-attention loss) or, with
 ``use_mask_atten``, attention masked by the guidance masks.
 """
 
@@ -20,7 +22,7 @@ import torch
 import torch.nn as nn
 
 from .attention import CrossAttentionLayer, FFNLayer, SelfAttentionLayer
-from .layers import MLP, BatchNorm, Conv2d, Embedding, LayerNorm
+from .layers import MLP, BatchNorm, Conv2d, Embedding, LayerNorm, per_frame
 from ..ops.resize import avg_pool2d, resize_any_shape
 
 
@@ -71,12 +73,16 @@ class InstanceMatteDecoder(nn.Module):
         return seq(padding), seq(g).float()
 
     def forward(self, feat: torch.Tensor, mask: torch.Tensor, gt_mask: torch.Tensor | None = None,
-                use_mask_atten: bool = False):
+                use_mask_atten: bool = False, aggregate_mem_fn=None):
         """feat (b*n_f, C, h, w); mask (b, n_f, n_i, H, W) guidance masks.
 
         Returns (logits (b*n_f, max_inst, h, w) f32, smoothed features
         (b*n_f, output_dim, h, w), tokens (b, max_inst, output_dim) f32,
-        attention loss). In train mode, ``gt_mask`` (b, n_f, n_i, H, W) 0/1
+        attention loss, hidden state). ``aggregate_mem_fn`` maps the attended
+        maps (b, n_f, C, h, w) to (mixed maps, hidden state): the shared conv
+        stack then runs on the memory-free maps, which are the returned
+        features, and on the mixed maps, which give the logits; without it
+        the hidden state is None. In train mode, ``gt_mask`` (b, n_f, n_i, H, W) 0/1
         supervises the token->feature attention maps (reference
         ``compute_atten_loss``, ``instance_matte_decoder.py:101-109``): the loss
         is their mass outside each instance's GT mask, averaged over the
@@ -145,11 +151,20 @@ class InstanceMatteDecoder(nn.Module):
 
         # (h*w*n_f, b, c) -> (b*n_f, c, h, w)
         fm = feat_seq.reshape(h, w, n_f, b, c).permute(3, 2, 4, 0, 1).reshape(b * n_f, c, h, w)
-        fm_out = self.conv(fm)
+        # the conv stack is frame-local: in eval it runs one frame at a time
+        # (layers.per_frame); train-mode BatchNorm needs the whole batch
+        smooth = self.conv if self.training else (lambda t: per_frame(self.conv, t))
+        hidden = None
+        if aggregate_mem_fn is None:
+            fm_out = out_feat = smooth(fm)
+        else:
+            fm_mem, hidden = aggregate_mem_fn(fm.reshape(b, n_f, c, h, w))
+            out_feat = smooth(fm)
+            fm_out = smooth(fm_mem.reshape(b * n_f, c, h, w))
 
         tk = self.final_mlp(tokens).permute(1, 0, 2)                     # (b, n_i, c_out)
         tk = self.decoder_norm(tk.float())                               # f32 (flax LayerNorm)
         fm5 = fm_out.reshape(b, n_f, fm_out.shape[1], h, w)
         # f32 product of the compute-dtype operands (maggie_tpu instance_decoder.py:240-241)
         out = torch.einsum("bqc,btchw->btqhw", tk.to(dt).float(), fm5.float())
-        return out.reshape(b * n_f, self.max_inst, h, w), fm_out, tk, max_loss
+        return out.reshape(b * n_f, self.max_inst, h, w), out_feat, tk, max_loss, hidden

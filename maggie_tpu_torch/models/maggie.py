@@ -7,7 +7,9 @@ Interface as in the JAX package: ``batch['image']`` (b, n_f, H, W, 3) float,
 and ``batch['transition']`` (b, n_f, n_i, H, W).
 
 In eval (``model.eval()``, as ``build_model`` returns it) the forward runs
-without autograd and returns the true instances' outputs (b, n_f, n_i, H, W).
+without autograd and returns the true instances' outputs (b, n_f, n_i, H, W),
+as ``encode_frames`` then ``decode_window`` (the halves that streaming video
+eval calls apart); ``mem_feat`` and ``prev_pred`` reach the video arch.
 In train mode (``model.train()``) it pads masks, alphas and transitions to
 ``num_masks`` slots, gates the predictions by the valid instances and returns
 ``(output, loss_dict)``: the weighted L1 + Laplacian + Sobel-gradient (+ dtSSD)
@@ -25,7 +27,7 @@ from .aspp import ASPP
 from .losses import gradient_loss, lap_loss, loss_dtssd, regression_loss
 from ..ops.resize import resize_nearest
 
-_LAZY_OS1_DECODERS = ("res_shortcut_inst_matt_spconv_22",)
+_LAZY_OS1_DECODERS = ("res_shortcut_inst_matt_spconv_22", "res_shortcut_inst_matt_spconv_temp_22")
 _LAZY_OS1_ENCODERS = ("res_shortcut_embed_29",)
 _ALPHAS = ("alpha_os1", "alpha_os4", "alpha_os8")
 
@@ -93,9 +95,9 @@ class MaGGIe(nn.Module):
 
     def forward(self, batch: dict, use_mask_atten: bool = False, use_gt_guidance: bool = False,
                 use_prm_weights: bool = True, atten_loss_enabled: bool = True,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, mem_feat=None, prev_pred=None):
         if not self.training:
-            return self._eval_forward(batch)
+            return self._eval_forward(batch, mem_feat, prev_pred)
         inp, masks, gt, (b, n_f, n_i, h, w) = self._inputs(batch, train=True)
         embedding, mid_fea = self.encoder(inp)
         embedding = self.aspp(embedding)
@@ -120,15 +122,80 @@ class MaGGIe(nn.Module):
             loss_dict["total"] = loss_dict["total"] + loss_dict["loss_max_atten"] * self.loss_atten_w
         return output, loss_dict
 
+    # ----- eval: the frame-local half and the decoder half -----
+    # The encoder and ASPP are frame-local (2-D convs; all temporal mixing is
+    # in the decoder), so streaming video eval encodes only the frames a
+    # window adds and rolls the rest of the feature pack from the previous
+    # window (``maggie_tpu/models/maggie.py:201-278``). The eval forward is
+    # the same two halves on one batch.
+
     @torch.no_grad()
-    def _eval_forward(self, batch: dict) -> dict:
-        inp, masks, _, (b, n_f, n_i, h, w) = self._inputs(batch, train=False)
+    def encode_frames(self, batch: dict) -> dict:
+        """Input prep, encoder and ASPP of ``batch``'s frames. Returns a pack
+        of tensors whose first dim is the frame (``embedding``, ``fea2`` to
+        ``fea5``, ``fea1`` or, with the lazy os1 shortcut, its input ``inp``,
+        ``image``, and the full-size guidance ``masks``), which
+        ``decode_window`` reads; packs of consecutive frames concatenate.
+
+        The frames are encoded one at a time: a conv library may pick another
+        algorithm for another batch size (oneDNN on the CPU does, for the
+        deeper maps), and a frame's features must not depend on the window
+        that encoded it for a rolled pack to equal a fresh one bit for bit."""
+        inp, masks, _, _ = self._inputs(batch, train=False)
+        packs = [self._encode(inp[i:i + 1]) for i in range(inp.shape[0])]
+        feats = {k: torch.cat([p[k] for p in packs]) if len(packs) > 1 else packs[0][k]
+                 for k in packs[0]}
+        feats["masks"] = masks
+        return feats
+
+    def _encode(self, inp: torch.Tensor) -> dict:
         embedding, mid_fea = self.encoder(inp)
-        embedding = self.aspp(embedding)
-        pred = self.decoder(embedding, mid_fea, b=b, n_f=n_f, n_i=n_i, masks=masks)
-        # keep the true instances only, as (b, n_f, n_i, H, W)
-        return {k: pred[k][:, :n_i].reshape(b, n_f, n_i, h, w)
-                for k in _ALPHAS + ("refined_masks", "detail_mask")}
+        fea1, fea2, fea3, fea4, fea5 = mid_fea["shortcut"]
+        feats = {"embedding": self.aspp(embedding), "fea2": fea2, "fea3": fea3, "fea4": fea4,
+                 "fea5": fea5, "image": mid_fea["image"]}
+        if fea1 is not None:
+            feats["fea1"] = fea1
+        if "shortcut0_input" in mid_fea:
+            feats["inp"] = mid_fea["shortcut0_input"]
+        return feats
+
+    @torch.no_grad()
+    def decode_window(self, feats: dict, prev_pred=None, mem_feat=None) -> dict:
+        """The decoder half over the pack of one clip window (b = 1): equal to
+        the eval forward on the same frames."""
+        n_f, n_i, h, w = feats["masks"].shape
+        return self._decode(feats, 1, n_f, n_i, h, w, mem_feat, prev_pred)
+
+    @torch.no_grad()
+    def _eval_forward(self, batch: dict, mem_feat=None, prev_pred=None) -> dict:
+        b, n_f, h, w, _ = batch["image"].shape
+        return self._decode(self.encode_frames(batch), b, n_f, batch["mask"].shape[2], h, w,
+                            mem_feat, prev_pred)
+
+    def _decode(self, feats, b, n_f, n_i, h, w, mem_feat, prev_pred) -> dict:
+        mid_fea = {"shortcut": (feats.get("fea1"), feats["fea2"], feats["fea3"], feats["fea4"],
+                                feats["fea5"]),
+                   "image": feats["image"]}
+        if "inp" in feats:
+            mid_fea["shortcut0_fn"] = self.encoder.shortcut[0]
+            mid_fea["shortcut0_input"] = feats["inp"]
+        # only the video decoder takes a memory
+        mem = {} if mem_feat is None else {"mem_feat": mem_feat}
+        pred = self.decoder(feats["embedding"], mid_fea, b=b, n_f=n_f, n_i=n_i,
+                            masks=feats["masks"], **mem)
+        return self._finalize_eval(self._transform_output(pred, b, n_f, n_i, h, w), prev_pred)
+
+    def _transform_output(self, pred: dict, b, n_f, n_i, h, w) -> dict:
+        """The true instances' eval outputs as (b, n_f, n_i, H, W), and the
+        decoder's memory (``mem_*``) as it is."""
+        out = {k: pred[k][:, :n_i].reshape(b, n_f, n_i, h, w)
+               for k in _ALPHAS + ("refined_masks", "detail_mask")}
+        out.update({k: v for k, v in pred.items() if k.startswith("mem_")})
+        return out
+
+    def _finalize_eval(self, output: dict, prev_pred) -> dict:
+        """Hook for the video arch's temporal rule (``MaGGIeTemp``)."""
+        return output
 
     def compute_loss(self, pred: dict, weight_os4, weight_os1, alphas, alpha_shape) -> dict:
         """Reference ``compute_loss`` (maggie.py:268-368); ``pred`` holds the

@@ -7,7 +7,7 @@ train state's spectral u/v load too; ``flatten_collections`` makes the flat
 dict from a train state's ``params``, ``batch_stats`` and ``spectral`` trees).
 It inverts the JAX package's torch-checkpoint converter
 (``maggie_tpu/utils/convert_torch.py::Converter.maggie``, ``:270-288``) for the
-flagship config, with the port's own copy of the key map: the port's modules
+image and the video MaGGIe, with the port's own copy of the key map: the port's modules
 carry the original torch reference's ``state_dict`` names, so the map is the
 reference's. ``to_jax`` is the reverse map, for holding the port's tensors
 (parameters, their gradients, running statistics, u/v) against the JAX
@@ -149,6 +149,16 @@ class _KeyMap:
         self.conv(f"{tkey}.conv.3", f"{dst}/conv_1")
         self.bn(f"{tkey}.conv.4", f"{dst}/conv_bn1")
 
+    def video_decoder(self, tkey, dst):
+        """The video decoder's own modules (``Converter.maggie(video=True)``)."""
+        self.conv(f"{tkey}.os8_temp_module.ih.0", f"{dst}/os8_temp_module/ih_conv")
+        self.conv(f"{tkey}.os8_temp_module.hh.0", f"{dst}/os8_temp_module/hh_conv")
+        self.snconv(f"{tkey}.diff_module.0", f"{dst}/diff_module/conv1")
+        self.bn(f"{tkey}.diff_module.1", f"{dst}/diff_module/bn1")
+        self.snconv(f"{tkey}.diff_module.3", f"{dst}/diff_module/conv2")
+        self.bn(f"{tkey}.diff_module.4", f"{dst}/diff_module/bn2")
+        self.conv(f"{tkey}.diff_module.6", f"{dst}/diff_module/conv3")
+
     def sparse_decoder(self, tkey, dst, n_block):
         self.res_layer(f"{tkey}.layer1", f"{dst}/layer1", 2, enc=False)
         self.res_layer(f"{tkey}.layer2", f"{dst}/layer2", 3, enc=False)
@@ -176,12 +186,15 @@ class _KeyMap:
 
 
 def key_map(n_block: int = 2) -> list[tuple[str, str, tuple | None]]:
-    """The flagship MaGGIe map: encoder res_shortcut_embed_29, ASPP, decoder
-    res_shortcut_inst_matt_spconv_22 with ``n_block`` attention blocks."""
+    """The MaGGIe map: encoder res_shortcut_embed_29, ASPP, decoder
+    res_shortcut_inst_matt_spconv_22 with ``n_block`` attention blocks, and
+    the video decoder's ConvGRU and diff module (entries a model lacks are
+    skipped by every reader)."""
     km = _KeyMap()
     km.encoder("encoder", "encoder_mod")
     km.aspp("aspp", "aspp_mod")
     km.sparse_decoder("decoder", "decoder_mod", n_block)
+    km.video_decoder("decoder", "decoder_mod")
     return km.entries
 
 

@@ -14,8 +14,12 @@ The formulas are the JAX package's, quirks included:
 - ``dtSSD``: sqrt over (batch,frame,H,W)-summed masked temporal-derivative error per
   instance, x 0.1, masked by the PREVIOUS frame's unknown region (``metric.py:422-448``).
 
-``MESSDdt`` needs Farneback optical flow (cv2): it comes with video (ROADMAP
-item 11). Metrics accumulate (score, count); ``gather_metric`` sums them over
+- ``MESSDdt``: the per-instance flow-warped temporal error of consecutive
+  frames (``metric.py:450-531``) on ``ops/optical_flow.py``'s replica of cv2's
+  Farneback flow, with the reference's x/y swap in the warp and its gather
+  from the first frame's plane (``_torch_take``).
+
+Metrics accumulate (score, count); ``gather_metric`` sums them over
 the processes of ``torch.distributed`` when it is initialized.
 """
 
@@ -225,10 +229,82 @@ class dtSSD(Metric):
         return err / (num + 1e-10)
 
 
+class MESSDdt(Metric):
+    @staticmethod
+    def _flow(prev, curr):
+        from ..ops.optical_flow import farneback_flow
+        return farneback_flow(prev.astype(np.uint8), curr.astype(np.uint8))
+
+    def _single_video(self, pred, gt, mask):
+        pred, gt = _reshape2d(pred), _reshape2d(gt)
+        frames = [t for t in (gt * 255)]
+        flows = np.stack([self._flow(p, c) for p, c in zip(frames[:-1], frames[1:])])
+        flow = np.rint(flows).astype(np.int64)
+
+        pred_0, pred_1 = pred[:-1], pred[1:]
+        tgt_0, tgt_1 = gt[:-1], gt[1:]
+        mask_0, mask_1 = mask[:-1], mask[1:]
+        B, h, w = tgt_0.shape
+        # the reference's coordinates (metric.py:482-489): torch.meshgrid([y, x])
+        # unpacked as (xx, yy) puts the COLUMN index in channel 0, so the warp
+        # adds the flow's dx to the column but clamps it with h, and dy to the
+        # row clamped with w; the published numbers bake that swap in
+        row, col = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        coords = np.stack([col, row], axis=2)[None].repeat(B, axis=0)
+        cn = coords + flow
+        cy = np.clip(cn[..., 0], 0, h - 1)
+        cx = np.clip(cn[..., 1], 0, w - 1)
+        idx = cy * w + cx
+        pred_1 = _torch_take(pred_1, idx)
+        tgt_1 = _torch_take(tgt_1, idx)
+        mask_1 = _torch_take(mask_1, idx)
+
+        error_map = np.square(pred_0 - tgt_0) * mask_0 - np.square(pred_1 - tgt_1) * mask_1
+        error = np.abs(error_map).reshape(B, -1).sum(axis=1)
+        num = mask_0.reshape(B, -1).sum(axis=1) + 1.0
+        return error.sum() / num.sum()
+
+    def update(self, pred, gt, trimap=None, **kw):
+        if pred.ndim == 5:
+            pred, gt = pred[0], gt[0]
+            if trimap is not None and trimap.ndim == 5:
+                trimap = trimap[0]
+        if trimap is not None:
+            mask = (trimap == 1).astype("float32")
+        else:
+            mask = np.ones_like(gt, dtype="float32")
+
+        def per_instance(i):
+            # the reference swallows per-instance failures (its multiprocessing
+            # pool, metric.py:450-531): an error is printed and the instance skipped
+            try:
+                return self._single_video(pred[:, i], gt[:, i], mask[:, i])
+            except Exception as exc:
+                print(exc)
+                return None
+
+        error, count = 0.0, 0
+        for e in _parallel_map(per_instance, list(range(pred.shape[1]))):
+            if e is None:
+                continue
+            error += e * 10000
+            count += 1
+        self.score += error
+        self.count += count
+        return error / (count + 1e-8)
+
+
+def _torch_take(a: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """``torch.take(tensor (B, h, w), indices (B, h, w))``: flat offsets into the
+    WHOLE tensor. The reference builds idx = y*w + x without a batch offset, so
+    every frame gathers from frame 0's plane (metric.py:489-492)."""
+    return a.ravel()[idx.ravel()].reshape(idx.shape)
+
+
 METRICS = {
     "SAD": SAD, "MSE": MSE, "MAD": MAD,
     "MAD_fg": MAD_fg, "MAD_bg": MAD_bg, "MAD_unk": MAD_unk,
-    "Grad": Grad, "Conn": Conn, "dtSSD": dtSSD,
+    "Grad": Grad, "Conn": Conn, "dtSSD": dtSSD, "MESSDdt": MESSDdt,
 }
 
 
@@ -236,10 +312,6 @@ def build_metric(metrics: list[str]) -> dict[str, Metric]:
     """Explicit registry replacing the reference's ``eval`` (metric.py:534-546)."""
     out = {}
     for m in metrics:
-        if m == "MESSDdt":
-            raise NotImplementedError(
-                "metric MESSDdt needs Farneback optical flow, which is not ported yet: "
-                "it comes with video, ROADMAP.md queue 1 item 11")
         if m not in METRICS:
             raise NotImplementedError(f"metric {m} is not implemented")
         out[m] = METRICS[m]()

@@ -23,7 +23,7 @@ from maggie_tpu_torch.models import build_model as port_build_model
 from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
 from maggie_tpu_torch.utils.checkpoint import fold_spectral_norm
 from maggie_tpu_torch.utils.convert_jax import convert_jax
-from test_torch_harness import jax_cfg, jax_shapes, make_batch, port_cfg
+from test_torch_harness import jax_cfg, jax_shapes, make_batch, one_torch_thread, port_cfg  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

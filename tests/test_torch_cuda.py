@@ -113,6 +113,36 @@ def test_gather_kernel_rejects_what_it_does_not_take(card):
         kg.gather_patches(feat, idx.int(), idx, idx, 16, 2)
 
 
+# The video path's five K1 calls of one 3-frame window at 576x1024 with 3
+# instances (decoder_video.py through the block ladder on b * n_f = 3 frames):
+# the mask and x8 per instance and frame (N = 9), the encoder maps per frame
+# (N = 3, entries index frame = map // 3); capacity round(0.5 * 9 * 144) = 648.
+VIDEO_PATH_GATHERS = [((9, 576, 1024, 1), 64, 32, "pixel", False),
+                      ((9, 72, 128, 64), 8, 3, "pixel", False),
+                      ((3, 144, 256, 64), 16, 4, "plane", True),
+                      ((3, 288, 512, 32), 32, 2, "plane", True),
+                      ((3, 576, 1024, 6), 64, 5, "plane", True)]
+
+
+# the os1 mask is f32 in both precisions, the features follow the model
+@pytest.mark.parametrize("shape,block,halo,layout,per_frame,dtype", [
+    g + (dt,) for g in VIDEO_PATH_GATHERS
+    for dt in ((torch.float32,) if g[0][-1] == 1 else (torch.float32, torch.bfloat16))])
+def test_gather_kernel_video_path_equals_twin(card, shape, block, halo, layout, per_frame, dtype):
+    feat = _map(shape, layout, dtype, card, seed=block + 1)
+    idx = [t.to(card) for t in _indices(np.random.RandomState(block), 1, 9, 16, 648, 9)]
+    idx[0] = torch.arange(648, device=card) % 9     # every map of the window
+    if per_frame:
+        idx[0] = idx[0] // 3
+    before = kg.launches
+    out = kg.gather_patches(feat, *idx, block, halo)
+    assert kg.launches == before + 1
+    ref = kg.gather_patches_plain(feat, *idx, block, halo)
+    torch.cuda.synchronize()
+    assert out.shape == (648, block + 2 * halo, block + 2 * halo, shape[-1])
+    assert out.dtype == dtype and torch.equal(out, ref)
+
+
 def _speckled(shape, seed):
     """0/1 alphas with a sparse speckle of fractional values, and values
     exactly on the thresholds along one row and one column."""
@@ -154,6 +184,21 @@ def test_compute_unknown_kernel_equals_twin(card, k_size, shape, maps, shift):
     torch.cuda.synchronize()
     assert 0.0 < float(ref.mean()) < 1.0
     assert out.shape == ta.shape and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("k_size", [30, 27, 15])
+def test_compute_unknown_kernel_video_path_equals_twin(card, k_size):
+    """A window's three calls on its 3 frames x 3 instances of blob alphas
+    that move between frames (f32: the os8 alpha comes from f32 logits)."""
+    from maggie_tpu_torch.flagship import blob_alpha
+    frames = [blob_alpha(576, 1024, 3, np.random.RandomState(t)) for t in range(3)]
+    a = torch.from_numpy(np.stack(frames)).to(card)              # (3, 3, 576, 1024)
+    before = ku.launches
+    out = ku.compute_unknown(a, k_size)
+    assert ku.launches == before + 1
+    ref = ku.compute_unknown_plain(a, k_size)
+    torch.cuda.synchronize()
+    assert 0.0 < float(ref.mean()) < 1.0 and torch.equal(out, ref)
 
 
 def test_compute_unknown_kernel_refuses_wider_elements(card):

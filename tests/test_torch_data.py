@@ -230,9 +230,11 @@ def test_build_dataset_and_what_is_not_ported(him_root):
     assert len(build_dataset(cfg, is_train=False)) == 3
     # the train split is indexed split-first (root/<split>/images): none here
     assert len(HIMDataset(him_root, "natural", is_train=True)) == 0
-    cfg.dataset.test.name = "VIM"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_dataset(cfg, is_train=False)
+    # the VIM eval set is ported (tests/test_torch_video_engine.py); its train
+    # branch is item 11b
+    cfg.dataset.train.name = "VIM"
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        build_dataset(cfg, is_train=True)
 
 
 def test_device_tail_bit_equal_to_jax_at_ratio_1():

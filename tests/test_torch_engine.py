@@ -32,7 +32,7 @@ from maggie_tpu.config import load_config as jax_load_config
 from maggie_tpu_torch.config import load_config
 from maggie_tpu_torch.models import build_model
 from maggie_tpu_torch.utils.convert_jax import convert_jax
-from test_torch_harness import ATTEN, FINAL, build_pair, jax_cfg
+from test_torch_harness import ATTEN, FINAL, build_pair, jax_cfg, one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "maggie_image.yaml")
@@ -227,5 +227,5 @@ def test_entry_points_run_on_cuda_unless_asked(him_root):
         from_pretrained("", config=cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--config", CONFIG])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_engine.eval_video()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--config", os.path.join(REPO, "configs", "maggie_video.yaml"), "--eval-only"])

@@ -10,6 +10,7 @@ to the port. The helpers are imported by the other ``test_torch_*`` files.
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 import torch
@@ -23,6 +24,19 @@ from maggie_tpu_torch.utils.convert_jax import convert_jax
 
 # Reduced dims of the CPU tests (the dryrun's, __graft_entry__.py:129).
 ATTEN, FINAL = 32, 32
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread while a module's tests run (autouse where a
+    module imports it). The suite runs in several worker processes, and
+    torch's default of one OpenMP thread per core in each of them
+    oversubscribes the host: 6 port test files took 413 s in 6 workers with
+    the default and 52 s with one thread each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_cfg(atten=ATTEN, final=FINAL, sparse_mode="block", cap_frac=0.5):

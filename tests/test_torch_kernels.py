@@ -22,6 +22,7 @@ from maggie_tpu.ops.pallas.unknown import compute_unknown_pallas
 from maggie_tpu_torch.ops import blocksparse as tbs
 from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
 from maggie_tpu_torch.ops.morphology import _ellipse_row_runs, ellipse_kernel
+from test_torch_harness import one_torch_thread  # noqa: F401
 
 
 def _indices(rs, n, nby, nbx, cap, n_i=1):

@@ -18,8 +18,8 @@ import torch
 from maggie_tpu.models import build_model as jax_build_model
 from maggie_tpu_torch.models import build_model as port_build_model
 from maggie_tpu_torch.ops.morphology import LOWER_THRES, UPPER_THRES
-from test_torch_harness import (build_pair, jax_cfg, jax_shapes, jax_variables, make_batch,
-                                port_cfg, port_from_flat, random_flat)
+from test_torch_harness import (build_pair, jax_cfg, jax_shapes, jax_variables, make_batch,  # noqa: F401
+                                one_torch_thread, port_cfg, port_from_flat, random_flat)
 
 ATOL = 1e-5
 KEYS = ("refined_masks", "alpha_os1", "alpha_os4", "alpha_os8")

@@ -17,8 +17,8 @@ from maggie_tpu.models import attention as jatt, layers as jlayers, sparse_layer
 from maggie_tpu.models import build_model as jax_build_model
 from maggie_tpu_torch.models import attention as tatt, layers as tlayers, sparse_layers as tsp
 from maggie_tpu_torch.utils.checkpoint import fold_spectral_norm
-from test_torch_harness import (jax_cfg, jax_shapes, jax_variables, port_cfg, port_from_flat,
-                                random_flat)
+from test_torch_harness import (jax_cfg, jax_shapes, jax_variables, one_torch_thread,  # noqa: F401
+                                port_cfg, port_from_flat, random_flat)
 
 ATOL = 1e-5
 
@@ -161,7 +161,8 @@ def test_instance_matte_decoder(models):
     out = _apply(jm, jv, lambda m, z, k: m.decoder.refine_OS8(z, k), jnp.asarray(z),
                  jnp.asarray(masks5))
     with torch.inference_mode():
-        logits, feat, tk, _ = tm.decoder.refine_OS8(nchw(z), torch.from_numpy(masks5))
+        logits, feat, tk, _, hidden = tm.decoder.refine_OS8(nchw(z), torch.from_numpy(masks5))
+    assert hidden is None and out[4] is None
     assert logits.shape == (1, 10, 8, 12) and logits.dtype == torch.float32
     close(logits.numpy(), out[0], msg="instance logits")
     close(to_nhwc(feat), out[1], msg="smoothed features")

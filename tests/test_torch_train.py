@@ -62,7 +62,7 @@ from maggie_tpu_torch.models import sparse_layers as tsparse
 from maggie_tpu_torch.ops.resize import resize_any_shape
 from maggie_tpu_torch.models import build_model as port_build_model
 from maggie_tpu_torch.utils.convert_jax import convert_jax, flatten_collections, to_jax
-from test_torch_harness import jax_cfg, jax_shapes, jax_variables, random_flat
+from test_torch_harness import jax_cfg, jax_shapes, jax_variables, one_torch_thread, random_flat  # noqa: F401
 
 LOSS_RTOL = 1e-5
 GRAD_REL_L2 = 5e-2

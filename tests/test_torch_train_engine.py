@@ -48,6 +48,7 @@ from maggie_tpu.data.him import HIMDataset as JaxHIM
 from maggie_tpu.data.loader import DataLoader as JaxLoader
 from maggie_tpu_torch.engine.infeed import DeviceInfeed
 from maggie_tpu_torch.main import main
+from test_torch_harness import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "maggie_image.yaml")
