@@ -4,13 +4,15 @@
     python3 chip_smoke.py --outputs PATH [--against REF]
     python3 chip_smoke.py --gather-bwd
     python3 chip_smoke.py --video
+    python3 chip_smoke.py --video-train
 
 The second form only answers requests 0 and 1 in f32 and bf16 and saves the
 outputs to PATH; with REF, saved by the same form from another version, it
 exits non-zero unless every output is equal bit for bit. The third runs only
 K1's backward: its checks of phase 2 and its timing of phase 6.3 (run it in a
 copy of another version to compare the two in one call). The fourth runs the
-video path only: phase 2's video shapes and phase 8.
+video path only: phase 2's video shapes and phase 8. The fifth runs video
+training only: phase 2's video train shapes and phase 9.
 
 Phases (any failure exits non-zero):
 1. print the card's name and power limit; build the CUDA kernels from the
@@ -91,9 +93,29 @@ Phases (any failure exits non-zero):
    results.csv; prints frames/s with metrics on, the forward / loader / host
    split per window and MESSDdt's host seconds.
    Phase 2 holds K1 and K2 at the video path's shapes too.
+9. video training (``configs/maggie_video.yaml`` in train mode, with the
+   earlier phases' models freed): one f32 ``make_train_step`` step of the
+   full-width video model on the card against the same step on the CPU port
+   at batch 1 x clip 3 x 256x256 (phase 6's limits); TRAIN_STEPS steps at
+   batch 1 x clip 8 x 512x512 (the yaml's clip and crop, 10 slots, AdamW,
+   cosine, clip 0.01) in f32 and bf16, with ms/step, peak memory,
+   10 K1, 6 K1-backward and 1 K2 launches per step, the temporal losses
+   finite, the kernels' device time and busy share over 2 steps
+   (torch.profiler) and any cuDNN FFT time; K1's backward per call at the
+   video train shapes (cap 2560); then ``main.main`` training the yaml at
+   full width (batch 1) on a synthetic V-HIM-style train split written with
+   PIL (2 videos of 16 frames at 720x1280, 3 moving instances) for 8
+   iterations, validating every 4 through ``eval_video`` on a 4-frame VIM
+   video from phase 8's writer, in f32: launches per iteration and per val
+   window, finite losses, clips/s, ms per iteration against 9.2's
+   step, ``data_time``, the stall share, peak memory and the host cost of a
+   clip by transform. Phase 2 holds K1, its backward and K2 bit for bit at
+   the video train shapes (N = 80 maps, cap 2560) too.
 
 Prints a ``{"kernels": [...]}`` line and the card line, and last
-``{"ok": true, "device": {...}}``. Details go to output/torch_port/chip_smoke.json.
+``{"ok": true, "device": {...}}``. Details go to output/torch_port/chip_smoke.json
+(``chip_smoke_video.json`` and ``chip_smoke_video_train.json`` for ``--video`` and
+``--video-train``).
 """
 
 from __future__ import annotations
@@ -160,6 +182,15 @@ TRAIN_GATHER_CALLS = (
     ("fea1", (2, 512, 512, 32), 64, 3, True, "plane", True),
 )
 TRAIN_STEPS = 5
+# The video train step's K1 calls (phase 9: configs/maggie_video.yaml, batch 1
+# x clip 8 at 512x512, 10 slots, so N = 80 instance maps on the 8x8 grid of
+# os1 blocks and 8 frames of encoder maps): TRAIN_GATHER_CALLS' sites at
+# these maps, cap round(0.5 * 80 maps * 64 blocks) = 2560.
+VIDEO_TRAIN_CLIP, VIDEO_TRAIN_CAP = 8, 2560
+VIDEO_TRAIN_GATHER_CALLS = tuple(
+    (name, ((VIDEO_TRAIN_CLIP * TRAIN_SLOTS) if not per_image else VIDEO_TRAIN_CLIP,) + shape[1:],
+     block, halo, per_image, layout, grad)
+    for name, shape, block, halo, per_image, layout, grad in TRAIN_GATHER_CALLS)
 # K1 backward's edges beyond the train calls: (name, map (N, H, W, C), block,
 # halo, layout, cap, entries, offset of g in elements). Entries: "random" tiles
 # with repeats over the whole grid, edge tiles included; "tile0", every entry on
@@ -288,29 +319,29 @@ def sample_indices(shape, block, per_image, dev, rs, cap=CAP, maps=N_INST):
     return [torch.from_numpy(a.astype(np.int64)).to(dev) for a in (idx_n, by, bx)]
 
 
-def train_indices(shape, block, per_image, dev, rs):
-    """TRAIN_CAP entries over the train maps' 8x8 block grid, as select_blocks
+def train_indices(shape, block, per_image, dev, rs, cap=TRAIN_CAP):
+    """``cap`` entries over the train maps' 8x8 block grid, as select_blocks
     gives them: distinct (map, by, bx) tiles in random order; per-image calls
     index with n // TRAIN_SLOTS (up to 10 entries per tile). A map with fewer
-    tiles than TRAIN_CAP gets them all, then entries repeating tile 0, as
+    tiles than ``cap`` gets them all, then entries repeating tile 0, as
     select_blocks pads a capacity past the tile count."""
     nb = TRAIN_HW // 64
     assert shape[1] // block == nb and shape[2] // block == nb, (shape, block)
     maps = shape[0] * (TRAIN_SLOTS if per_image else 1)
-    tiles = rs.permutation(maps * nb * nb)[:TRAIN_CAP]
-    tiles = np.concatenate([tiles, np.zeros(TRAIN_CAP - len(tiles), np.int64)])
+    tiles = rs.permutation(maps * nb * nb)[:cap]
+    tiles = np.concatenate([tiles, np.zeros(cap - len(tiles), np.int64)])
     idx_n = tiles // (nb * nb) // (TRAIN_SLOTS if per_image else 1)
     rem = tiles % (nb * nb)
     return [torch.from_numpy(a.astype(np.int64)).to(dev) for a in (idx_n, rem // nb, rem % nb)]
 
 
-def train_gather_cases():
+def train_gather_cases(calls=TRAIN_GATHER_CALLS, overflow=True):
     """(name, shape, block, halo, per_image, layout, differentiable) at every
-    train call; each differentiable per-instance call also on an 8-map copy,
-    whose 512 tiles the 640 entries overflow."""
-    for name, shape, block, halo, per_image, layout, grad in TRAIN_GATHER_CALLS:
+    train call; with ``overflow`` each differentiable per-instance call also
+    on an 8-map copy, whose 512 tiles the 640 entries overflow."""
+    for name, shape, block, halo, per_image, layout, grad in calls:
         yield name, shape, block, halo, per_image, layout, grad
-        if grad and not per_image:
+        if overflow and grad and not per_image:
             yield name + "_overflow", (8,) + shape[1:], block, halo, per_image, layout, grad
 
 
@@ -397,31 +428,36 @@ def check_video_gathers(dev, rs, out, worst) -> None:
                                   "layout": layout, "out": list(got.shape), "equal": True})
 
 
-def check_train_gathers(dev, rs, out, worst) -> None:
+def check_train_gathers(dev, rs, out, worst, video=False) -> None:
     """The train path: K1's forward at every train call, and its backward (bit
     for bit: the twin sums in the kernel's order) at every differentiable one,
-    with the twin's strides. Appends to ``out`` and ``worst``."""
+    with the twin's strides; with ``video``, the video train step's calls
+    (VIDEO_TRAIN_GATHER_CALLS, cap VIDEO_TRAIN_CAP). Appends to ``out`` and
+    ``worst``."""
     from maggie_tpu_torch.ops.kernels import gather as kg
     out.setdefault("gather", [])
-    out["gather_bwd"] = []
-    worst["gather_bwd"] = 0.0
+    out.setdefault("gather_bwd", [])
+    worst.setdefault("gather_bwd", 0.0)
     gen = torch.Generator(device=dev).manual_seed(1)
-    for name, shape, block, halo, per_image, layout, grad in train_gather_cases():
-        idx = train_indices(shape, block, per_image, dev, rs)
+    cases = (train_gather_cases(VIDEO_TRAIN_GATHER_CALLS, overflow=False) if video
+             else train_gather_cases())
+    cap, tag = (VIDEO_TRAIN_CAP, "video_train_") if video else (TRAIN_CAP, "train_")
+    for name, shape, block, halo, per_image, layout, grad in cases:
+        idx = train_indices(shape, block, per_image, dev, rs, cap)
         for dt in gather_dtypes(shape):
             feat = gather_map(shape, layout, dt, dev)
             got = kg.gather_patches(feat, *idx, block, halo)
             ref = kg.gather_patches_plain(feat, *idx, block, halo)
             torch.cuda.synchronize()
             if not torch.equal(got, ref):
-                fail(f"gather train {name} {dt}: kernel != plain twin "
+                fail(f"gather {tag}{name} {dt}: kernel != plain twin "
                      f"(max |diff| {float((got.float() - ref.float()).abs().max())})")
-            out["gather"].append({"call": "train_" + name, "dtype": str(dt), "shape": list(shape),
+            out["gather"].append({"call": tag + name, "dtype": str(dt), "shape": list(shape),
                                   "layout": layout, "out": list(got.shape), "equal": True})
             if not grad:
                 continue
             g = torch.randn(got.shape, device=dev, generator=gen).to(dt)
-            check_bwd(name, g, idx, shape, block, halo, layout, out, worst)
+            check_bwd(tag + name, g, idx, shape, block, halo, layout, out, worst)
             out["gather_bwd"][-1]["per_image"] = per_image
 
 
@@ -481,6 +517,14 @@ def check_video_unknown(dev, out, worst) -> None:
         check_unknown(alphas, k, "video", out, worst)
 
 
+def check_video_train_unknown(dev, out, worst) -> None:
+    """K2's one call of a video train step, k=30 on the clip's f32 os8 alphas
+    (8 frames x 10 slots at 512x512, 3 of them moving discs)."""
+    a = np.zeros((VIDEO_TRAIN_CLIP, TRAIN_SLOTS, TRAIN_HW, TRAIN_HW), np.float32)
+    a[:, :N_INST] = video_alphas(VIDEO_TRAIN_CLIP, TRAIN_HW, TRAIN_HW)[0]
+    check_unknown(torch.from_numpy(a).to(dev), 30, "video_train", out, worst)
+
+
 def phase_kernels(dev, detail) -> dict:
     from maggie_tpu_torch.flagship import blob_alpha
     from maggie_tpu_torch.ops.kernels import gather as kg
@@ -503,9 +547,11 @@ def phase_kernels(dev, detail) -> dict:
 
     check_video_gathers(dev, rs, out, worst)
     check_train_gathers(dev, rs, out, worst)
+    check_train_gathers(dev, rs, out, worst, video=True)
     check_bwd_edges(dev, out, worst)
 
     check_video_unknown(dev, out, worst)
+    check_video_train_unknown(dev, out, worst)
     for k in UNKNOWN_K:
         for seed in range(2):
             rr = np.random.RandomState(seed)
@@ -587,6 +633,7 @@ def forward_outputs(path: str, against: str | None) -> int:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
     if "--outputs" in sys.argv:
@@ -595,6 +642,8 @@ def main() -> int:
         return forward_outputs(args[args.index("--outputs") + 1], against)
     if "--video" in sys.argv:
         return video_only(torch.device("cuda"))
+    if "--video-train" in sys.argv:
+        return video_train_only(torch.device("cuda"))
     if "--gather-bwd" in sys.argv:
         print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                          "--format=csv,noheader"], capture_output=True,
@@ -743,6 +792,17 @@ def main() -> int:
         kern["video_launches"] = video["model"]["launches"][kern["name"]]
         kern["video_engine_launches"] = video["engine"]["launches"][kern["name"]]
 
+    # ---- phase 9: video training, with the earlier phases' models freed ----
+    del cpu_model, model, bf16_model, on_dev, outs, cpu_out, bf_out, batch
+    torch.cuda.empty_cache()
+    video_train = phase_video_train(dev, detail)
+    for kern in kernels:
+        kern["video_train_launches"] = video_train["steps"][kern["name"]]
+        kern["video_trainer_launches"] = video_train["trainer"][kern["name"]]
+
+    detail["phases_s"] = time.perf_counter() - t_start
+    print(f"phases 1-9 done in {detail['phases_s']:.1f} s (from main(), imports not counted)",
+          flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1)
@@ -953,9 +1013,10 @@ def trainer_run(args: list, record: dict, keep_start: bool = False) -> dict:
     import maggie_tpu_torch.utils.checkpoint as ck
     from maggie_tpu_torch import main as cli
     steps, vals, start = [], [], {}
-    make, evaluate, save_npz, metrics = (tr.make_train_step, tr.eval_image,
-                                         ck.save_variables_npz, eng.compute_metrics)
-    frames = []
+    make, evaluate, evaluate_video, save_npz, metrics = (
+        tr.make_train_step, tr.eval_image, tr.eval_video, ck.save_variables_npz,
+        eng.compute_metrics)
+    frames = []   # one entry a scored frame (eval_image) or window (eval_video)
 
     def counted_make(model, optimizer, schedule):
         step = make(model, optimizer, schedule)
@@ -972,12 +1033,14 @@ def trainer_run(args: list, record: dict, keep_start: bool = False) -> dict:
             return out
         return counted
 
-    def counted_eval(*a, **kw):
-        before, n0 = kernel_counts(), len(frames)
-        out = evaluate(*a, **kw)
-        vals.append({"frames": len(frames) - n0,
-                     **{k: v - before[k] for k, v in kernel_counts().items()}})
-        return out
+    def counting(fn):
+        def counted_eval(*a, **kw):
+            before, n0 = kernel_counts(), len(frames)
+            out = fn(*a, **kw)
+            vals.append({"frames": len(frames) - n0,
+                         **{k: v - before[k] for k, v in kernel_counts().items()}})
+            return out
+        return counted_eval
 
     def counted_metrics(*a, **kw):
         frames.append(1)
@@ -986,8 +1049,9 @@ def trainer_run(args: list, record: dict, keep_start: bool = False) -> dict:
     def keep_best(path, model):
         record["best_model"] = copy.deepcopy(model).eval()
         save_npz(path, model)
-    tr.make_train_step, tr.eval_image, ck.save_variables_npz, eng.compute_metrics = (
-        counted_make, counted_eval, keep_best, counted_metrics)
+    tr.make_train_step, tr.eval_image, tr.eval_video = (
+        counted_make, counting(evaluate), counting(evaluate_video))
+    ck.save_variables_npz, eng.compute_metrics = keep_best, counted_metrics
     try:
         torch.cuda.synchronize()
         before = kernel_counts()
@@ -997,15 +1061,17 @@ def trainer_run(args: list, record: dict, keep_start: bool = False) -> dict:
         wall = time.perf_counter() - t0
         launches = {k: v - before[k] for k, v in kernel_counts().items()}
     finally:
-        tr.make_train_step, tr.eval_image, ck.save_variables_npz, eng.compute_metrics = (
-            make, evaluate, save_npz, metrics)
+        tr.make_train_step, tr.eval_image, tr.eval_video = make, evaluate, evaluate_video
+        ck.save_variables_npz, eng.compute_metrics = save_npz, metrics
     return {"state_step": state.step, "wall_s": wall, "steps": steps, "vals": vals,
             "launches": launches, "start": start}
 
 
 def check_trainer_run(name: str, run: dict, out_dir: str, n_steps: int, n_vals: int,
-                      log_iter: int = 1, files=CKPT_FILES, first_iter: int = 0) -> dict:
-    """Launches per iteration and per val frame, the run's own logged
+                      log_iter: int = 1, files=CKPT_FILES, first_iter: int = 0,
+                      per_val=PER_VAL_FRAME, val_units: int = TRAINER_VAL_FRAMES) -> dict:
+    """Launches per iteration and per val unit (``val_units`` frames, or
+    windows of a video set, each launching ``per_val``), the run's own logged
     iterations (those after ``first_iter``, where it started) with finite
     losses, the files; returns the run's meters and log numbers."""
     if len(run["steps"]) != n_steps or len(run["vals"]) != n_vals:
@@ -1015,12 +1081,11 @@ def check_trainer_run(name: str, run: dict, out_dir: str, n_steps: int, n_vals: 
         if c != PER_ITER:
             fail(f"trainer {name}: iteration {i + 1} launched {c}, not {PER_ITER}")
     for v in run["vals"]:
-        want = {k: n * v["frames"] for k, n in PER_VAL_FRAME.items()}
-        if v["frames"] != TRAINER_VAL_FRAMES or {k: v[k] for k in want} != want:
-            fail(f"trainer {name}: a validation launched {v}, not {PER_VAL_FRAME} per frame "
-                 f"over {TRAINER_VAL_FRAMES} frames")
-    total = {k: n_steps * PER_ITER[k] + n_vals * TRAINER_VAL_FRAMES * PER_VAL_FRAME[k]
-             for k in PER_ITER}
+        want = {k: n * v["frames"] for k, n in per_val.items()}
+        if v["frames"] != val_units or {k: v[k] for k in want} != want:
+            fail(f"trainer {name}: a validation launched {v}, not {per_val} per unit "
+                 f"over {val_units} units")
+    total = {k: n_steps * PER_ITER[k] + n_vals * val_units * per_val[k] for k in PER_ITER}
     if run["launches"] != total:
         fail(f"trainer {name}: launches {run['launches']} != {total}")
     with open(os.path.join(out_dir, "log_rank0.log")) as f:
@@ -1046,13 +1111,19 @@ def check_trainer_run(name: str, run: dict, out_dir: str, n_steps: int, n_vals: 
             "val_launches": run["vals"], "iterations": n_steps}
 
 
-def host_cost_by_transform(cfg) -> dict:
-    """Host ms of one train sample by transform, mean over the train frames
-    (each drawn once), with the transition band and the rest of the sample;
-    only this thread's calls count."""
+def host_cost_by_transform(cfg, samples: int = 0) -> dict:
+    """Host ms of one train sample by transform, mean over the train samples
+    (each drawn once; with ``samples``, about that many spread over the set),
+    with the transition band and the rest of the sample; only this thread's
+    calls count."""
     from maggie_tpu_torch.data import build_dataset
     import maggie_tpu_torch.data.him as him
+    import maggie_tpu_torch.data.vim as vim
     ds = build_dataset(cfg, is_train=True, random_seed=0)
+    # the transition band: HIM's ellipse band, VIM's dilated change map
+    mod, band = (vim, "gen_diff_mask") if cfg.dataset.train.name == "VIM" else \
+        (him, "gen_transition_gt")
+    indices = range(0, len(ds), max(1, len(ds) // samples)) if samples else range(len(ds))
     ms: dict[str, float] = {}
 
     me = threading.get_ident()
@@ -1066,18 +1137,18 @@ def host_cost_by_transform(cfg) -> dict:
             return out
         return call
     ds.transforms.transforms = [timed(type(t).__name__, t) for t in ds.transforms.transforms]
-    transition = him.gen_transition_gt
-    him.gen_transition_gt = timed("transition_gt", transition)
+    transition = getattr(mod, band)
+    setattr(mod, band, timed("transition_gt", transition))
     try:
         t0 = time.perf_counter()
-        for i in range(len(ds)):
+        for i in indices:
             ds[i]
         total = (time.perf_counter() - t0) * 1e3
     finally:
-        him.gen_transition_gt = transition
-    out = {k: v / len(ds) for k, v in ms.items()}
-    out["rest"] = total / len(ds) - sum(out.values())
-    out["total"] = total / len(ds)
+        setattr(mod, band, transition)
+    out = {k: v / len(indices) for k, v in ms.items()}
+    out["rest"] = total / len(indices) - sum(out.values())
+    out["total"] = total / len(indices)
     return out
 
 
@@ -1326,7 +1397,8 @@ def compare_steps(a: dict, b: dict) -> dict:
     den = sum(float((g.double() ** 2).sum()) for g in b["grads"].values())
     d = {k: (a["params"][k] - v).abs() for k, v in b["params"].items()}
     n_far = sum(int((v > 1e-6).sum()) for v in d.values())
-    out = {"loss_max_rel": loss, "grad_rel_l2": (num / den) ** 0.5,
+    out = {"loss_max_rel": loss,
+           "grad_rel_l2": (num / den) ** 0.5,
            "param_max_abs": max(float(v.max()) for v in d.values()),
            "param_far_share": n_far / sum(v.numel() for v in d.values()),
            "batch_stats_max_abs": max(float((a["batch_stats"][k] - v).abs().max())
@@ -1420,18 +1492,23 @@ def step_kernel_split(step, state, batch, gen, step_ms: float) -> dict:
     counts = lambda: {"gather_patches": kg.launches, "gather_patches_bwd": kg.bwd_launches,
                       "compute_unknown": ku.launches}
     before = counts()
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         for _ in range(2):
             step(state, batch, gen, **TRAIN_FLAGS)
         torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in counts().items()}
     split = dict.fromkeys(KERNEL_NAMES, 0.0)
-    total = 0.0
+    total = fft = 0.0
+    rows = []
     for e in prof.key_averages():
         if e.key.startswith(("aten::", "cuda")):
             continue
         us = device_us(e)
         total += us
+        if us > 0:
+            rows.append((e.key, us / 1e3 / 2, e.count // 2))
+        if "fft" in e.key.lower():
+            fft += us
         for k, subs in KERNEL_NAMES.items():
             if any(sub in e.key for sub in subs):
                 split[k] += us
@@ -1439,9 +1516,20 @@ def step_kernel_split(step, state, batch, gen, step_ms: float) -> dict:
         if n and split[k] <= 0.0:
             fail(f"profiled train steps: {k} launched {n} times but no device time was found "
                  f"under {KERNEL_NAMES[k]}")
+    fft_ops: dict[str, float] = {}    # cuDNN FFT time by the op that launched it
+    for e in prof.events():
+        for k in getattr(e, "kernels", ()):
+            if "fft" in k.name.lower():
+                op = f"{e.name} {e.input_shapes[:3]}"
+                fft_ops[op] = fft_ops.get(op, 0.0) + k.duration / 1e3 / 2
     kernel_ms = total / 1e3 / 2
+    rows.sort(key=lambda r: -r[1])
     return {"kernel_ms_per_step": kernel_ms, "busy_share": kernel_ms / step_ms,
-            "ported_kernels_ms_per_step": {k: v / 1e3 / 2 for k, v in split.items()}}
+            "ported_kernels_ms_per_step": {k: v / 1e3 / 2 for k, v in split.items()},
+            "fft_ms_per_step": fft / 1e3 / 2,
+            "fft_ms_per_step_by_op": dict(sorted(fft_ops.items(), key=lambda r: -r[1])[:8]),
+            "top_kernels_per_step": [{"name": n[:90], "ms": ms, "calls": c}
+                                     for n, ms, c in rows[:6]]}
 
 
 def bwd_split_ms(fn, reps: int = 10) -> dict:
@@ -1469,8 +1557,9 @@ def bwd_split_ms(fn, reps: int = 10) -> dict:
     return {k: us[k] / 1e3 / count[k] for k in names}
 
 
-def time_gather_bwd(dev, detail) -> dict:
-    """Phase 6.3: K1's backward per call at the train shapes, f32 and bf16, by
+def time_gather_bwd(dev, detail, video=False) -> dict:
+    """Phase 6.3 (with ``video``, 9.2's): K1's backward per call at the train
+    shapes (the video train step's), f32 and bf16, by
     CUDA-graph replay, split into its index pass and pull (device time by
     name, torch.profiler over eager calls), beside its byte bound (each
     window's in-map part of g read, dfeat written, indices read, over the HBM
@@ -1483,18 +1572,20 @@ def time_gather_bwd(dev, detail) -> dict:
     rs = np.random.RandomState(13)
     keys = ("ms", "index_ms", "pull_ms", "plain_ms", "library_ms", "bound_ms")
     res = {"calls": [], "fp32": dict.fromkeys(keys, 0.0), "bf16": dict.fromkeys(keys, 0.0)}
-    for name, shape, block, halo, per_image, layout, grad in TRAIN_GATHER_CALLS:
+    calls, cap = ((VIDEO_TRAIN_GATHER_CALLS, VIDEO_TRAIN_CAP) if video
+                  else (TRAIN_GATHER_CALLS, TRAIN_CAP))
+    for name, shape, block, halo, per_image, layout, grad in calls:
         if not grad:
             continue
         n, h, w, c = shape
-        idx = train_indices(shape, block, per_image, dev, rs)
+        idx = train_indices(shape, block, per_image, dev, rs, cap)
         size = block + 2 * halo
         ar = torch.arange(size, device=dev)
         ii = (idx[0][:, None, None], ((idx[1] * block)[:, None] + ar)[:, :, None],
               ((idx[2] * block)[:, None] + ar)[:, None, :])
         plane = layout == "plane"
         for frame, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-            g = torch.randn((TRAIN_CAP, size, size, c), device=dev).to(dt)
+            g = torch.randn((cap, size, size, c), device=dev).to(dt)
             padded = torch.zeros((n, h + 2 * halo, w + 2 * halo, c), dtype=dt, device=dev)
 
             def library():
@@ -1507,12 +1598,12 @@ def time_gather_bwd(dev, detail) -> dict:
                        g, *idx, shape, block, halo, plane), iters=3, warmup=1),
                    "library_ms": cuda_ms(library, iters=5, warmup=1)}
             row["bytes"] = (window_bytes(shape, *idx, block, halo, g.element_size())
-                            + n * h * w * c * g.element_size() + 3 * TRAIN_CAP * 8)
+                            + n * h * w * c * g.element_size() + 3 * cap * 8)
             row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
             res["calls"].append(row)
             for k in keys:
                 res[frame][k] += row[k]
-    detail["gather_bwd_times_per_step"] = res
+    detail["video_train_gather_bwd_times_per_step" if video else "gather_bwd_times_per_step"] = res
     return res
 
 
@@ -2054,13 +2145,14 @@ def video_only(dev) -> int:
     return 0
 
 
-def video_set(root: str) -> None:
+def video_set(root: str, videos=VIDEO_SET) -> None:
     """Write a VIM eval set with PIL: ``root/chip/fgr/<video>/<frame>.jpg``,
-    ``root/chip/{pha,xmem}/<video>/<frame>/<instance>.png``: VIDEO_SET's videos
-    at 720x1280, 3 moving blob instances, the masks the alphas binarized."""
+    ``root/chip/{pha,xmem}/<video>/<frame>/<instance>.png``: ``videos`` (name,
+    frames) at 720x1280, 3 moving blob instances, the masks the alphas
+    binarized."""
     from PIL import Image
     h, w = VIDEO_SRC
-    for v, (name, n_f) in enumerate(VIDEO_SET):
+    for v, (name, n_f) in enumerate(videos):
         alpha = video_alphas(n_f, h, w, seed=40 + v)[0]
         rs = np.random.RandomState(50 + v)
         for t in range(n_f):
@@ -2169,6 +2261,244 @@ def phase_video_engine(detail) -> dict:
           f"{out['peak_mem_bytes']} bytes; launches {out['launches']}; metrics "
           + ", ".join(f"{k} {results[k]:.6g}" for k in want), flush=True)
     return out
+
+
+# ---------------------------------------------------------------- phase 9
+# video training: configs/maggie_video.yaml (MaGGIe_Temp, bi_fusion) in train
+# mode through make_train_step, then the trainer through the CLI validating
+# through eval_video
+VIDEO_REDUCED = (3, 256)      # 9.1: batch 1 x clip 3 x 256x256, 10 slots
+VIDEO_TRAIN_SET = (("v0", 16), ("v1", 16))   # 9.3's train videos at VIDEO_SRC
+VIDEO_TRAINER_ITERS, VIDEO_TRAINER_VAL_ITER = 8, 4
+VIDEO_TRAINER_VAL_SET = (("vid0", 4),)      # phase 8's writer: 2 windows a validation
+PER_VAL_WINDOW = {"gather_patches": 5, "gather_patches_bwd": 0, "compute_unknown": 3}
+
+def video_train_batch(n_f: int, hw: int, seed: int = 0) -> dict:
+    """One train clip (batch 1) of ``n_f`` frames at ``hw`` x ``hw`` in
+    TRAIN_SLOTS slots: uniform frames; in slots 0-2 soft discs moving 4 px
+    right and 2 down a frame (``video_alphas``); masks the alphas above 0.5
+    at full size, as the VIM train set gives them; the transition GT ones on
+    frame 0 and, after it, where any instance's alpha changed by more than
+    5/255 since the frame before (the VIM set's change map, undilated)."""
+    alpha = np.zeros((1, n_f, TRAIN_SLOTS, hw, hw), np.float32)
+    alpha[:, :, :N_INST] = video_alphas(n_f, hw, hw, seed=seed)
+    changed = (np.abs(alpha[:, 1:] - alpha[:, :-1]) > 5 / 255).any(axis=2, keepdims=True)
+    trans = np.concatenate([np.ones_like(changed[:, :1]), changed], axis=1)
+    rs = np.random.RandomState(seed + 1)
+    batch = {"image": rs.rand(1, n_f, hw, hw, 3), "mask": alpha > 0.5, "alpha": alpha,
+             "transition": np.broadcast_to(trans, alpha.shape)}
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+            for k, v in batch.items()}
+
+
+def video_train_cfg(precision: str = "fp32"):
+    from maggie_tpu_torch.config import load_config
+    cfg = load_config(VIDEO_CONFIG)
+    cfg.model.precision = precision
+    return cfg
+
+
+def video_card_vs_cpu_step(dev) -> dict:
+    """9.1: one f32 step of the full-width video model (seed 0) on the card
+    and on the CPU (plain twins) on the same reduced clip, the random draws
+    from CPU generators of one seed on both sides; phase 6's STEP_* limits."""
+    from maggie_tpu_torch.models import build_model
+    cfg = video_train_cfg()
+    cpu_model = build_model(cfg.model, device="cpu", generator=torch.Generator().manual_seed(0))
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    n_f, hw = VIDEO_REDUCED
+    batch = video_train_batch(n_f, hw, seed=1)
+    t0 = time.perf_counter()
+    cpu = one_step(cpu_model, batch, torch.Generator().manual_seed(3), cfg)
+    cpu_s = time.perf_counter() - t0
+    card = one_step(card_model, {k: v.to(dev) for k, v in batch.items()},
+                    torch.Generator().manual_seed(3), cfg)
+    out = compare_steps(card, cpu)
+    out.update(cpu_step_s=cpu_s, size=f"batch 1 x clip {n_f}, {hw}x{hw}, {TRAIN_SLOTS} slots",
+               losses_card=card["losses"], losses_cpu=cpu["losses"])
+    return out
+
+
+def video_train_run(dev, precision: str) -> dict:
+    """9.2: TRAIN_STEPS full-width video steps at batch 1 x clip
+    VIDEO_TRAIN_CLIP x 512x512 from seed 0: losses, ms/step (CUDA events around each step,
+    median of the steps after the first), peak device memory, launches per
+    step, and the kernels' device time over 2 more steps (torch.profiler)."""
+    from maggie_tpu_torch.engine.optim import build_optimizer
+    from maggie_tpu_torch.engine.train_step import TrainState, make_train_step
+    from maggie_tpu_torch.models import build_model
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+    cfg = video_train_cfg(precision)
+    model = build_model(cfg.model, device=dev, generator=torch.Generator().manual_seed(0)).train()
+    opt, schedule = build_optimizer(cfg, model.parameters())
+    state, step = TrainState(model, opt), make_train_step(model, opt, schedule)
+    batch = {k: v.to(dev) for k, v in video_train_batch(VIDEO_TRAIN_CLIP, TRAIN_HW, seed=0).items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kg.launches = kg.bwd_launches = ku.launches = 0
+    ms, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ld = step(state, batch, gen, **TRAIN_FLAGS)
+        end.record()
+        losses.append({k: float(v) for k, v in ld.items()})
+        ms.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    out = {"precision": precision, "clip": VIDEO_TRAIN_CLIP, "ms_per_step_median": float(np.median(ms[1:])),
+           "ms_per_step": ms, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "card_total_bytes": torch.cuda.get_device_properties(dev).total_memory,
+           "losses": losses, "launches": launches,
+           "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()}}
+    if not all(np.isfinite(v) for ld in losses for v in ld.values()):
+        fail(f"video train {precision}: non-finite losses {losses}")
+    if not {"loss_temp", "loss_temp_bce", "loss_temp_dtssd"} <= set(losses[0]):
+        fail(f"video train {precision}: no temporal losses in {sorted(losses[0])}")
+    if out["launches_per_step"] != PER_ITER:
+        fail(f"video train {precision}: launches per step {out['launches_per_step']} != {PER_ITER}")
+    out.update(step_kernel_split(step, state, batch, gen, out["ms_per_step_median"]))
+    return out
+
+
+def video_train_set(root: str) -> None:
+    """Write a V-HIM-style train split with PIL: ``root/V/fgr/<video>/<t>.jpg``
+    and ``root/V/pha/<video>/<t>/<instance>.png``: VIDEO_TRAIN_SET's videos at
+    VIDEO_SRC, 3 soft discs moving 4 px right and 2 down a frame over smooth
+    colour frames with grain."""
+    from PIL import Image
+    h, w = VIDEO_SRC
+    for v, (name, n_f) in enumerate(VIDEO_TRAIN_SET):
+        alpha = video_alphas(n_f, h, w, seed=60 + v)[0]
+        rs = np.random.RandomState(70 + v)
+        for t in range(n_f):
+            small = Image.fromarray(rs.randint(0, 256, (h // 16, w // 16, 3)).astype(np.uint8))
+            frame = np.asarray(small.resize((w, h), Image.BILINEAR)).astype(np.int16)
+            frame = np.clip(frame + rs.randint(-12, 13, frame.shape), 0, 255).astype(np.uint8)
+            path = os.path.join(root, "V", "fgr", name, f"{t:04d}.jpg")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            Image.fromarray(frame).save(path, quality=90)
+            for j in range(N_INST):
+                path = os.path.join(root, "V", "pha", name, f"{t:04d}", f"{j:02d}.png")
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                Image.fromarray(np.round(alpha[t, j] * 255).astype(np.uint8)).save(path)
+
+
+def video_trainer(detail) -> dict:
+    """9.3: ``main.main`` training configs/maggie_video.yaml at full width
+    (batch 1, clips of 8) for VIDEO_TRAINER_ITERS iterations on a synthetic
+    train split, validating every VIDEO_TRAINER_VAL_ITER through eval_video
+    on a VIM set from phase 8's writer (VIDEO_TRAINER_VAL_SET); the host cost
+    of one clip by transform. In f32, as 9.2's clip-8 steps."""
+    import tempfile
+    from maggie_tpu_torch.config import load_config
+    out = {"precision": "fp32", "videos": [list(v) for v in VIDEO_TRAIN_SET],
+           "source_hw": list(VIDEO_SRC)}
+    with tempfile.TemporaryDirectory() as root:
+        video_train_set(root)
+        video_set(root, VIDEO_TRAINER_VAL_SET)
+        opts = ["name", "video_train", "output_dir", os.path.join(root, "out"),
+                "dataset.train.root_dir", root, "dataset.train.split", "V",
+                "dataset.test.root_dir", root, "dataset.test.split", "chip",
+                "train.batch_size", "1", "train.max_iter", str(VIDEO_TRAINER_ITERS),
+                "train.val_iter", str(VIDEO_TRAINER_VAL_ITER), "train.log_iter", "1",
+                "test.log_iter", "100"]
+        out["host_ms_per_clip"] = host_cost_by_transform(load_config(VIDEO_CONFIG, opts), 4)
+        run = trainer_run(["--config", VIDEO_CONFIG] + opts, {})
+        n_windows = sum(n - VIDEO_FRAMES + 1 for _, n in VIDEO_TRAINER_VAL_SET)
+        out.update(check_trainer_run(
+            "video", run, os.path.join(root, "out", "video_train"), VIDEO_TRAINER_ITERS,
+            VIDEO_TRAINER_ITERS // VIDEO_TRAINER_VAL_ITER, per_val=PER_VAL_WINDOW,
+            val_units=n_windows))
+    detail["video_trainer"] = out
+    return out
+
+
+def phase_video_train(dev, detail) -> dict:
+    """Phase 9: the card-vs-CPU video step, the timed steps in f32 and bf16,
+    K1's backward at the video train shapes, and the trainer through the CLI.
+    Returns the launches of the f32 steps and of the trainer."""
+    t0 = time.perf_counter()
+    check = video_card_vs_cpu_step(dev)
+    torch.cuda.empty_cache()
+    print(f"phase 9: one f32 video step on the card vs the CPU port ({check['size']}; CPU step "
+          f"{check['cpu_step_s']:.1f} s): loss terms max rel {check['loss_max_rel']:.3g}, "
+          f"gradients rel L2 "
+          f"{check['grad_rel_l2']:.3g}, params max |d| {check['param_max_abs']:.3g} (share "
+          f"beyond 1e-6 {check['param_far_share']:.3g}), BN stats max |d| "
+          f"{check['batch_stats_max_abs']:.3g}, SN u/v max |d| {check['spectral_max_abs']:.3g}",
+          flush=True)
+    if not check["within"]:
+        fail(f"video train step on the card differs from the CPU port beyond the limits: {check}")
+    runs = {"reduced_check": check}
+    # K1's backward timed before 9.2's profiled steps: after them torch.profiler
+    # recorded none of its kernels in a run of the whole script (PERF.md)
+    t = time_gather_bwd(dev, detail, video=True)
+    for precision in ("fp32", "bf16"):
+        r = runs[precision] = video_train_run(dev, precision)
+        torch.cuda.empty_cache()
+        k = r["ported_kernels_ms_per_step"]
+        print(f"phase 9: video train {precision} (batch 1 x clip {VIDEO_TRAIN_CLIP}, "
+              f"{TRAIN_HW}x{TRAIN_HW}, {TRAIN_SLOTS} slots): {r['ms_per_step_median']:.3f} "
+              f"ms/step (median of steps "
+              f"2-{TRAIN_STEPS}: {[round(x, 3) for x in r['ms_per_step']]}), peak device memory "
+              f"{r['peak_mem_bytes']} of {r['card_total_bytes']} bytes, launches per step "
+              f"{r['launches_per_step']}; kernels {r['kernel_ms_per_step']:.3f} ms/step (busy "
+              f"share {r['busy_share']:.3f}), of which K1 {k['gather_patches']:.3f}, K1 backward "
+              f"{k['gather_patches_bwd']:.3f}, K2 {k['compute_unknown']:.3f}, cuDNN FFT "
+              f"{r['fft_ms_per_step']:.3f}; largest: "
+              + "; ".join(f"{t['name'][:50]} {t['ms']:.2f} ms x{t['calls']}"
+                          for t in r["top_kernels_per_step"])
+              + f"; losses {[round(ld['total'], 6) for ld in r['losses']]}", flush=True)
+        if r["fft_ms_per_step_by_op"]:
+            print(f"phase 9: cuDNN FFT by op ({precision}, ms/step): " + "; ".join(
+                f"{op} {ms:.3f}" for op, ms in r["fft_ms_per_step_by_op"].items()), flush=True)
+    detail["video_train"] = runs
+    for frame in ("fp32", "bf16"):
+        f = t[frame]
+        print(f"phase 9: K1 backward per {frame} video step (6 calls, cap {VIDEO_TRAIN_CAP}): "
+              f"kernel {f['ms']:.4f} ms (index pass {f['index_ms']:.4f}, pull {f['pull_ms']:.4f}), "
+              f"bound {f['bound_ms']:.4f} ms, twin {f['plain_ms']:.4f} ms, index_put_ "
+              f"{f['library_ms']:.4f} ms", flush=True)
+    trainer = video_trainer(detail)
+    m, h = trainer["meters"], trainer["host_ms_per_clip"]
+    print(f"phase 9: video trainer fp32 (main --config {VIDEO_CONFIG}, batch 1 x clip "
+          f"{VIDEO_TRAIN_CLIP}, {m['iters_measured']} iterations after the first, validation "
+          f"through eval_video every {VIDEO_TRAINER_VAL_ITER}): "
+          f"{m['samples_per_sec_sustained']:.4f} clips/s, {m['batch_time_avg_s'] * 1e3:.1f} "
+          f"ms/iteration against 9.2's {runs['fp32']['ms_per_step_median']:.1f} ms/step, data_time "
+          f"{m['data_time_avg_s'] * 1e3:.1f} ms, stall share {m['infeed_stall_frac']:.3f}, peak "
+          f"device memory {m['peak_mem_mb']:.0f} MB; launches {trainer['launches']}; losses "
+          f"finite {trainer['logged_losses']}", flush=True)
+    print("phase 9: host ms per train clip by transform (one thread, mean over about 4 clips "
+          "spread over the set): " + ", ".join(f"{k} {v:.1f}" for k, v in h.items()), flush=True)
+    print(f"phase 9: done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"steps": runs["fp32"]["launches"], "trainer": trainer["launches"]}
+
+
+def video_train_only(dev) -> int:
+    """``--video-train``: build the kernels, hold them against their twins at
+    the video train shapes, then phase 9."""
+    from maggie_tpu_torch.ops.kernels import build
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                     "--format=csv,noheader"], capture_output=True,
+                                    text=True, check=True).stdout.strip(), flush=True)
+    build.build_all()
+    out, worst = {"gather": [], "unknown": []}, {"gather": 0.0, "unknown": 0.0}
+    check_train_gathers(dev, np.random.RandomState(7), out, worst, video=True)
+    check_video_train_unknown(dev, out, worst)
+    print(f"video train kernels equal to their plain twins ({len(out['gather'])} gather, "
+          f"{len(out['gather_bwd'])} gather backward, {len(out['unknown'])} compute_unknown "
+          f"cases)", flush=True)
+    detail = {"kernel_checks": out}
+    phase_video_train(dev, detail)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_video_train.json"), "w") as f:
+        json.dump(detail, f, indent=1)
+    return 0
 
 
 if __name__ == "__main__":

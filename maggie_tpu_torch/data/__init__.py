@@ -1,5 +1,5 @@
-"""Dataset registry (port of ``maggie_tpu/data/__init__.py``): HIM, train and
-eval; VIM, eval (its train branch is ROADMAP item 11b)."""
+"""Dataset registry (port of ``maggie_tpu/data/__init__.py``): HIM and VIM,
+train and eval."""
 
 from __future__ import annotations
 

@@ -30,6 +30,15 @@
 - ``jpeg_roundtrip``: ``cv2.imencode('.jpg', ...)`` then ``cv2.imdecode`` of an
   RGB frame, through PIL's encoder with its default 4:2:0 subsampling (the
   same bytes' decode, bit for bit, as libjpeg is behind both).
+- ``line``: ``cv2.line(img, p1, p2, value, thickness=1)``, the 8-connected
+  Bresenham walk of OpenCV's ``LineIterator`` from left to right, both ends
+  drawn, bit for bit.
+- ``filter2d``: ``cv2.filter2D(img.astype(np.float32), -1, kern)`` (correlation,
+  anchor at the kernel's centre, ``BORDER_REFLECT_101``) computed exactly and
+  rounded once to float32. cv2 sums in float32, and through a DFT for kernels
+  of 11x11 and up, so its result differs in the last bits; after MotionBlur's
+  clip and truncation to uint8 that moves a pixel by at most one level
+  (``tests/test_torch_video_train_data.py`` states the share).
 """
 
 from __future__ import annotations
@@ -122,6 +131,55 @@ def pad_bottom_right(img: np.ndarray, ph: int, pw: int) -> np.ndarray:
 def copy_make_border(img: np.ndarray, top: int, bottom: int, left: int, right: int) -> np.ndarray:
     """``cv2.copyMakeBorder(img, top, bottom, left, right, BORDER_CONSTANT, value=0)``."""
     return np.pad(img, ((top, bottom), (left, right)) + ((0, 0),) * (img.ndim - 2))
+
+
+def line(img: np.ndarray, p1: tuple[int, int], p2: tuple[int, int], value) -> np.ndarray:
+    """Draw ``cv2.line(img, p1, p2, value, thickness=1)`` in place: points are
+    (x, y) inside ``img``; the walk goes left to right (the ends swapped when
+    ``p2`` is left of ``p1``) along the longer axis, stepping the other axis
+    where the Bresenham error is negative."""
+    (x, y), (x2, y2) = p1, p2
+    dx, dy = x2 - x, y2 - y
+    if dx < 0:
+        x, y, dx, dy = x2, y2, -dx, -dy
+    sy = -1 if dy < 0 else 1
+    dy = abs(dy)
+    vert = dy > dx
+    if vert:
+        dx, dy = dy, dx
+    err = dx - 2 * dy
+    for _ in range(dx + 1):
+        img[y, x] = value
+        step = err < 0
+        err += -2 * dy + (2 * dx if step else 0)
+        if vert:
+            y += sy
+            x += int(step)
+        else:
+            x += 1
+            y += sy * int(step)
+    return img
+
+
+def filter2d(images: np.ndarray, kern: np.ndarray) -> np.ndarray:
+    """``cv2.filter2D(image.astype(np.float32), -1, kern)`` of each image of a
+    stack (N, H, W) or (N, H, W, C), exactly: each distinct kernel value
+    times the sum of the reflect-101 padded stack's slices at its taps, the
+    sums exact (in int64 for integer images, float64 otherwise), rounded once
+    to float32. Returns float32 of the stack's shape."""
+    kh, kw = kern.shape
+    ay, ax = kh // 2, kw // 2
+    h, w = images.shape[1:3]
+    pad = [(0, 0), (ay, kh - 1 - ay), (ax, kw - 1 - ax)] + [(0, 0)] * (images.ndim - 3)
+    acc = np.int64 if np.issubdtype(images.dtype, np.integer) else np.float64
+    padded = np.pad(images.astype(acc), pad, mode="reflect")
+    out = np.zeros(images.shape, np.float64)
+    for value in np.unique(kern[kern != 0]):
+        total = np.zeros(images.shape, acc)
+        for i, j in zip(*np.nonzero(kern == value)):
+            total += padded[:, i:i + h, j:j + w]
+        out += np.float64(value) * total
+    return out.astype(np.float32)
 
 
 _WARP_VECTOR = 16   # float32 lanes x 2 per vector step of the AVX2 kernel

@@ -5,8 +5,9 @@ cv2 is replaced by ``data/imgproc.py`` (bit-exact for the calls made here), and
 images are decoded by a function the caller may pass to ``Load``; the default
 decodes with PIL, imported on the first decode. The train augmentations of
 the HIM set draw from the dataset's ``numpy.random.RandomState`` in the JAX
-package's order and count, so a seed gives its samples bit for bit. The
-video-only transforms come with video (ROADMAP item 11).
+package's order and count, so a seed gives its samples bit for bit. So do the
+two video augmentations of the VIM train set (``MotionBlur``, ``MaskDropout``),
+MotionBlur's pixels within one uint8 level of cv2's (``imgproc.filter2d``).
 
 Output layout is NHWC float32 (``frames``: (T, H, W, 3)). Geometry ops record
 ``transform_info`` entries for ``utils/postprocess.reverse_transform``.
@@ -252,6 +253,39 @@ class JpegCompression:
         return d
 
 
+class MotionBlur:
+    """Directional line blur with a kernel of 3 to 49 (albumentations
+    MotionBlur equivalent, reference ``:975-1034``): one kernel, a line
+    between two random points normalised to sum 1, for every frame and alpha
+    of the stack."""
+
+    def __init__(self, random, p=0.3):
+        self.random, self.p = random, p
+
+    def _kernel(self):
+        k = int(self.random.randint(3, 50))
+        if k % 2 == 0:
+            k += 1
+        kern = np.zeros((k, k), np.float32)
+        x1, y1 = self.random.randint(0, k), self.random.randint(0, k)
+        x2, y2 = self.random.randint(0, k), self.random.randint(0, k)
+        imgproc.line(kern, (int(x1), int(y1)), (int(x2), int(y2)), 1.0)
+        s = kern.sum()
+        return kern / s if s > 0 else None
+
+    def __call__(self, d: dict) -> dict:
+        if self.random.rand() > self.p:
+            return d
+        kern = self._kernel()
+        if kern is None:
+            return d
+        frames, alphas = d["frames"], d["alphas"]
+        d["frames"] = np.clip(imgproc.filter2d(frames, kern), 0, 255).astype(np.uint8)
+        d["alphas"] = np.clip(imgproc.filter2d(alphas, kern), 0, 255).astype(
+            frames.dtype if alphas.dtype == np.uint8 else alphas.dtype)
+        return d
+
+
 class RandomAffine:
     """Small rotation/shear/zoom/channel-shift (reference ``:922-966``)."""
 
@@ -361,6 +395,34 @@ class CutMask:
                                    for i in range(d["masks"].shape[0])])
         else:
             d["masks"] = self._external(d["masks"])
+        return d
+
+
+class MaskDropout:
+    """Zero a random box inside some instance masks of the stack (reference
+    ``:536-565``); only for stacks of at least 6 maps."""
+
+    def __init__(self, random):
+        self.random = random
+
+    def __call__(self, d: dict) -> dict:
+        masks = d["masks"]
+        if self.random.rand() < 0.5 or masks.shape[0] // 2 < 3:
+            return d
+        n = self.random.randint(1, masks.shape[0] // 2)
+        for i in self.random.choice(masks.shape[0], n, replace=False):
+            ys, xs = np.where(masks[i] > 0)
+            if len(ys) == 0:
+                continue
+            xmin, xmax, ymin, ymax = xs.min(), xs.max(), ys.min(), ys.max()
+            if (ymax - ymin + 1) // 8 < 2 or (xmax - xmin + 1) // 8 < 2:
+                continue
+            ph = self.random.randint((ymax - ymin + 1) // 16, (ymax - ymin + 1) // 8)
+            pw = self.random.randint((xmax - xmin + 1) // 16, (xmax - xmin + 1) // 8)
+            k = self.random.choice(range(len(ys)), 1)
+            x, y = min(int(xs[k]), xmax - pw), min(int(ys[k]), ymax - ph)
+            masks[i, y:y + ph, x:x + pw] = 0
+        d["masks"] = masks
         return d
 
 

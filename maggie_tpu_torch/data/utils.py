@@ -43,6 +43,44 @@ def gen_transition_gt(alphas: np.ndarray, masks: np.ndarray | None = None,
     return trans
 
 
+def gen_diff_mask(alphas: np.ndarray, k_size: int = 25, iterations: int = 1) -> np.ndarray:
+    """``cv2.dilate`` of each map of (N, 1, H, W) as float32 with a
+    ``MORPH_ELLIPSE`` element of ``k_size`` (an even width has cv2's anchor at
+    ``k_size // 2``), ``iterations`` times (reference ``utils.py:37-40``);
+    returns (N, 1, H, W) f32. An all-zero map dilates to zeros, and is not
+    dilated."""
+    out = np.zeros(alphas.shape, np.float32)
+    for i, x in enumerate(alphas):
+        m = x[0].astype(np.float32)
+        if m.any():
+            out[i, 0] = grey_dilate_ellipse(m, k_size, iterations)
+    return out
+
+
+def gen_transition_temporal_gt(alphas: np.ndarray, masks: np.ndarray | None = None,
+                               k_size: int = 25, iterations: int = 1) -> np.ndarray:
+    """The video transition band: each frame's (dilate - erode) > 0 band, from
+    frame 1 on kept only where the alpha rose by more than 1/255 since the
+    frame before (reference ``utils.py:37-59``); the disagreement clause as in
+    ``gen_transition_gt``. alphas: (T, 1, H, W) float; returns (T, 1, H, W) f32."""
+    temporal = (alphas[1:] - alphas[:-1]) > (1.0 / 255.0)
+    out = []
+    for i, x in enumerate(alphas):
+        m = x[0].astype(np.float32)
+        dilated = grey_dilate_ellipse(m, k_size, iterations)
+        eroded = grey_erode_ellipse(m, k_size, iterations)
+        tm = ((dilated - eroded) > 0).astype(np.float32)
+        if i > 0:
+            tm[~temporal[i - 1, 0]] = 0.0
+        out.append(tm)
+    trans = np.stack(out)[:, None]
+    if masks is not None and ((masks == 255).any() or (alphas > 127).any()):
+        up = masks.repeat(8, axis=-1).repeat(8, axis=-2)
+        diff = (alphas > 127) != (up == 255)
+        trans[diff > 0] = 1.0
+    return trans
+
+
 # ---------------- affine augmentation (reference utils.py:61-221) ----------------
 
 def _transform_matrix_offset_center(matrix, x, y):

@@ -17,6 +17,11 @@ shape-tolerant pretrained load and resume. As in the JAX package:
 - the run's first iteration is left out of ``batch_time`` and ``data_time``,
   whose sustained averages go to ``train_meters.json``.
 
+Validation runs ``eval_video`` over a VIM test set and ``eval_image``
+otherwise (``maggie_tpu/engine/train.py:163-164``); the losses logged are
+whatever the model's loss dict holds (the video model's temporal terms
+``loss_temp``, ``loss_temp_bce`` and ``loss_temp_dtssd`` among them).
+
 Unlike the JAX package, the model is built eagerly and needs no init batch,
 so the train set's ``RandomState`` gives its samples to training alone.
 Validation runs the UNFOLDED model in eval mode (sigma from the stored u/v,
@@ -45,7 +50,7 @@ from ..utils.meters import AverageMeter
 from ..utils.metrics import build_metric
 from .infeed import DeviceInfeed
 from .optim import build_optimizer
-from .test import _process_group, eval_image
+from .test import _process_group, eval_image, eval_video
 from .train_step import TrainState, make_train_step
 
 logger = logging.getLogger(__name__)
@@ -164,6 +169,7 @@ def train(cfg, device=None, use_wandb: bool | None = None, is_sweep: bool = Fals
     warmup_detail = int(dargs.get("warmup_detail_iter", 3000))
     host_rng = np.random.RandomState(seed + 77)
     generator = torch.Generator(device=dev)
+    eval_fn = eval_video if cfg.dataset.test.name == "VIM" else eval_image
     out_dir = cfg.output_dir
 
     def save_last():
@@ -240,7 +246,7 @@ def train(cfg, device=None, use_wandb: bool | None = None, is_sweep: bool = Fals
                 try:
                     from .vis import save_train_visualization
                     model.eval()
-                    with torch.inference_mode():
+                    with torch.inference_mode():   # the batch without the train GT
                         out = model({k: dbatch[k] for k in ("image", "mask")})
                     path = save_train_visualization(dbatch, out, it, out_dir)
                     wandb.log({"train/vis": wandb.Image(path)}, commit=False)
@@ -254,8 +260,8 @@ def train(cfg, device=None, use_wandb: bool | None = None, is_sweep: bool = Fals
                 for v in val_error_dict.values():
                     v.reset()
                 model.eval()
-                eval_image(model, val_loader, cfg.test.log_iter, val_error_dict,
-                           do_postprocessing=False, callback=None)
+                eval_fn(model, val_loader, cfg.test.log_iter, val_error_dict,
+                        do_postprocessing=False, callback=None)
                 model.train()
                 if cfg.train.val_dist:
                     for v in val_error_dict.values():

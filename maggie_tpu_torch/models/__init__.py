@@ -1,6 +1,6 @@
 """Model registries of the port: the MaGGIe image model (arch ``MaGGIe``) and
-the MaGGIe video model's eval (arch ``MaGGIe_Temp``); every other name raises
-and points to ROADMAP.md."""
+the MaGGIe video model (arch ``MaGGIe_Temp``), eval and train; every other
+name raises and points to ROADMAP.md."""
 
 from __future__ import annotations
 

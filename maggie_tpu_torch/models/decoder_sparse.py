@@ -339,13 +339,24 @@ class ResShortCutInstMattSpconvDec(nn.Module):
 
     def forward(self, x, mid_fea: dict, b: int, n_f: int, n_i: int, masks,
                 gt_alphas=None, use_mask_atten: bool = False, use_gt_guidance: bool = False,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None, **_unused) -> dict:
         """x (b*n_f, 512, h32, w32); masks (b*n_f, n_i_in, H, W) guidance masks.
 
         Train mode also takes ``gt_alphas`` (b*n_f, n_i, H, W), the step's
         flags and the ``generator`` of its random draws (dropout, dilation
         widths), and adds the fusion weights and the attention loss to the
         result."""
+        return self._decode(x, mid_fea, b, n_f, n_i, masks, gt_alphas, use_mask_atten,
+                            use_gt_guidance, generator)[0]
+
+    def _attend(self, z, masks5, gt_masks, use_mask_atten: bool, mem_feat=None):
+        """The os8 instance attention (the video decoder adds its memory)."""
+        return self.refine_OS8(z, masks5, gt_masks, use_mask_atten)
+
+    def _decode(self, x, mid_fea, b, n_f, n_i, masks, gt_alphas, use_mask_atten,
+                use_gt_guidance, generator, mem_feat=None):
+        """``forward``'s result, and the os8 features and the attention's
+        hidden state."""
         fea1, fea2, fea3, fea4, fea5 = mid_fea["shortcut"]
         h, w = mid_fea["image"].shape[2:]
         sc0 = (mid_fea["shortcut0_fn"], mid_fea["shortcut0_input"]) if fea1 is None else None
@@ -362,8 +373,8 @@ class ResShortCutInstMattSpconvDec(nn.Module):
                                             scale_factor=masks5.shape[-1] / gt_masks.shape[-1])
         z = self.layer1(x) + fea5
         z = self.layer2(z) + fea4
-        x_os8_logit, feat8, queries, loss_max_atten, _ = self.refine_OS8(
-            z, masks5, gt_masks, use_mask_atten)
+        x_os8_logit, feat8, queries, loss_max_atten, hidden = self._attend(
+            z, masks5, gt_masks, use_mask_atten, mem_feat)
         if not train:
             # slice the instance slots before the full-resolution upsample
             # (exact: resize and tanh act per channel)
@@ -407,11 +418,11 @@ class ResShortCutInstMattSpconvDec(nn.Module):
         ret = {"alpha_os1": x_os1, "alpha_os4": x_os4, "alpha_os8": x_os8,
                "refined_masks": alpha, "detail_mask": unknown_os8}
         if not train:
-            return ret
+            return ret, feat8, hidden
         if use_gt is not None:
             # the GT's own weights while the GT guides (:591-595)
             w4_gt = compute_unknown_random(gt_alphas, 30, generator) * unknown_os8
             w1_gt = compute_unknown_random(gt_alphas, 15, generator) * unknown_os8
             w4, w1 = torch.where(use_gt, w4_gt, w4), torch.where(use_gt, w1_gt, w1)
         ret.update(weight_os4=w4, weight_os1=w1, loss_max_atten=loss_max_atten)
-        return ret
+        return ret, feat8, hidden

@@ -20,8 +20,19 @@ The image decoder (``decoder_sparse.py``) plus:
 
 Every K2 input of this path is f32 (the os8 alpha comes from f32 logits), in
 bf16 mode too. ``mem_feat``, the ConvGRU's stacked hidden state, is returned
-and may seed the next window's series. Training (the train branch and
-``loss_temporal_sparsity``) is ROADMAP item 11b.
+and may seed the next window's series.
+
+Train mode (``maggie_tpu/models/decoder_video.py:127-260``) is the image
+decoder's train branch (GT guidance and its rescue, the empty-map patch, the
+train ladder, random-width fusion and GT weights; no snap and no box) with
+the ConvGRU hook and the video path's attention, which never masks by the
+guidance (``use_mask_atten`` is ignored). Every layer runs once over all
+``b * n_f`` frames, so that train-mode BatchNorm takes its statistics over
+all of them. The diff module reads the os8 features with no gradient, so
+that only ``loss_temporal_sparsity`` trains it; it is called 2 * (n_f - 1)
+times a step, forward pairs first, and each call steps its BatchNorm
+statistics and spectral norms from the state the call before left, the
+gradient flowing through that chain (``layers._SpectralNorm``).
 """
 
 from __future__ import annotations
@@ -32,12 +43,10 @@ import torch.nn as nn
 from .conv_gru import ConvGRU
 from .decoder_sparse import ResShortCutInstMattSpconvDec
 from .layers import BatchNorm, Conv2d, SNConv, per_frame
+from .losses import loss_dtssd
 from ..ops.kernels.unknown import compute_unknown
 from ..ops.resize import resize_bilinear
 from ..ops.smoothing import gaussian_smoothing
-
-_TRAIN = ("video training is not ported yet: the video decoder's train branch and "
-          "loss_temporal_sparsity are ROADMAP.md queue 1 item 11b")
 
 
 class DiffModule(nn.Sequential):
@@ -121,13 +130,39 @@ class ResShortCutInstMattSpconvTempDec(ResShortCutInstMattSpconvDec):
         nonempty = row_any.any(dim=-1)[..., None, None]
         return torch.where(nonempty, box, True).to(x_os8.dtype)
 
+    def _attend(self, z, masks5, gt_masks, use_mask_atten: bool, mem_feat=None):
+        def temp_fn(fm5):
+            return self.os8_temp_module.propagate_features(fm5, mem_feat, self.temp_mode)
+        return self.refine_OS8(z, masks5, gt_masks, False, aggregate_mem_fn=temp_fn)
+
     def forward(self, x, mid_fea: dict, b: int, n_f: int, n_i: int, masks,
-                mem_feat: torch.Tensor | None = None, **_unused) -> dict:
+                gt_alphas=None, use_mask_atten: bool = False, use_gt_guidance: bool = False,
+                generator: torch.Generator | None = None,
+                mem_feat: torch.Tensor | None = None, spar_gt=None, **_unused) -> dict:
         """x (b*n_f, 512, h32, w32); masks (b*n_f, n_i_in, H, W) guidance masks;
         ``mem_feat`` (b, C, h8, w8): the ConvGRU's state before the first
-        frame, or None for a zero state."""
-        if self.training:
-            raise NotImplementedError(_TRAIN)
+        frame, or None for a zero state. Train mode takes the image decoder's
+        train arguments and ``spar_gt`` (b*n_f, n_i, H, W), the transition GT
+        whose slot 0 supervises the change maps, and adds the fused alphas,
+        the change maps and the temporal losses."""
+        if not self.training:
+            return self._eval_forward(x, mid_fea, b, n_f, n_i, masks, mem_feat)
+        ret, feat8, hidden = self._decode(x, mid_fea, b, n_f, n_i, masks, gt_alphas, False,
+                                          use_gt_guidance, generator, mem_feat)
+        if self.use_temp:
+            ret["mem_feat"] = hidden
+        alpha = ret["refined_masks"]
+        diff_fwd, diff_bwd, fused = self.bidirectional_fusion(
+            feat8.detach().reshape((b, n_f) + feat8.shape[1:]),
+            alpha.reshape((b, n_f) + alpha.shape[1:]))
+        ret.update(temp_alpha=fused, diff_forward=torch.sigmoid(diff_fwd),
+                   diff_backward=torch.sigmoid(diff_bwd))
+        if spar_gt is not None:
+            ret.update(self.loss_temporal_sparsity(diff_fwd, diff_bwd, spar_gt, b))
+        return ret
+
+    def _eval_forward(self, x, mid_fea: dict, b: int, n_f: int, n_i: int, masks,
+                      mem_feat) -> dict:
         fea1, fea2, fea3, fea4, fea5 = mid_fea["shortcut"]
         h, w = mid_fea["image"].shape[2:]
         sc0 = (mid_fea["shortcut0_fn"], mid_fea["shortcut0_input"]) if fea1 is None else None
@@ -135,11 +170,7 @@ class ResShortCutInstMattSpconvTempDec(ResShortCutInstMattSpconvDec):
             raise ValueError("lazy os1 shortcut requires sparse_mode='block'")
         masks5 = masks.reshape((b, n_f) + masks.shape[1:])
         z = per_frame(lambda e, f5, f4: self.layer2(self.layer1(e) + f5) + f4, x, fea5, fea4)
-
-        def temp_fn(fm5):
-            return self.os8_temp_module.propagate_features(fm5, mem_feat, self.temp_mode)
-        x_os8_logit, feat8, queries, _, hidden = self.refine_OS8(
-            z, masks5, aggregate_mem_fn=temp_fn)
+        x_os8_logit, feat8, queries, _, hidden = self._attend(z, masks5, None, False, mem_feat)
         x_os8 = resize_bilinear(x_os8_logit[:, :n_i], (h, w), align_corners=False)
         x_os8 = (torch.tanh(x_os8) + 1.0) / 2.0
         unknown_os8 = compute_unknown(x_os8, k_size=30)     # before the snap (:184-188)
@@ -171,5 +202,22 @@ class ResShortCutInstMattSpconvTempDec(ResShortCutInstMattSpconvDec):
                        diff_backward=torch.sigmoid(diff_bwd))
         return ret
 
-    def loss_temporal_sparsity(self, *args, **kwargs):
-        raise NotImplementedError(_TRAIN)
+    @staticmethod
+    def loss_temporal_sparsity(diff_forward, diff_backward, spar_gt, b: int) -> dict:
+        """BCE with logits and dtSSD of the change maps against the transition
+        GT's slot 0 (reference ``:183-203``): the forward map of frame t and
+        the backward map of frame t - 1 are both held to frame t's GT, t >= 1;
+        ``loss_temp`` is (BCE + dtSSD forward + dtSSD backward) / 4.
+        diff_*: (b, n_f, 1, H, W) logits; spar_gt: (b*n_f, n_i, H, W)."""
+        sg = spar_gt.reshape((b, -1) + spar_gt.shape[1:])[:, 1:, 0:1]   # (b, n_f-1, 1, H, W)
+
+        def bce(logits, labels):
+            return (logits.clamp(min=0) - logits * labels
+                    + torch.log1p(torch.exp(-logits.abs()))).mean()
+        fwd, bwd = diff_forward[:, 1:], diff_backward[:, :-1]
+        bce_sum = bce(fwd[:, :, 0], sg[:, :, 0]) + bce(bwd[:, :, 0], sg[:, :, 0])
+        ones = torch.ones_like(sg)
+        dt_f = loss_dtssd(torch.sigmoid(fwd), sg, ones)
+        dt_b = loss_dtssd(torch.sigmoid(bwd), sg, ones)
+        return {"loss_temp_bce": bce_sum, "loss_temp_dtssd": dt_f + dt_b,
+                "loss_temp": (bce_sum + dt_f + dt_b) * 0.25}

@@ -8,8 +8,11 @@ cross-attention, FFN, token self-attention, feat<-token cross-attention), a fina
 token<-feat cross-attention, and the token-feature product that gives one matte
 logit map per instance slot.
 
-This port runs ``atten_stride`` 1 without the temporal positional embedding
-(no config reaches it: ``maggie_tpu/models/decoder_sparse.py:89``). The video
+This port runs ``atten_stride`` 1. With ``use_temp_pe`` the positional
+embedding's last ``C - 2 * (C // 8 * 3)`` channels are the frame's sine
+embedding (``position_encoding.py``) and the ID table is that much narrower
+(``maggie_tpu/models/instance_decoder.py:52-55,74-79,103-117``); no config
+reaches it (``maggie_tpu/models/decoder_sparse.py:89`` passes False). The video
 decoder passes ``aggregate_mem_fn``, its ConvGRU memory
 (``maggie_tpu/models/instance_decoder.py:222-231``). Train mode adds the
 attention supervision by the GT masks (the max-attention loss) or, with
@@ -23,19 +26,21 @@ import torch.nn as nn
 
 from .attention import CrossAttentionLayer, FFNLayer, SelfAttentionLayer
 from .layers import MLP, BatchNorm, Conv2d, Embedding, LayerNorm, per_frame
+from .position_encoding import temporal_position_embedding_sine
 from ..ops.resize import avg_pool2d, resize_any_shape
 
 
 class InstanceMatteDecoder(nn.Module):
     def __init__(self, input_dim: int = 256, attention_dim: int = 256, n_block: int = 2,
                  n_head: int = 4, output_dim: int = 32, max_inst: int = 10,
-                 use_id_pe: bool = True):
+                 use_id_pe: bool = True, use_temp_pe: bool = False):
         super().__init__()
         self.attention_dim, self.n_block, self.max_inst = attention_dim, n_block, max_inst
         self.use_id_pe = use_id_pe
+        self.n_temp = attention_dim - 2 * (attention_dim // 8 * 3) if use_temp_pe else 0
         self.feat_proj = MLP(input_dim, attention_dim, attention_dim, 1)
         self.query_feat = Embedding(max_inst, attention_dim)
-        self.id_embedding = Embedding(max_inst + 1, attention_dim)
+        self.id_embedding = Embedding(max_inst + 1, attention_dim - self.n_temp)
         self.token_feat_ca_layers = nn.ModuleList(
             CrossAttentionLayer(attention_dim, n_head) for _ in range(n_block))
         self.mlp_layers = nn.ModuleList(
@@ -115,10 +120,19 @@ class InstanceMatteDecoder(nn.Module):
         ids = torch.arange(1, n_i_in + 1, dtype=mask.dtype, device=mask.device)
         id_map = (mask * ids[None, None, :, None, None]).amax(dim=2).long()  # (b, n_f, h, w)
         id_table = self.id_embedding.weight
+        fp = id_table[id_map]                                             # (b, n_f, h, w, c_id)
+        token_pos = id_table[1:self.max_inst + 1][:, None].expand(-1, b, -1)
+        if self.n_temp:
+            # each frame's temporal embedding on its positions; the tokens
+            # take frame 0's (maggie_tpu/models/instance_decoder.py:103-117)
+            pe = temporal_position_embedding_sine(1, n_f, 1, 1, c, device=feat.device)
+            temp = pe[0, :self.n_temp, :, 0, 0].t().to(id_table.dtype)    # (n_f, n_temp)
+            fp = torch.cat([fp, temp[None, :, None, None].expand(b, n_f, h, w, -1)], dim=-1)
+            token_pos = torch.cat([token_pos, temp[0].expand(self.max_inst, b, -1)], dim=-1)
         # sequence layout (h*w*n_f, b, c) with the frame index fastest
-        fp = id_table[id_map].permute(2, 3, 1, 0, 4).reshape(h * w * n_f, b, c).to(dt)
+        fp = fp.permute(2, 3, 1, 0, 4).reshape(h * w * n_f, b, c).to(dt)
+        token_pos = token_pos.to(dt)
         tokens = self.query_feat.weight.to(dt)[:, None].expand(-1, b, -1)   # (n_i, b, c)
-        token_pos = id_table[1:self.max_inst + 1].to(dt)[:, None].expand(-1, b, -1)
 
         feat_seq = feat.reshape(b, n_f, feat.shape[1], h * w).permute(3, 1, 0, 2)
         feat_seq = self.feat_proj(feat_seq.reshape(h * w * n_f, b, feat.shape[1]))

@@ -152,9 +152,20 @@ class _SpectralNorm(nn.Module):
     Train mode (the JAX package's ``update_sn``, ``:90-96``) first runs one power
     iteration from the stored u, v = W^T u / |.|, u = W v / |.|, writes the new
     u/v back, and takes sigma from them. As in the JAX package the gradient
-    flows through that step (no ``stop_gradient``): u and v are functions of W."""
+    flows through that step (no ``stop_gradient``): u and v are functions of W.
+    A module called more than once in one forward (the video decoder's diff
+    module, 14 times for 8 frames) steps from the u its previous call wrote,
+    and the gradient flows back through that chain of steps as in the JAX
+    package, where each call reads the traced u of the call before (where
+    the conv feeds a train-mode BatchNorm, as in the diff module, that part
+    of the gradient is small: the batch statistics take sigma's scale out).
+    The chain is the u of the last step (``_u_live``), used while the buffer
+    holds what that step wrote; ``end_sn_chains`` cuts every chain of a
+    model at the end of its forward."""
 
     folded: bool
+    _u_live: torch.Tensor | None = None
+    _u_version: int = -1
 
     def _sn_init(self, shape, bias: bool):
         self.module = _SNParams(shape, shape[0], math.prod(shape[1:]), bias)
@@ -173,12 +184,19 @@ class _SpectralNorm(nn.Module):
             raise RuntimeError("a folded spectral norm has no u/v to step: train the "
                                "unfolded model (fold() is for eval)")
         w = self._w_mat()
-        # a copy: autograd keeps the old u, and the buffer is overwritten below
-        v = _l2normalize(w.t() @ self.module.weight_u.float().clone())
+        buf = self.module.weight_u
+        if self._u_live is not None and buf._version == self._u_version:
+            u = self._u_live
+        else:
+            # a copy: autograd keeps the old u, and the buffer is overwritten below
+            u = buf.float().clone()
+        v = _l2normalize(w.t() @ u)
         u = _l2normalize(w @ v)
         with torch.no_grad():
-            self.module.weight_u.copy_(u)
+            buf.copy_(u)
             self.module.weight_v.copy_(v)
+        if torch.is_grad_enabled():
+            self._u_live, self._u_version = u, buf._version
         return u @ (w @ v)
 
     def weight(self, dtype: torch.dtype) -> torch.Tensor:
@@ -218,6 +236,14 @@ class _SpectralNorm(nn.Module):
         with torch.no_grad():
             p.weight_u.copy_(u)
             p.weight_v.copy_(v)
+
+
+def end_sn_chains(model: nn.Module) -> None:
+    """Forget the spectral-norm power steps of ``model``'s last forward: the
+    next forward steps every module from its stored u, as a new step does."""
+    for m in model.modules():
+        if isinstance(m, _SpectralNorm):
+            m._u_live = None
 
 
 class SNConv(_SpectralNorm):

@@ -24,6 +24,7 @@ import torch
 import torch.nn as nn
 
 from .aspp import ASPP
+from .layers import end_sn_chains
 from .losses import gradient_loss, lap_loss, loss_dtssd, regression_loss
 from ..ops.resize import resize_nearest
 
@@ -98,19 +99,28 @@ class MaGGIe(nn.Module):
                 generator: torch.Generator | None = None, mem_feat=None, prev_pred=None):
         if not self.training:
             return self._eval_forward(batch, mem_feat, prev_pred)
+        try:
+            return self._train_forward(batch, use_mask_atten, use_gt_guidance, use_prm_weights,
+                                       atten_loss_enabled, generator)
+        finally:
+            end_sn_chains(self)
+
+    def _train_forward(self, batch, use_mask_atten, use_gt_guidance, use_prm_weights,
+                       atten_loss_enabled, generator):
         inp, masks, gt, (b, n_f, n_i, h, w) = self._inputs(batch, train=True)
         embedding, mid_fea = self.encoder(inp)
         embedding = self.aspp(embedding)
         pred = self.decoder(embedding, mid_fea, b=b, n_f=n_f, n_i=n_i, masks=masks,
-                            gt_alphas=gt["alpha"], use_mask_atten=use_mask_atten,
-                            use_gt_guidance=use_gt_guidance, generator=generator)
+                            gt_alphas=gt["alpha"], spar_gt=gt["transition"],
+                            use_mask_atten=use_mask_atten, use_gt_guidance=use_gt_guidance,
+                            generator=generator)
         alpha_pred = pred["refined_masks"]
         if use_prm_weights:
             weight_os4, weight_os1 = pred["weight_os4"], pred["weight_os1"]
         else:
             weight_os4 = weight_os1 = pred["detail_mask"].to(alpha_pred.dtype)
-        output = {k: pred[k].reshape(b, n_f, n_i, h, w)
-                  for k in _ALPHAS + ("refined_masks", "detail_mask")}
+        output = self._transform_output(pred, b, n_f, n_i, h, w)
+        output = {k: v for k, v in output.items() if not k.startswith("mem_")}
         valid = (gt["transition"].sum(dim=(2, 3), keepdim=True) > 0).float()
         alphas = {k: pred[k] * valid for k in _ALPHAS}
         loss_dict = self.compute_loss(alphas, weight_os4, weight_os1, gt["alpha"],
@@ -120,7 +130,12 @@ class MaGGIe(nn.Module):
             loss_dict["loss_max_atten"] = (atten if torch.is_tensor(atten)
                                            else alpha_pred.new_tensor(atten))
             loss_dict["total"] = loss_dict["total"] + loss_dict["loss_max_atten"] * self.loss_atten_w
+        self._extra_losses(pred, loss_dict)
         return output, loss_dict
+
+    def _extra_losses(self, pred: dict, loss_dict: dict) -> None:
+        """Hook for the video arch's temporal losses (reference
+        ``update_additional_decoder_loss``)."""
 
     # ----- eval: the frame-local half and the decoder half -----
     # The encoder and ASPP are frame-local (2-D convs; all temporal mixing is
@@ -186,8 +201,9 @@ class MaGGIe(nn.Module):
         return self._finalize_eval(self._transform_output(pred, b, n_f, n_i, h, w), prev_pred)
 
     def _transform_output(self, pred: dict, b, n_f, n_i, h, w) -> dict:
-        """The true instances' eval outputs as (b, n_f, n_i, H, W), and the
-        decoder's memory (``mem_*``) as it is."""
+        """The first ``n_i`` slots' outputs as (b, n_f, n_i, H, W) (the true
+        instances in eval, every slot in train), and the decoder's memory
+        (``mem_*``) as it is."""
         out = {k: pred[k][:, :n_i].reshape(b, n_f, n_i, h, w)
                for k in _ALPHAS + ("refined_masks", "detail_mask")}
         out.update({k: v for k, v in pred.items() if k.startswith("mem_")})

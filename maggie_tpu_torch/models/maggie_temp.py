@@ -1,9 +1,10 @@
-"""MaGGIe video arch, eval (port of ``maggie_tpu/models/maggie_temp.py``;
-reference ``network/arch/maggie_temp.py``): the image arch with the video
-decoder, whose forward and backward change maps are returned as
-``diff_pred_forward`` / ``diff_pred_backward`` (one map per frame, broadcast
-over the instances) beside ``temp_alpha``, and the eval-time temporal rule
-over a 3-frame window (``_finalize_eval``, ``:43-62``)."""
+"""MaGGIe video arch (port of ``maggie_tpu/models/maggie_temp.py``; reference
+``network/arch/maggie_temp.py``): the image arch with the video decoder, whose
+forward and backward change maps are returned as ``diff_pred_forward`` /
+``diff_pred_backward`` (one map per frame, broadcast over the instances)
+beside ``temp_alpha``; in train the decoder's temporal losses join the loss
+dict (``loss_temp`` into ``total``, ``:14-34``), and in eval the temporal rule
+runs over a 3-frame window (``_finalize_eval``, ``:43-62``)."""
 
 from __future__ import annotations
 
@@ -22,6 +23,12 @@ class MaGGIeTemp(MaGGIe):
             out["diff_pred_backward"] = pred["diff_backward"].expand(shape)
             out["temp_alpha"] = pred["temp_alpha"]
         return out
+
+    def _extra_losses(self, pred: dict, loss_dict: dict) -> None:
+        if "loss_temp" in pred:
+            for k in ("loss_temp_bce", "loss_temp_dtssd", "loss_temp"):
+                loss_dict[k] = pred[k]
+            loss_dict["total"] = loss_dict["total"] + pred["loss_temp"]
 
     def _finalize_eval(self, output: dict, prev_pred) -> dict:
         """Frame 1 of the window takes the previous window's frame 1

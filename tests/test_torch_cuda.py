@@ -292,6 +292,57 @@ def test_gather_bwd_kernel_equals_twin_at_train_shapes(card, case, dtype):
     assert out.dtype == dtype and out.stride() == ref.stride() and torch.equal(out, ref)
 
 
+def _video_train_gather_cases():
+    """(case, dtype) at every K1 call of the video train step (batch 1 x clip
+    8 x 512x512, 10 slots: N = 80 maps, cap 2560), in the dtypes it meets."""
+    import chip_smoke as cs
+    return [(case, dt) for case in cs.train_gather_cases(cs.VIDEO_TRAIN_GATHER_CALLS, False)
+            for dt in cs.gather_dtypes(case[1])]
+
+
+@pytest.mark.parametrize("case,dtype", _video_train_gather_cases(),
+                         ids=lambda c: c[0] if isinstance(c, tuple) else str(c)[6:])
+def test_gather_kernels_equal_twins_at_video_train_shapes(card, case, dtype):
+    """K1 at each call of the video train step in its layout, and its
+    backward at each differentiable one: bit-equal to their twins, one
+    launch each, ``dfeat`` in the forward's layout."""
+    import chip_smoke as cs
+    name, shape, block, halo, per_image, layout, grad = case
+    idx = cs.train_indices(shape, block, per_image, card, np.random.RandomState(len(name)),
+                           cs.VIDEO_TRAIN_CAP)
+    feat = cs.gather_map(shape, layout, dtype, card, seed=block)
+    before = kg.launches
+    out = kg.gather_patches(feat, *idx, block, halo)
+    assert kg.launches == before + 1
+    assert torch.equal(out, kg.gather_patches_plain(feat, *idx, block, halo))
+    if not grad:
+        return
+    g = torch.randn(out.shape, device=card,
+                    generator=torch.Generator(device=card).manual_seed(block)).to(dtype)
+    plane = layout == "plane"
+    before = kg.bwd_launches
+    dfeat = kg.gather_patches_bwd(g, *idx, shape, block, halo, plane)
+    assert kg.bwd_launches == before + 1
+    ref = kg.gather_patches_bwd_plain(g, *idx, shape, block, halo, plane)
+    torch.cuda.synchronize()
+    assert dfeat.stride() == ref.stride() and torch.equal(dfeat, ref)
+
+
+def test_compute_unknown_kernel_video_train_shape_equals_twin(card):
+    """K2's call of a video train step: k=30 on 8 frames x 10 slots of f32
+    os8 alphas at 512x512, 3 of them discs that move between frames."""
+    import chip_smoke as cs
+    a = np.zeros((cs.VIDEO_TRAIN_CLIP, cs.TRAIN_SLOTS, cs.TRAIN_HW, cs.TRAIN_HW), np.float32)
+    a[:, :cs.N_INST] = cs.video_alphas(cs.VIDEO_TRAIN_CLIP, cs.TRAIN_HW, cs.TRAIN_HW)[0]
+    a = torch.from_numpy(a).to(card)
+    before = ku.launches
+    out = ku.compute_unknown(a, 30)
+    assert ku.launches == before + 1
+    ref = ku.compute_unknown_plain(a, 30)
+    torch.cuda.synchronize()
+    assert 0.0 < float(ref.mean()) < 1.0 and torch.equal(out, ref)
+
+
 def _bwd_edge_cases():
     import chip_smoke as cs
     return cs.BWD_EDGE_CASES
@@ -381,6 +432,21 @@ def test_train_step_on_the_card_matches_cpu(card):
     torch.backends.cudnn.allow_tf32 = False
     try:
         check = cs.card_vs_cpu_step(card)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert check["within"], check
+
+
+def test_video_train_step_on_the_card_matches_cpu(card):
+    """One f32 ``make_train_step`` step of the full-width video model on the
+    card against the same step on the CPU (plain twins) at the reduced size
+    (batch 1 x clip 3 x 256x256, 10 slots), within ``chip_smoke``'s STEP_*
+    limits, phase 6's."""
+    import chip_smoke as cs
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        check = cs.video_card_vs_cpu_step(card)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     assert check["within"], check

@@ -230,11 +230,12 @@ def test_build_dataset_and_what_is_not_ported(him_root):
     assert len(build_dataset(cfg, is_train=False)) == 3
     # the train split is indexed split-first (root/<split>/images): none here
     assert len(HIMDataset(him_root, "natural", is_train=True)) == 0
-    # the VIM eval set is ported (tests/test_torch_video_engine.py); its train
-    # branch is item 11b
-    cfg.dataset.train.name = "VIM"
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        build_dataset(cfg, is_train=True)
+    # the VIM sets are ported, eval and train (tests/test_torch_video_engine.py,
+    # tests/test_torch_video_train_data.py): an empty train split indexes no clip
+    os.makedirs(os.path.join(him_root, "vim_tr", "pha"), exist_ok=True)
+    cfg.dataset.train.update(dict(name="VIM", root_dir=him_root, split="vim_tr"))
+    vim = build_dataset(cfg, is_train=True)
+    assert vim.is_train and len(vim) == 0
 
 
 def test_device_tail_bit_equal_to_jax_at_ratio_1():
