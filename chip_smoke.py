@@ -5,6 +5,7 @@
     python3 chip_smoke.py --gather-bwd
     python3 chip_smoke.py --video
     python3 chip_smoke.py --video-train
+    python3 chip_smoke.py --remat
 
 The second form only answers requests 0 and 1 in f32 and bf16 and saves the
 outputs to PATH; with REF, saved by the same form from another version, it
@@ -12,7 +13,8 @@ exits non-zero unless every output is equal bit for bit. The third runs only
 K1's backward: its checks of phase 2 and its timing of phase 6.3 (run it in a
 copy of another version to compare the two in one call). The fourth runs the
 video path only: phase 2's video shapes and phase 8. The fifth runs video
-training only: phase 2's video train shapes and phase 9.
+training only: phase 2's video train shapes and phase 9. The sixth runs
+phase 10 alone.
 
 Phases (any failure exits non-zero):
 1. print the card's name and power limit; build the CUDA kernels from the
@@ -111,11 +113,25 @@ Phases (any failure exits non-zero):
    step, ``data_time``, the stall share, peak memory and the host cost of a
    clip by transform. Phase 2 holds K1, its backward and K2 bit for bit at
    the video train shapes (N = 80 maps, cap 2560) too.
+10. rematerialisation (``model.remat``, ``models/remat.py``), after phase 9:
+   the image step at phase 6's size (10.1) and the video step at phase 9's
+   (10.2) under none, full and selective, in f32 and bf16: each remat step
+   against the plain one within phase 6's STEP_* limits (whether bit-equal,
+   the CUDA generator's state, one block-index replay checked a step; a
+   second plain step and one forwarded on a new thread beside them);
+   ms/step (median of steps 2-5), peak memory, launches asserted from the
+   stage layout (K1 10 / 20 / 20, its backward 6, K2 1 / 2 / 2). 10.3 fits
+   peak = fixed + per-frame x frames through two sizes (image batch 1 and
+   2, video clip 4 and 8), predicts the largest batch under 95% of the
+   memory the process can hold and runs ``selective`` at it (at most the
+   yaml's batch). 10.4 trains through ``main.main`` with ``opts
+   model.remat selective`` on phase 7's set: launches 20 / 6 / 2 an
+   iteration. The allocator maps expandable segments during the phase.
 
 Prints a ``{"kernels": [...]}`` line and the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to output/torch_port/chip_smoke.json
-(``chip_smoke_video.json`` and ``chip_smoke_video_train.json`` for ``--video`` and
-``--video-train``).
+(``chip_smoke_video.json``, ``chip_smoke_video_train.json`` and
+``chip_smoke_remat.json`` for ``--video``, ``--video-train`` and ``--remat``).
 """
 
 from __future__ import annotations
@@ -644,6 +660,8 @@ def main() -> int:
         return video_only(torch.device("cuda"))
     if "--video-train" in sys.argv:
         return video_train_only(torch.device("cuda"))
+    if "--remat" in sys.argv:
+        return remat_only(torch.device("cuda"))
     if "--gather-bwd" in sys.argv:
         print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                          "--format=csv,noheader"], capture_output=True,
@@ -800,8 +818,14 @@ def main() -> int:
         kern["video_train_launches"] = video_train["steps"][kern["name"]]
         kern["video_trainer_launches"] = video_train["trainer"][kern["name"]]
 
+    # ---- phase 10: rematerialisation, the image and video train steps ----
+    torch.cuda.empty_cache()
+    remat = phase_remat(dev, detail)
+    for kern in kernels:
+        kern["remat_launches"] = remat[kern["name"]]
+
     detail["phases_s"] = time.perf_counter() - t_start
-    print(f"phases 1-9 done in {detail['phases_s']:.1f} s (from main(), imports not counted)",
+    print(f"phases 1-10 done in {detail['phases_s']:.1f} s (from main(), imports not counted)",
           flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -1018,8 +1042,8 @@ def trainer_run(args: list, record: dict, keep_start: bool = False) -> dict:
         eng.compute_metrics)
     frames = []   # one entry a scored frame (eval_image) or window (eval_video)
 
-    def counted_make(model, optimizer, schedule):
-        step = make(model, optimizer, schedule)
+    def counted_make(model, optimizer, schedule, remat="none"):
+        step = make(model, optimizer, schedule, remat)
 
         def counted(state, *a, **kw):
             if keep_start and not start:
@@ -1069,23 +1093,24 @@ def trainer_run(args: list, record: dict, keep_start: bool = False) -> dict:
 
 def check_trainer_run(name: str, run: dict, out_dir: str, n_steps: int, n_vals: int,
                       log_iter: int = 1, files=CKPT_FILES, first_iter: int = 0,
-                      per_val=PER_VAL_FRAME, val_units: int = TRAINER_VAL_FRAMES) -> dict:
-    """Launches per iteration and per val unit (``val_units`` frames, or
-    windows of a video set, each launching ``per_val``), the run's own logged
-    iterations (those after ``first_iter``, where it started) with finite
-    losses, the files; returns the run's meters and log numbers."""
+                      per_val=PER_VAL_FRAME, val_units: int = TRAINER_VAL_FRAMES,
+                      per_iter=PER_ITER) -> dict:
+    """Launches per iteration (``per_iter``) and per val unit (``val_units``
+    frames, or windows of a video set, each launching ``per_val``), the run's
+    own logged iterations (those after ``first_iter``, where it started) with
+    finite losses, the files; returns the run's meters and log numbers."""
     if len(run["steps"]) != n_steps or len(run["vals"]) != n_vals:
         fail(f"trainer {name}: {len(run['steps'])} iterations and {len(run['vals'])} "
              f"validations, not {n_steps} and {n_vals}")
     for i, c in enumerate(run["steps"]):
-        if c != PER_ITER:
-            fail(f"trainer {name}: iteration {i + 1} launched {c}, not {PER_ITER}")
+        if c != per_iter:
+            fail(f"trainer {name}: iteration {i + 1} launched {c}, not {per_iter}")
     for v in run["vals"]:
         want = {k: n * v["frames"] for k, n in per_val.items()}
         if v["frames"] != val_units or {k: v[k] for k in want} != want:
             fail(f"trainer {name}: a validation launched {v}, not {per_val} per unit "
                  f"over {val_units} units")
-    total = {k: n_steps * PER_ITER[k] + n_vals * val_units * per_val[k] for k in PER_ITER}
+    total = {k: n_steps * per_iter[k] + n_vals * val_units * per_val[k] for k in per_iter}
     if run["launches"] != total:
         fail(f"trainer {name}: launches {run['launches']} != {total}")
     with open(os.path.join(out_dir, "log_rank0.log")) as f:
@@ -1361,16 +1386,17 @@ def gather_bwd_only(dev) -> int:
     return 0
 
 
-def one_step(model, batch, generator, cfg) -> dict:
+def one_step(model, batch, generator, cfg, remat: str = "none") -> dict:
     """One ``make_train_step`` step of ``model`` (train mode) from a fresh
     optimizer: the loss dict, every gradient before the clip, the learning
-    rate, and the parameters, BatchNorm statistics and spectral u/v after."""
+    rate, the parameters, BatchNorm statistics and spectral u/v after, and
+    the generator's state after."""
     from maggie_tpu_torch.engine import train_step as ts
     from maggie_tpu_torch.engine.optim import build_optimizer
     model.train()
     opt, schedule = build_optimizer(cfg, model.parameters())
     state = ts.TrainState(model, opt)
-    step = ts.make_train_step(model, opt, schedule)
+    step = ts.make_train_step(model, opt, schedule, remat=remat)
     grads, clip = [], ts.clip_by_global_norm_
 
     def keep(gs, *args, **kwargs):   # the gradients as the clip receives them
@@ -1385,7 +1411,7 @@ def one_step(model, batch, generator, cfg) -> dict:
     return {"losses": {k: float(v) for k, v in losses.items()}, "lr": schedule(0),
             "grads": dict(zip((k for k, _ in model.named_parameters()), grads)),
             "params": cpu(state.params()), "batch_stats": cpu(state.batch_stats()),
-            "spectral": cpu(state.spectral())}
+            "spectral": cpu(state.spectral()), "generator": generator.get_state()}
 
 
 def compare_steps(a: dict, b: dict) -> dict:
@@ -1532,36 +1558,20 @@ def step_kernel_split(step, state, batch, gen, step_ms: float) -> dict:
                                      for n, ms, c in rows[:6]]}
 
 
-def bwd_split_ms(fn, reps: int = 10) -> dict:
-    """Device ms per launch of K1 backward's index pass and of its pull, by
-    their CUDA function names under torch.profiler over ``reps`` eager calls:
-    each name's device time over the launches the profiler recorded under it
-    (after earlier profilers in one process it may record fewer than
-    ``reps``). Fails if either name recorded none."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    names = dict(zip(("index_ms", "pull_ms"), KERNEL_NAMES["gather_patches_bwd"]))
-    us, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
-    for e in prof.key_averages():
-        for k, name in names.items():
-            if name in e.key and not e.key.startswith(("aten::", "cuda")):
-                us[k] += device_us(e)
-                count[k] += e.count
-    if min(count.values()) == 0 or min(us.values()) <= 0.0:
-        fail(f"K1 backward: no device time under {tuple(names.values())}: {us} over {count}")
-    return {k: us[k] / 1e3 / count[k] for k in names}
+def bwd_split_ms(index, ms: float) -> dict:
+    """K1 backward's index pass per call by CUDA-graph replay of the pass alone
+    (``kg.bwd_index_pass``), and its pull as ``ms``, the whole call's time,
+    less that. No profiler: late in a long process torch.profiler dropped
+    most of these short kernels' records (PERF.md)."""
+    index_ms = graph_ms(index)
+    return {"index_ms": index_ms, "pull_ms": ms - index_ms}
 
 
 def time_gather_bwd(dev, detail, video=False) -> dict:
     """Phase 6.3 (with ``video``, 9.2's): K1's backward per call at the train
     shapes (the video train step's), f32 and bf16, by
-    CUDA-graph replay, split into its index pass and pull (device time by
-    name, torch.profiler over eager calls), beside its byte bound (each
+    CUDA-graph replay, split into its index pass and pull (``bwd_split_ms``),
+    beside its byte bound (each
     window's in-map part of g read, dfeat written, indices read, over the HBM
     rate), its twin and the library
     yardstick: one
@@ -1592,8 +1602,9 @@ def time_gather_bwd(dev, detail, video=False) -> dict:
                 padded.zero_()
                 padded.index_put_(ii, g, accumulate=True)
             kern = lambda: kg.gather_patches_bwd(g, *idx, shape, block, halo, plane)
-            row = {"call": name, "dtype": str(dt), "layout": layout, "ms": graph_ms(kern),
-                   **bwd_split_ms(kern),
+            ms = graph_ms(kern)
+            row = {"call": name, "dtype": str(dt), "layout": layout, "ms": ms,
+                   **bwd_split_ms(lambda: kg.bwd_index_pass(*idx, shape, block), ms),
                    "plain_ms": cuda_ms(lambda: kg.gather_patches_bwd_plain(
                        g, *idx, shape, block, halo, plane), iters=3, warmup=1),
                    "library_ms": cuda_ms(library, iters=5, warmup=1)}
@@ -2432,8 +2443,6 @@ def phase_video_train(dev, detail) -> dict:
     if not check["within"]:
         fail(f"video train step on the card differs from the CPU port beyond the limits: {check}")
     runs = {"reduced_check": check}
-    # K1's backward timed before 9.2's profiled steps: after them torch.profiler
-    # recorded none of its kernels in a run of the whole script (PERF.md)
     t = time_gather_bwd(dev, detail, video=True)
     for precision in ("fp32", "bf16"):
         r = runs[precision] = video_train_run(dev, precision)
@@ -2497,6 +2506,318 @@ def video_train_only(dev) -> int:
     phase_video_train(dev, detail)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_video_train.json"), "w") as f:
+        json.dump(detail, f, indent=1)
+    return 0
+
+
+# ---------------------------------------------------------------- phase 10
+# rematerialisation (maggie_tpu_torch/models/remat.py): the image and video
+# train steps under model.remat none, full and selective
+REMAT_MODES = ("none", "full", "selective")
+# the kernels' calls of one train forward by stage of remat.py: K1 at rung 1
+# (x8, m8, m4, fea3: stage 4), rung 2 (x4, m2, fea2: stage 5) and rung 3
+# (x2, m1, fea1: stage 6); K2's uncertainty map in stage 4. A stage that is
+# recomputed runs its calls again in the backward; K1's backward runs once.
+STAGE_K1 = {1: 0, 2: 0, 3: 0, 4: 4, 5: 3, 6: 3}
+STAGE_K2 = {1: 0, 2: 0, 3: 0, 4: 1, 5: 0, 6: 0}
+# "full" recomputes the whole forward; "selective" every stage, each in a
+# segment of its own (the video model's 3 and 4 as one)
+RECOMPUTED = {"none": (), "full": tuple(STAGE_K1), "selective": tuple(STAGE_K1)}
+REMAT_FIT_FRACTION = 0.95     # of the card's memory
+REMAT_IMAGE_SIZES = (1, TRAIN_BATCH)           # batches at 512x512 for the fit
+REMAT_VIDEO_SIZES = (4, VIDEO_TRAIN_CLIP)      # clips at batch 1 for the fit
+REMAT_YAML_BATCH = {"image": 12, "video": 4}   # configs/maggie_{image,video}.yaml
+REMAT_CLI_ITERS = 3
+# K1's backward lists a call's entries and tiles in one thread block's shared
+# memory (ops/kernels/gather.py MAX_SMEM_BYTES): cap + tiles <= 57087; the
+# ladder's largest call has 0.5 * 64 entries and 64 tiles a map at 512x512
+KERNEL_MAX_MAPS = (232448 // 4 - 1024 - 1) // 96
+
+
+def remat_per_step(mode: str) -> dict:
+    again = RECOMPUTED[mode]
+    return {"gather_patches": sum(STAGE_K1.values()) + sum(STAGE_K1[s] for s in again),
+            "gather_patches_bwd": 6,
+            "compute_unknown": sum(STAGE_K2.values()) + sum(STAGE_K2[s] for s in again)}
+
+
+def remat_steps(dev, cfg, model, init, batch, mode: str, steps: int) -> dict:
+    """``steps`` steps of ``mode`` from the weights ``init`` with a fresh
+    optimizer and generator: ms per step (CUDA events), the peak memory of
+    each step, launches per step (checked against ``remat_per_step``)."""
+    from maggie_tpu_torch.engine.optim import build_optimizer
+    from maggie_tpu_torch.engine.train_step import TrainState, make_train_step
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+    model.load_state_dict(init)
+    model.train().zero_grad(set_to_none=True)
+    opt, schedule = build_optimizer(cfg, model.parameters())
+    state, step = TrainState(model, opt), make_train_step(model, opt, schedule, remat=mode)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kg.launches = kg.bwd_launches = ku.launches = 0
+    ms, peaks, losses = [], [], []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ld = step(state, batch, gen, **TRAIN_FLAGS)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        losses.append({k: float(v) for k, v in ld.items()})
+    launches = kernel_counts()
+    per_step = {k: v / steps for k, v in launches.items()}
+    if per_step != remat_per_step(mode):
+        fail(f"remat {mode}: launches per step {per_step} != {remat_per_step(mode)}")
+    if not all(np.isfinite(v) for ld in losses for v in ld.values()):
+        fail(f"remat {mode}: non-finite losses {losses}")
+    model.zero_grad(set_to_none=True)
+    del opt, state, step
+    return {"ms_per_step": ms, "peak_bytes": peaks, "peak_max_bytes": max(peaks),
+            "launches": launches, "launches_per_step": per_step,
+            "ms_per_step_median": float(np.median(ms[1:])) if steps > 1 else ms[0]}
+
+
+def on_thread(fn):
+    """``fn()`` on a new thread (its own cuDNN plan cache, as autograd's
+    device thread, where a recompute runs); its result or its exception."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as exc:  # re-raised on the caller's thread
+            box["exc"] = exc
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "exc" in box:
+        raise box["exc"]
+    return box["out"]
+
+
+# the plain step against itself: run again, and with its forward on a new thread
+REMAT_BASELINES = ("none_again", "none_thread")
+
+
+def remat_compare(dev, cfg, model, init, batch) -> dict:
+    """One step of each mode from the same weights, batch and CUDA generator
+    seed, held against the plain step within phase 6's STEP_* limits; the
+    generator's state after each step equal to the plain step's; with
+    ``remat.check_replay``, each recompute's block indices equal the first
+    pass's. Beside them, the card's own repeatability: a second plain step,
+    and one whose forward runs on a new thread, as a recompute's does."""
+    from maggie_tpu_torch.models import remat
+    steps = {}
+    remat.check_replay, remat.replay_checks = True, 0
+    try:
+        for name, mode in (("none", "none"),) + tuple((b, "none") for b in REMAT_BASELINES) + (
+                ("full", "full"), ("selective", "selective")):
+            model.load_state_dict(init)
+            before = remat.replay_checks
+            run = lambda: one_step(model, batch, torch.Generator(device=dev).manual_seed(3), cfg,
+                                   remat=mode)
+            steps[name] = on_thread(run) if name == "none_thread" else run()
+            steps[name]["replay_checks"] = remat.replay_checks - before
+    finally:
+        remat.check_replay = False
+    model.zero_grad(set_to_none=True)
+    ref = steps["none"]
+    out = {}
+    for name in REMAT_BASELINES + ("full", "selective"):
+        r = steps[name]
+        c = compare_steps(r, ref)
+        c["bit_equal"] = (c["loss_max_rel"] == 0 and c["grad_rel_l2"] == 0
+                          and c["param_max_abs"] == 0 and c["batch_stats_max_abs"] == 0
+                          and c["spectral_max_abs"] == 0)
+        c["generator_equal"] = bool(torch.equal(r["generator"], ref["generator"]))
+        c["replay_checks"] = r["replay_checks"]
+        out[name] = c
+        if not c["within"] or not c["generator_equal"]:
+            fail(f"remat {name} step vs the plain step: {c}")
+        if name not in REMAT_BASELINES and c["replay_checks"] != 1:
+            fail(f"remat {name}: {c['replay_checks']} block-index replays checked, not 1")
+    return out
+
+
+def remat_fit(points) -> dict:
+    """peak = fixed + per_frame * frames through two (frames, peak) points."""
+    (f1, p1), (f2, p2) = points
+    per = (p2 - p1) / (f2 - f1)
+    return {"fixed_bytes": p1 - per * f1, "per_frame_bytes": per}
+
+
+def remat_model(kind: str, precision: str, dev):
+    from maggie_tpu_torch.flagship import flagship_cfg
+    from maggie_tpu_torch.models import build_model
+    cfg = flagship_cfg(precision) if kind == "image" else video_train_cfg(precision)
+    model = build_model(cfg.model, device=dev, generator=torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    return cfg, model, init
+
+
+def remat_batch(kind: str, size: int, dev) -> dict:
+    """An image batch of ``size`` frames at 512x512, or a video batch of
+    one clip of ``size`` frames; a batch of several clips repeats the clip."""
+    from maggie_tpu_torch.flagship import train_batch
+    if kind == "image":
+        b = train_batch(size, TRAIN_HW, TRAIN_HW, TRAIN_SLOTS, seed=0)
+    else:
+        b = video_train_batch(size, TRAIN_HW, seed=0)
+    return {k: v.to(dev) for k, v in b.items()}
+
+
+def remat_kind(dev, kind: str, budget: int) -> dict:
+    """10.1 (image) or 10.2 (video): per precision, the compare steps, the
+    timed modes at phase 6's (9's) size, the fit's second size, the fit,
+    the predicted largest batch, and for selective a verified run at it
+    (at most the yaml's batch)."""
+    label = "10.1 image" if kind == "image" else "10.2 video"
+    sizes = REMAT_IMAGE_SIZES if kind == "image" else REMAT_VIDEO_SIZES
+    clip = 1 if kind == "image" else VIDEO_TRAIN_CLIP
+    out = {}
+    for precision in ("fp32", "bf16"):
+        cfg, model, init = remat_model(kind, precision, dev)
+        r = out[precision] = {}
+        main_batch = remat_batch(kind, sizes[1], dev)
+        r["compare"] = remat_compare(dev, cfg, model, init, main_batch)
+        for name, c in r["compare"].items():
+            worst = max(c["loss_max_rel"], c["grad_rel_l2"], c["param_max_abs"],
+                        c["batch_stats_max_abs"], c["spectral_max_abs"])
+            print(f"phase {label} {precision}: {name} step vs none: bit-equal {c['bit_equal']}, "
+                  f"largest difference {worst:.3g} (loss rel {c['loss_max_rel']:.3g}, grad rel L2 "
+                  f"{c['grad_rel_l2']:.3g}, params {c['param_max_abs']:.3g}, BN "
+                  f"{c['batch_stats_max_abs']:.3g}, u/v {c['spectral_max_abs']:.3g}); generator "
+                  f"equal {c['generator_equal']}; block-index replays checked "
+                  f"{c['replay_checks']}", flush=True)
+        small_batch = remat_batch(kind, sizes[0], dev)
+        r["modes"] = {}
+        for mode in REMAT_MODES:
+            m = r["modes"][mode] = remat_steps(dev, cfg, model, init, main_batch, mode,
+                                               TRAIN_STEPS)
+            m["small"] = remat_steps(dev, cfg, model, init, small_batch, mode, 2)
+            fit = m["fit"] = remat_fit(((sizes[0], m["small"]["peak_max_bytes"]),
+                                        (sizes[1], m["peak_max_bytes"])))
+            max_frames = int((REMAT_FIT_FRACTION * budget - fit["fixed_bytes"])
+                             // fit["per_frame_bytes"])
+            m["predicted_max_batch_memory"] = max_frames // clip
+            m["predicted_max_batch"] = min(max_frames, KERNEL_MAX_MAPS // TRAIN_SLOTS) // clip
+            print(f"phase {label} {precision} {mode}: {m['ms_per_step_median']:.3f} ms/step "
+                  f"(median of steps 2-{TRAIN_STEPS}: {[round(x, 3) for x in m['ms_per_step']]}), "
+                  f"peak {m['peak_max_bytes'] / 1e9:.3f} GB (steps "
+                  f"{[round(p / 1e9, 3) for p in m['peak_bytes']]}); size {sizes[0]}: peak "
+                  f"{m['small']['peak_max_bytes'] / 1e9:.3f} GB, "
+                  f"{m['small']['ms_per_step'][-1]:.3f} ms; launches per step "
+                  f"{m['launches_per_step']}; fit {fit['fixed_bytes'] / 1e9:.3f} GB + "
+                  f"{fit['per_frame_bytes'] / 1e9:.4f} GB a frame: largest batch "
+                  f"{m['predicted_max_batch_memory']} under {REMAT_FIT_FRACTION:.0%} of "
+                  f"{budget / 1e9:.2f} GB, {m['predicted_max_batch']} with K1 backward's "
+                  f"limit of {KERNEL_MAX_MAPS} maps"
+                  + ("" if kind == "image" else f" (batches of clip {clip})"), flush=True)
+        sel = r["modes"]["selective"]
+        verify = min(sel["predicted_max_batch"], REMAT_YAML_BATCH[kind])
+        if verify >= 1:
+            if kind == "image":
+                big = remat_batch(kind, verify, dev)
+            else:   # batch `verify` x clip 8: the clip repeated
+                big = {k: v.repeat((verify,) + (1,) * (v.dim() - 1))
+                       for k, v in remat_batch(kind, clip, dev).items()}
+            v = r["verified"] = remat_steps(dev, cfg, model, init, big, "selective", 2)
+            v["batch"] = verify
+            v["predicted_peak_bytes"] = (sel["fit"]["fixed_bytes"]
+                                         + sel["fit"]["per_frame_bytes"] * verify * clip)
+            print(f"phase {label} {precision} selective at the predicted batch {verify}"
+                  + ("" if kind == "image" else f" x clip {clip}")
+                  + f": peak {v['peak_max_bytes'] / 1e9:.3f} GB (fit "
+                  f"{v['predicted_peak_bytes'] / 1e9:.3f}), ms per step "
+                  f"{[round(x, 3) for x in v['ms_per_step']]}", flush=True)
+            del big
+        else:
+            print(f"phase {label} {precision} selective: the fit predicts no batch that fits",
+                  flush=True)
+        del model, init, main_batch, small_batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def remat_cli(detail) -> dict:
+    """10.4: ``main.main`` training configs/maggie_image.yaml with ``model.remat
+    selective`` on phase 7's synthetic HIM set, REMAT_CLI_ITERS iterations
+    without validation: each iteration launches the selective step's counts."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as root:
+        trainer_set(root)
+        opts = ["output_dir", os.path.join(root, "out"), "name", "remat",
+                "dataset.train.root_dir", root, "dataset.train.split", "train",
+                "dataset.test.root_dir", root, "dataset.test.split", "val",
+                "train.batch_size", str(TRAIN_BATCH), "train.val_iter", "1000",
+                "train.log_iter", "1", "test.log_iter", "1",
+                "train.max_iter", str(REMAT_CLI_ITERS), "model.remat", "selective"]
+        run = trainer_run(["--config", "configs/maggie_image.yaml"] + opts, {})
+        out = check_trainer_run("remat selective", run, os.path.join(root, "out", "remat"),
+                                REMAT_CLI_ITERS, 0, files=("train_meters.json", "config.yaml"),
+                                per_iter=remat_per_step("selective"))
+    detail["remat_cli"] = out
+    print(f"phase 10.4: main --config configs/maggie_image.yaml opts model.remat selective: "
+          f"{REMAT_CLI_ITERS} iterations, launches {out['launches']} "
+          f"({remat_per_step('selective')} an iteration), losses {out['logged_losses']}, peak "
+          f"{out['log_max_mem_mb']:.0f} MB", flush=True)
+    return out
+
+
+def phase_remat(dev, detail) -> dict:
+    """Phase 10: 10.1 and 10.2 (with 10.3's fits, predictions and verified
+    runs), 10.4 the CLI. Returns each kernel's launches per remat mode and
+    model, and the CLI run's.
+
+    The allocator maps memory in expandable segments during the phase, as a
+    run at the card's limit would: in fixed segments, a video step at the
+    batch its fit predicted ran out of memory on an H100 at 68.3 GiB
+    allocated with 5.9 GiB reserved but unallocated.
+    The fits predict against the memory this process can hold (free on the
+    card plus what its allocator reserves) as the phase starts."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        free, total = torch.cuda.mem_get_info(dev)
+        budget = free + torch.cuda.memory_reserved(dev)
+        out = {"card_total_bytes": total, "budget_bytes": budget}
+        print(f"phase 10: card {total / 1e9:.2f} GB, this process can hold {budget / 1e9:.2f} GB; "
+              f"fits against {REMAT_FIT_FRACTION:.0%} of it", flush=True)
+        for kind in ("image", "video"):
+            out[kind] = remat_kind(dev, kind, budget)
+        out["cli"] = remat_cli(detail)
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    detail["remat"] = out
+    print(f"phase 10: done in {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {}
+    for k in PER_ITER:
+        launches[k] = {f"{kind}_{mode}": out[kind]["fp32"]["modes"][mode]["launches"][k]
+                       for kind in ("image", "video") for mode in REMAT_MODES[1:]}
+        launches[k]["cli_selective"] = out["cli"]["launches"][k]
+    return launches
+
+
+def remat_only(dev) -> int:
+    """``--remat``: build the kernels, then phase 10; details to
+    output/torch_port/chip_smoke_remat.json."""
+    from maggie_tpu_torch.ops.kernels import build
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                     "--format=csv,noheader"], capture_output=True,
+                                    text=True, check=True).stdout.strip(), flush=True)
+    build.build_all()
+    detail = {}
+    phase_remat(dev, detail)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_remat.json"), "w") as f:
         json.dump(detail, f, indent=1)
     return 0
 

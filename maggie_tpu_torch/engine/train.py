@@ -45,6 +45,7 @@ import torch
 from ..data import build_dataset
 from ..data.loader import DataLoader
 from ..device import resolve_device
+from ..models.remat import remat_mode
 from ..utils.memory import device_peak_memory_mb
 from ..utils.meters import AverageMeter
 from ..utils.metrics import build_metric
@@ -88,14 +89,6 @@ def step_seed(seed: int, step: int) -> int:
     return int(np.random.SeedSequence([seed + 1, step]).generate_state(1, np.uint64)[0])
 
 
-def _check_remat(cfg) -> None:
-    remat = str(cfg.model.get("remat", "none")).lower()
-    if remat not in ("none", "false"):
-        raise NotImplementedError(
-            f"model.remat {cfg.model.remat!r} is not ported yet (ROADMAP.md queue 1 item 10: "
-            f"rematerialisation); train with model.remat none")
-
-
 def train(cfg, device=None, use_wandb: bool | None = None, is_sweep: bool = False) -> TrainState:
     """Train ``cfg``'s model on ``device`` (CUDA unless the caller passes "cpu";
     raises without a GPU) for ``cfg.train.max_iter`` iterations; returns the
@@ -105,7 +98,7 @@ def train(cfg, device=None, use_wandb: bool | None = None, is_sweep: bool = Fals
                                     save_variables_npz)
 
     dev = resolve_device(device)
-    _check_remat(cfg)
+    remat = remat_mode(cfg.model.get("remat", "none"))
     nproc, pid = _process_group()
     want_wandb = use_wandb if use_wandb is not None else cfg.wandb.use
     wandb = _init_wandb(cfg, is_sweep) if want_wandb and pid == 0 else None
@@ -155,7 +148,7 @@ def train(cfg, device=None, use_wandb: bool | None = None, is_sweep: bool = Fals
                 best_score = float(f.read().strip())
         logger.info(f"Resuming from iter {it}, best score {best_score}")
 
-    train_step = make_train_step(model, optimizer, schedule)
+    train_step = make_train_step(model, optimizer, schedule, remat=remat)
     batch_time = AverageMeter("batch_time")
     data_time = AverageMeter("data_time")
     log_metrics: dict[str, AverageMeter] = {}

@@ -9,7 +9,7 @@ mutates them in place:
     model.train()
     optimizer, schedule = build_optimizer(cfg, model.parameters())
     state = TrainState(model, optimizer)
-    step = make_train_step(model, optimizer, schedule)
+    step = make_train_step(model, optimizer, schedule, remat="none")
     loss_dict = step(state, batch, generator, use_mask_atten=False,
                      use_gt_guidance=False, use_prm_weights=True,
                      atten_loss_enabled=True)
@@ -31,6 +31,7 @@ from typing import Callable
 import torch
 import torch.nn as nn
 
+from ..models.remat import checkpointed, remat_mode
 from .optim import clip_by_global_norm_
 
 
@@ -51,12 +52,23 @@ class TrainState:
 
 
 def compute_grads(model: nn.Module, batch: dict, generator: torch.Generator | None,
-                  **flags) -> dict:
+                  remat: bool | str = "none", **flags) -> dict:
     """The train-mode forward and backward: leaves every parameter's gradient
     in ``.grad`` (zeros where the loss does not reach it) and returns the
-    loss dict, detached."""
+    loss dict, detached. ``remat`` (``models/remat.py``): ``"full"`` runs the
+    whole forward, losses included, in one checkpoint segment; ``"selective"``
+    has the model run its stages in segments of their own."""
+    mode = remat_mode(remat)
     model.zero_grad(set_to_none=True)
-    _, loss_dict = model(batch, generator=generator, **flags)
+    model.remat = "selective" if mode == "selective" else "none"
+    try:
+        if mode == "full":
+            _, loss_dict = checkpointed(model, batch, rng=generator, generator=generator,
+                                        **flags)
+        else:
+            _, loss_dict = model(batch, generator=generator, **flags)
+    finally:
+        model.remat = "none"
     loss_dict["total"].backward()
     for p in model.parameters():
         if p.grad is None:
@@ -65,10 +77,15 @@ def compute_grads(model: nn.Module, batch: dict, generator: torch.Generator | No
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
-                    schedule: Callable[[int], float]) -> Callable:
+                    schedule: Callable[[int], float], remat: bool | str = "none") -> Callable:
     """``step(state, batch, generator, *, use_mask_atten, use_gt_guidance,
     use_prm_weights, atten_loss_enabled) -> loss_dict`` for ``state.model``
-    (``model``) and ``state.optimizer`` (``optimizer``)."""
+    (``model``) and ``state.optimizer`` (``optimizer``). ``remat`` is
+    ``cfg.model.remat``: ``"none"`` (or False), ``"full"`` (or True) or
+    ``"selective"`` (``models/remat.py``); any other value raises. A remat
+    step computes what a plain step computes: the recompute replays the
+    first pass's draws, BatchNorm and spectral-norm steps."""
+    mode = remat_mode(remat)
     params = list(model.parameters())
 
     def step(state: TrainState, batch: dict, generator: torch.Generator | None, *,
@@ -78,7 +95,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             raise ValueError("the train state holds another model or optimizer than the step")
         if not model.training:
             raise ValueError("the train step needs the model in train mode (model.train())")
-        loss_dict = compute_grads(model, batch, generator, use_mask_atten=use_mask_atten,
+        loss_dict = compute_grads(model, batch, generator, mode, use_mask_atten=use_mask_atten,
                                   use_gt_guidance=use_gt_guidance,
                                   use_prm_weights=use_prm_weights,
                                   atten_loss_enabled=atten_loss_enabled)

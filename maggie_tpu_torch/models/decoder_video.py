@@ -41,7 +41,8 @@ import torch
 import torch.nn as nn
 
 from .conv_gru import ConvGRU
-from .decoder_sparse import ResShortCutInstMattSpconvDec
+from . import remat
+from .decoder_sparse import ResShortCutInstMattSpconvDec, TrainStep
 from .layers import BatchNorm, Conv2d, SNConv, per_frame
 from .losses import loss_dtssd
 from ..ops.kernels.unknown import compute_unknown
@@ -144,22 +145,29 @@ class ResShortCutInstMattSpconvTempDec(ResShortCutInstMattSpconvDec):
         frame, or None for a zero state. Train mode takes the image decoder's
         train arguments and ``spar_gt`` (b*n_f, n_i, H, W), the transition GT
         whose slot 0 supervises the change maps, and adds the fused alphas,
-        the change maps and the temporal losses."""
+        the change maps and the temporal losses (``_train_temporal``); it
+        returns no memory."""
         if not self.training:
             return self._eval_forward(x, mid_fea, b, n_f, n_i, masks, mem_feat)
-        ret, feat8, hidden = self._decode(x, mid_fea, b, n_f, n_i, masks, gt_alphas, False,
-                                          use_gt_guidance, generator, mem_feat)
-        if self.use_temp:
-            ret["mem_feat"] = hidden
+        step = TrainStep(b, n_f, masks, gt_alphas, spar_gt, False, use_gt_guidance, generator,
+                         mem_feat)
+        return self.train_forward(remat.Stages(), x, mid_fea["shortcut"], step)
+
+    # the JAX video decoder tags neither x_os8_logit nor feat8
+    # (maggie_tpu/models/decoder_video.py:154-163): under selective remat the
+    # os8 attention and rung 1 are one stage
+    tag_os8 = False
+
+    def _train_temporal(self, ret: dict, feat8, step: TrainStep) -> None:
+        b, n_f = step.b, step.n_f
         alpha = ret["refined_masks"]
         diff_fwd, diff_bwd, fused = self.bidirectional_fusion(
             feat8.detach().reshape((b, n_f) + feat8.shape[1:]),
             alpha.reshape((b, n_f) + alpha.shape[1:]))
         ret.update(temp_alpha=fused, diff_forward=torch.sigmoid(diff_fwd),
                    diff_backward=torch.sigmoid(diff_bwd))
-        if spar_gt is not None:
-            ret.update(self.loss_temporal_sparsity(diff_fwd, diff_bwd, spar_gt, b))
-        return ret
+        if step.spar_gt is not None:
+            ret.update(self.loss_temporal_sparsity(diff_fwd, diff_bwd, step.spar_gt, b))
 
     def _eval_forward(self, x, mid_fea: dict, b: int, n_f: int, n_i: int, masks,
                       mem_feat) -> dict:

@@ -21,6 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from . import remat
+
 EPS_L2NORM = 1e-12
 
 
@@ -99,7 +101,9 @@ class BatchNorm(nn.BatchNorm2d):
     ``nn.BatchNorm`` (``maggie_tpu/models/layers.py:217-239``): batch mean and
     variance over (N, H, W) as E[x^2] - E[x]^2 clipped at 0, and the running
     variance updated with that BIASED variance, where ``nn.BatchNorm2d`` would
-    take the unbiased one. The running statistics update in place."""
+    take the unbiased one. The running statistics update in place, but not
+    in a remat recompute (``remat.replaying()``), which replays a forward
+    that has already stepped them."""
 
     def __init__(self, num_features: int, zero_init: bool = False):
         super().__init__(num_features)
@@ -115,12 +119,16 @@ class BatchNorm(nn.BatchNorm2d):
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
         var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-            self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
+        if not remat.replaying():
+            self._step_stats(mean, var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
+
+    @torch.no_grad()
+    def _step_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+        self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
 
     def init_params(self, g: torch.Generator) -> None:
         (nn.init.zeros_ if self.zero_init else nn.init.ones_)(self.weight)
@@ -161,7 +169,9 @@ class _SpectralNorm(nn.Module):
     of the gradient is small: the batch statistics take sigma's scale out).
     The chain is the u of the last step (``_u_live``), used while the buffer
     holds what that step wrote; ``end_sn_chains`` cuts every chain of a
-    model at the end of its forward."""
+    model at the end of its forward. A remat recompute (``remat.py``) starts
+    each step from the u the first pass's step started from, follows its own
+    chain, and writes nothing back."""
 
     folded: bool
     _u_live: torch.Tensor | None = None
@@ -184,12 +194,22 @@ class _SpectralNorm(nn.Module):
             raise RuntimeError("a folded spectral norm has no u/v to step: train the "
                                "unfolded model (fold() is for eval)")
         w = self._w_mat()
+        replay = remat.sn_replay()
+        if replay is not None:
+            # a remat recompute: the u this step started from in the first pass
+            u = replay.sn_start(self)
+            v = _l2normalize(w.t() @ u)
+            u = _l2normalize(w @ v)
+            replay.sn_end(self, u)
+            return u @ (w @ v)
         buf = self.module.weight_u
         if self._u_live is not None and buf._version == self._u_version:
             u = self._u_live
+            remat.note_sn_start(self, None)
         else:
             # a copy: autograd keeps the old u, and the buffer is overwritten below
             u = buf.float().clone()
+            remat.note_sn_start(self, u)
         v = _l2normalize(w.t() @ u)
         u = _l2normalize(w @ v)
         with torch.no_grad():

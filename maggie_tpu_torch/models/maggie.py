@@ -15,15 +15,21 @@ In train mode (``model.train()``) it pads masks, alphas and transitions to
 ``(output, loss_dict)``: the weighted L1 + Laplacian + Sobel-gradient (+ dtSSD)
 losses at os1 (x2), os4 and os8 (``compute_loss``, ``:300-373``) and the
 attention loss. The step's flags are the JAX package's static ones
-(``:83-94``); ``generator`` feeds every random draw of the forward.
+(``:83-94``); ``generator`` feeds every random draw of the forward. Under
+``model.remat selective`` (``remat.py``; the train step sets ``self.remat``)
+the train forward runs its stages in checkpoint segments.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn as nn
 
+from . import remat
 from .aspp import ASPP
+from .decoder_sparse import TrainStep
 from .layers import end_sn_chains
 from .losses import gradient_loss, lap_loss, loss_dtssd, regression_loss
 from ..ops.resize import resize_nearest
@@ -62,6 +68,8 @@ class MaGGIe(nn.Module):
         self.loss_atten_w = float(cfg.get("loss_atten_w", 1.0))
         self.reweight_os8 = bool(cfg.get("loss_reweight_os8", True))
         self.loss_dtssd_w = float(cfg.get("loss_dtSSD_w", 1.0))
+        # "none" or "selective" (remat.py); the train step sets it for its forward
+        self.remat = "none"
 
     def _inputs(self, batch: dict, train: bool):
         """Compute-dtype NCHW frames, masks at full size, and the encoder input
@@ -107,13 +115,30 @@ class MaGGIe(nn.Module):
 
     def _train_forward(self, batch, use_mask_atten, use_gt_guidance, use_prm_weights,
                        atten_loss_enabled, generator):
-        inp, masks, gt, (b, n_f, n_i, h, w) = self._inputs(batch, train=True)
-        embedding, mid_fea = self.encoder(inp)
-        embedding = self.aspp(embedding)
-        pred = self.decoder(embedding, mid_fea, b=b, n_f=n_f, n_i=n_i, masks=masks,
-                            gt_alphas=gt["alpha"], spar_gt=gt["transition"],
-                            use_mask_atten=use_mask_atten, use_gt_guidance=use_gt_guidance,
-                            generator=generator)
+        """The train forward as the stages of selective remat (``remat.py``):
+        each in a checkpoint segment of its own when ``self.remat`` is
+        ``"selective"`` (the train step sets it), else called as it is."""
+        inp, masks, gt, dims = self._inputs(batch, train=True)
+        run = remat.Stages(self.remat == "selective", generator)
+        out, *feas = run(self._train_encode, inp)                          # stage 1
+        embedding = run(self.aspp, out)                                     # stage 2
+        finish = functools.partial(self._train_loss, gt=gt, dims=dims,
+                                   use_prm_weights=use_prm_weights,
+                                   atten_loss_enabled=atten_loss_enabled)
+        step = TrainStep(dims[0], dims[1], masks, gt["alpha"], gt["transition"], use_mask_atten,
+                         use_gt_guidance, generator, finish=finish)
+        return self.decoder.train_forward(run, embedding, feas, step)      # stages 3-6
+
+    def _train_encode(self, inp: torch.Tensor):
+        """Stage 1: the encoder's trunk output and its five shortcut features."""
+        out, mid_fea = self.encoder(inp)
+        return (out, *mid_fea["shortcut"])
+
+    def _train_loss(self, pred: dict, gt: dict, dims, use_prm_weights: bool,
+                    atten_loss_enabled: bool):
+        """The end of the last stage: ``(output, loss_dict)`` from the
+        decoder's train result."""
+        b, n_f, n_i, h, w = dims
         alpha_pred = pred["refined_masks"]
         if use_prm_weights:
             weight_os4, weight_os1 = pred["weight_os4"], pred["weight_os1"]

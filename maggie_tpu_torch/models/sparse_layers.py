@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from . import remat
 from .layers import BatchNorm, xavier_
 
 
@@ -91,7 +92,8 @@ class MaskedBatchNorm(BatchNorm):
     active sites only, the sites of ``stats_mask`` when given (the block
     ladder passes the halo-free cores of valid blocks, so that each active
     site counts once) and of ``mask`` otherwise; biased variance to
-    normalize, unbiased (count / (count - 1)) for the running estimate."""
+    normalize, unbiased (count / (count - 1)) for the running estimate,
+    which a remat recompute does not step."""
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 stats_mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -102,10 +104,9 @@ class MaskedBatchNorm(BatchNorm):
         count = torch.clamp(m.sum(), min=1.0)
         mean = (xf * m).sum(dim=(0, 2, 3)) / count
         var = ((xf - mean[:, None, None]) ** 2 * m).sum(dim=(0, 2, 3)) / count
-        with torch.no_grad():
-            unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
-            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-            self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+        if not remat.replaying():
+            with torch.no_grad():
+                self._step_stats(mean, var * count / torch.clamp(count - 1.0, min=1.0))
         y = ((xf - mean[:, None, None]) * torch.rsqrt(var + self.eps)[:, None, None]
              * self.weight[:, None, None] + self.bias[:, None, None])
         return (y * mask.float()).to(x.dtype)

@@ -509,6 +509,22 @@ cudaError_t launch(const void* g, const int* starts, const int* list, void* dfea
 #undef PULL
 }
 
+// The index pass alone: writes the CSR lists into `scratch` (see below).
+cudaError_t launch_index(const void* idx_n, const void* idx_by, const void* idx_bx, int* scratch,
+                         int cap, int N, int nby, int nbx, cudaStream_t s) {
+  const int n_tiles = N * nby * nbx;
+  const size_t smem = (static_cast<size_t>(cap) + n_tiles + 1 + kIndexThreads) * sizeof(int);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        build_tile_lists, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  build_tile_lists<<<1, kIndexThreads, smem, s>>>(
+      static_cast<const int64_t*>(idx_n), static_cast<const int64_t*>(idx_by),
+      static_cast<const int64_t*>(idx_bx), cap, N, nby, nbx, scratch, scratch + n_tiles + 1);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. g is contiguous (cap, S, S, C); indices
@@ -529,23 +545,25 @@ extern "C" int gather_patches_bwd_launch(const void* g, const void* idx_n, const
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nby = (H + block - 1) / block, nbx = (W + block - 1) / block;
-  const int n_tiles = N * nby * nbx;
   int* starts = static_cast<int*>(scratch);
-  int* list = starts + n_tiles + 1;
-  const size_t smem = (static_cast<size_t>(cap) + n_tiles + 1 + kIndexThreads) * sizeof(int);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        build_tile_lists, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  build_tile_lists<<<1, kIndexThreads, smem, s>>>(
-      static_cast<const int64_t*>(idx_n), static_cast<const int64_t*>(idx_by),
-      static_cast<const int64_t*>(idx_bx), cap, N, nby, nbx, starts, list);
-  cudaError_t err = cudaGetLastError();
+  int* list = starts + N * nby * nbx + 1;
+  cudaError_t err = launch_index(idx_n, idx_by, idx_bx, starts, cap, N, nby, nbx, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = dtype == 0 ? launch<float>(g, starts, list, dfeat, N, H, W, C, block, halo, nby, nbx,
                                    plane != 0, s)
                    : launch<__nv_bfloat16>(g, starts, list, dfeat, N, H, W, C, block, halo,
                                            nby, nbx, plane != 0, s);
   return static_cast<int>(err);
+}
+
+// The index pass of gather_patches_bwd_launch alone, with the same arguments
+// and scratch: lets a caller time it apart from the pull with CUDA events.
+extern "C" int gather_patches_bwd_index_launch(const void* idx_n, const void* idx_by,
+                                               const void* idx_bx, void* scratch, int cap,
+                                               int N, int H, int W, int block, void* stream) {
+  if (cap < 0 || N < 0 || H < 0 || W < 0 || block <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nby = (H + block - 1) / block, nbx = (W + block - 1) / block;
+  return static_cast<int>(launch_index(idx_n, idx_by, idx_bx, static_cast<int*>(scratch), cap,
+                                       N, nby, nbx, static_cast<cudaStream_t>(stream)));
 }

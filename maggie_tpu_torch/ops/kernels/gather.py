@@ -125,6 +125,7 @@ def _forward(feat, idx_n, idx_by, idx_bx, block, halo):
 # Incremented once per backward kernel launch (never by the plain twin).
 bwd_launches = 0
 _bwd_fn = None  # the C entry point, set up at first launch
+_bwd_index_fn = None  # the index pass's own entry point (timing only)
 INDEX_THREADS = 1024          # csrc/gather_patches_bwd.cu kIndexThreads
 MAX_SMEM_BYTES = 232448       # shared memory one thread block may use on the H100
 
@@ -230,6 +231,30 @@ def _launch_bwd(g, idx_n, idx_by, idx_bx, shape, block, halo, plane):
         raise RuntimeError(f"gather_patches backward kernel launch failed: cudaError {rc}")
     bwd_launches += 1
     return dfeat
+
+
+def bwd_index_pass(idx_n: torch.Tensor, idx_by: torch.Tensor, idx_bx: torch.Tensor,
+                   shape: tuple, block: int) -> torch.Tensor:
+    """The backward kernel's index pass alone, on the inputs ``_launch_bwd``
+    checks; returns its scratch (tile starts, then the lists). For timing the
+    pass apart from the pull: it is not a launch of the backward and is not
+    counted in ``bwd_launches``."""
+    global _bwd_index_fn
+    if _bwd_index_fn is None:
+        from .build import load
+        fn = load("gather_patches_bwd").gather_patches_bwd_index_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        _bwd_index_fn = fn
+    n, h, w, _ = shape
+    scratch = torch.empty(_tile_grid(shape, block)[2] + 1 + idx_n.shape[0], dtype=torch.int32,
+                          device=idx_n.device)
+    stream = torch.cuda.current_stream(idx_n.device).cuda_stream
+    rc = _bwd_index_fn(idx_n.data_ptr(), idx_by.data_ptr(), idx_bx.data_ptr(),
+                       scratch.data_ptr(), idx_n.shape[0], n, h, w, block, stream)
+    if rc != 0:
+        raise RuntimeError(f"gather_patches backward index pass launch failed: cudaError {rc}")
+    return scratch
 
 
 def gather_patches_bwd(g: torch.Tensor, idx_n: torch.Tensor, idx_by: torch.Tensor,

@@ -452,6 +452,29 @@ def test_video_train_step_on_the_card_matches_cpu(card):
     assert check["within"], check
 
 
+@pytest.mark.parametrize("kind", ["image", "video"])
+def test_remat_steps_on_the_card_match_plain(card, kind):
+    """One f32 step under ``model.remat`` full and selective on the card
+    against the plain step, full width at the reduced size (image batch 2 x
+    256x256, video batch 1 x clip 3 x 256x256): within ``chip_smoke``'s
+    STEP_* limits, the CUDA generator in the plain step's state after it, and
+    one block-index replay checked a remat step (``chip_smoke.remat_compare``)."""
+    import chip_smoke as cs
+    from maggie_tpu_torch.flagship import train_batch
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg, model, init = cs.remat_model(kind, "fp32", card)
+        batch = (train_batch(2, 256, 256, 10, seed=1) if kind == "image"
+                 else cs.video_train_batch(3, 256, seed=1))
+        out = cs.remat_compare(card, cfg, model, init, {k: v.to(card) for k, v in batch.items()})
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for mode in ("full", "selective"):
+        c = out[mode]
+        assert c["within"] and c["generator_equal"] and c["replay_checks"] == 1, (mode, c)
+
+
 def test_infeed_copies_batches_to_the_card(card):
     """The train infeed's pinned, side-stream copies: each device batch equals
     its host batch once the consumer's stream has waited on its event, and

@@ -111,8 +111,8 @@ def _recorded_steps(rec):
     ``rec["start"]`` the step, model and optimizer state of the first update."""
     make = port_train_mod.make_train_step
 
-    def recording(model, optimizer, schedule):
-        step = make(model, optimizer, schedule)
+    def recording(model, optimizer, schedule, remat="none"):
+        step = make(model, optimizer, schedule, remat)
 
         def call(state, batch, generator, **kwargs):
             if "start" not in rec:
@@ -304,7 +304,7 @@ def loops(him_root, tmp_path_factory, monkeypatch_module):
             return rec[_side]["dataset"]
         monkeypatch_module.setattr(mod, "build_dataset", counted)
 
-    def port_make(model, optimizer, schedule):
+    def port_make(model, optimizer, schedule, remat="none"):
         def step(state, batch, generator, **flags):
             r = rec["port"]
             if not r["calls"]:
@@ -464,9 +464,12 @@ def test_partial_load_copies_matching_keys_and_logs_the_rest(caplog):
 
 
 def test_main_refuses_remat(him_root, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """``model.remat`` other than none, full, selective (or False, True)
+    raises before training; the modes themselves train
+    (``tests/test_torch_remat.py``)."""
+    with pytest.raises(ValueError, match="model.remat must be one of"):
         main(["--config", CONFIG, "--device", "cpu"]
-             + _opts(him_root, tmp_path, "model.remat", "selective"))
+             + _opts(him_root, tmp_path, "model.remat", "sometimes"))
 
 
 def test_closing_the_infeed_stops_the_loader_thread():
