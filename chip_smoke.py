@@ -6,6 +6,7 @@
     python3 chip_smoke.py --video
     python3 chip_smoke.py --video-train
     python3 chip_smoke.py --remat
+    python3 chip_smoke.py --ddp
 
 The second form only answers requests 0 and 1 in f32 and bf16 and saves the
 outputs to PATH; with REF, saved by the same form from another version, it
@@ -14,7 +15,7 @@ K1's backward: its checks of phase 2 and its timing of phase 6.3 (run it in a
 copy of another version to compare the two in one call). The fourth runs the
 video path only: phase 2's video shapes and phase 8. The fifth runs video
 training only: phase 2's video train shapes and phase 9. The sixth runs
-phase 10 alone.
+phase 10 alone, the seventh phase 11 alone.
 
 Phases (any failure exits non-zero):
 1. print the card's name and power limit; build the CUDA kernels from the
@@ -128,10 +129,26 @@ Phases (any failure exits non-zero):
    model.remat selective`` on phase 7's set: launches 20 / 6 / 2 an
    iteration. The allocator maps expandable segments during the phase.
 
-Prints a ``{"kernels": [...]}`` line and the card line, and last
+11. data parallel (``maggie_tpu_torch/parallel/``): 11.1 phase 6's image
+   step (batch 2 x 512x512, 10 slots, f32) on two gloo ranks on the one card
+   (``--ddp-rank`` processes on cuda:0, a row each; NCCL refuses two ranks
+   on one device), plain and under ``model.remat selective``, against one
+   process on the card on the same global batch within phase 6's STEP_*
+   limits, the ranks' models equal bit for bit after the update, K1, its
+   backward and K2 launched 10 / 6 / 1 times (selective 20 / 6 / 2) a step
+   on each rank, and the ladder without overflow; 11.2 the video step the
+   same way on two clips of 3 frames at 512x512, a clip a rank; ms/step
+   (CUDA events, steps 2-4) and peak memory per rank beside one process's;
+   11.3 ``torchrun --standalone --nproc_per_node 1 -m maggie_tpu_torch.main``
+   (NCCL) trains phase 7's set for 4 iterations and must log the losses of
+   the same run without torchrun. ``--ddp`` runs phase 11 alone.
+
+Prints a ``{"kernels": [...]}`` line (each kernel's ``ddp_launches``: its
+launches over the ranks' checked steps of 11.1 and 11.2) and the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to output/torch_port/chip_smoke.json
-(``chip_smoke_video.json``, ``chip_smoke_video_train.json`` and
-``chip_smoke_remat.json`` for ``--video``, ``--video-train`` and ``--remat``).
+(``chip_smoke_video.json``, ``chip_smoke_video_train.json``,
+``chip_smoke_remat.json`` and ``chip_smoke_ddp.json`` for ``--video``,
+``--video-train``, ``--remat`` and ``--ddp``).
 """
 
 from __future__ import annotations
@@ -662,6 +679,11 @@ def main() -> int:
         return video_train_only(torch.device("cuda"))
     if "--remat" in sys.argv:
         return remat_only(torch.device("cuda"))
+    if "--ddp-rank" in sys.argv:
+        i = sys.argv.index("--ddp-rank")
+        return ddp_rank_main(*sys.argv[i + 1:i + 4])
+    if "--ddp" in sys.argv:
+        return ddp_only(torch.device("cuda"))
     if "--gather-bwd" in sys.argv:
         print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                          "--format=csv,noheader"], capture_output=True,
@@ -824,12 +846,18 @@ def main() -> int:
     for kern in kernels:
         kern["remat_launches"] = remat[kern["name"]]
 
+    # ---- phase 11: data parallel, two ranks on the card and torchrun ----
+    torch.cuda.empty_cache()
+    ddp = phase_ddp(dev, detail)
+    for kern in kernels:
+        kern["ddp_launches"] = ddp[kern["name"]]
+
     detail["phases_s"] = time.perf_counter() - t_start
-    print(f"phases 1-10 done in {detail['phases_s']:.1f} s (from main(), imports not counted)",
+    print(f"phases 1-11 done in {detail['phases_s']:.1f} s (from main(), imports not counted)",
           flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(detail, f, indent=1)
+        json.dump(detail, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1407,7 +1435,7 @@ def one_step(model, batch, generator, cfg, remat: str = "none") -> dict:
         losses = step(state, batch, generator, **TRAIN_FLAGS)
     finally:
         ts.clip_by_global_norm_ = clip
-    cpu = lambda d: {k: v.detach().float().cpu() for k, v in d.items()}
+    cpu = lambda d: {k: v.detach().to("cpu", torch.float32, copy=True) for k, v in d.items()}
     return {"losses": {k: float(v) for k, v in losses.items()}, "lr": schedule(0),
             "grads": dict(zip((k for k, _ in model.named_parameters()), grads)),
             "params": cpu(state.params()), "batch_stats": cpu(state.batch_stats()),
@@ -2819,6 +2847,393 @@ def remat_only(dev) -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_remat.json"), "w") as f:
         json.dump(detail, f, indent=1)
+    return 0
+
+
+# ---------------------------------------------------------------- phase 11
+# data parallel (maggie_tpu_torch/parallel/): ranks in processes of their own.
+# NCCL refuses two ranks on one card, so 11.1 and 11.2 put two gloo ranks on
+# cuda:0 (gloo all-reduces CUDA tensors through the host); 11.3 runs the CLI
+# under torchrun at world size 1 with NCCL.
+DDP_WORLD = 2
+DDP_TIMEOUT_S = 400           # a rank's whole run; the group's own timeout is shorter
+DDP_GROUP_TIMEOUT_S = 300
+DDP_TIMED_STEPS = 4           # steps 2-4 timed (CUDA events) after the checked step
+DDP_VIDEO = (3, 512)          # 11.2: one clip of 3 frames a rank (2 frames: dtSSD 0/0)
+DDP_CLI_ITERS = 4
+# 11.3: the logs print each loss's running mean with 4 decimals; two plain f32
+# steps on the card differ by 2.9e-5 in gradient (cuDNN may sum in another
+# order; PERF.md §6), so a value may round either way of a last digit: the two
+# logs have read 0 and 1e-4 apart on an H100 (PERF.md §6); a wrong loss moves
+# by far more
+DDP_LOG_ATOL = 2.5e-4
+
+
+def ddp_selection(record: list, split: int = 1):
+    """The ladder's ``select_blocks`` recording, a call at a time, the
+    capacity, the active blocks, the kept blocks and their (map, by, bx) in
+    the global batch's numbering. With ``split`` > 1 (one process) each of
+    ``split`` contiguous parts of the maps selects its own blocks at its
+    share of the capacity, as that many ranks do (the per-rank rule, ROADMAP
+    "Known differences, by design")."""
+    import maggie_tpu_torch.models.decoder_sparse as ds
+    from maggie_tpu_torch import parallel
+    select = ds.select_blocks
+
+    def recording(mask, block, cap):
+        n = mask.shape[0] // split
+        if split == 1:
+            idx_n, by, bx, valid = select(mask, block, cap)
+        else:
+            parts = [select(mask[i * n:(i + 1) * n], block, cap // split) for i in range(split)]
+            idx_n = torch.cat([q[0] + i * n for i, q in enumerate(parts)])
+            by, bx, valid = (torch.cat([q[j] for q in parts]) for j in (1, 2, 3))
+        h, w = mask.shape[1] // block, mask.shape[2] // block
+        scores = mask[:, :h * block, :w * block].reshape(-1, h, block, w, block).sum((2, 4))
+        keep = valid.nonzero()[:, 0]
+        blocks = torch.stack([idx_n[keep] + parallel.rank() * mask.shape[0], by[keep], bx[keep]], 1)
+        record.append({"cap": cap, "active": int((scores > 0).sum()), "kept": int(valid.sum()),
+                       "blocks": sorted(map(tuple, blocks.tolist()))})
+        return idx_n, by, bx, valid
+    return select, recording
+
+
+def ddp_timed_steps(model, cfg, batch, dev, remat: str) -> dict:
+    """DDP_TIMED_STEPS steps of a fresh optimizer, CUDA events around each
+    one: the median of steps 2 on, and the peak memory allocated."""
+    from maggie_tpu_torch.engine.optim import build_optimizer
+    from maggie_tpu_torch.engine.train_step import TrainState, make_train_step
+    opt, schedule = build_optimizer(cfg, model.parameters())
+    state, step = TrainState(model, opt), make_train_step(model, opt, schedule, remat=remat)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(DDP_TIMED_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, batch, gen, **TRAIN_FLAGS)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return {"ms_per_step_median": float(np.median(ms[1:])), "ms_per_step": ms,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def ddp_steps(model, cfg, batch, dev, modes, split: int = 1, timed: bool = True) -> dict:
+    """For each remat mode: one checked ``one_step`` from the same start (the
+    kernels' launches counted from 0 around it, the ladder's selections
+    recorded, ``ddp_selection``'s ``split``), then ``ddp_timed_steps``."""
+    import maggie_tpu_torch.models.decoder_sparse as ds
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    out = {}
+    for mode in modes:
+        model.load_state_dict(start)
+        torch.cuda.synchronize()
+        select, recording = ddp_selection(selections := [], split)
+        ds.select_blocks = recording
+        kg.launches = kg.bwd_launches = ku.launches = 0
+        try:
+            res = one_step(model, batch, torch.Generator().manual_seed(3), cfg, remat=mode)
+            torch.cuda.synchronize()
+        finally:
+            ds.select_blocks = select
+        res.update(launches=kernel_counts(), selections=selections)
+        if timed:
+            model.load_state_dict(start)
+            res.update(ddp_timed_steps(model, cfg, batch, dev, mode))
+        out[mode] = res
+    return out
+
+
+def ddp_rank_main(case: str, in_path: str, out_path: str) -> int:
+    """One rank of 11.1 / 11.2 (``--ddp-rank``): joins the gloo group on
+    cuda:0, takes its rows of the global batch and runs ``ddp_steps``."""
+    from datetime import timedelta
+    from maggie_tpu_torch import parallel
+    from maggie_tpu_torch.config import ConfigNode
+    from maggie_tpu_torch.models import build_model
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p = torch.load(in_path, weights_only=False)
+    dev = parallel.init_from_env(device="cuda:0", backend="gloo",
+                                 timeout=timedelta(seconds=DDP_GROUP_TIMEOUT_S))
+    try:
+        cfg = ConfigNode(p["cfg"])
+        model = build_model(cfg.model, device=dev)
+        model.load_state_dict(p["state"])
+        rows = parallel.shard_rows(p["batch"], parallel.rank(), parallel.world())
+        res = ddp_steps(model, cfg, {k: v.to(dev) for k, v in rows.items()}, dev, p["modes"])
+        torch.save(res, out_path)
+    finally:
+        parallel.destroy()
+    return 0
+
+
+def ddp_spawn(case: str, payload: dict, root: str) -> list:
+    """``case`` in DDP_WORLD processes (``chip_smoke.py --ddp-rank``) with
+    torchrun's variables; their results by rank. Any rank's failure or
+    time-out fails the script, and every process is ended."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    in_path = os.path.join(root, f"{case}_in.pt")
+    torch.save(payload, in_path)
+    procs, outs = [], []
+    for r in range(DDP_WORLD):
+        outs.append(os.path.join(root, f"{case}_rank{r}.pt"))
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DDP_WORLD), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(DDP_WORLD), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddp-rank",
+                                       case, in_path, outs[-1]], env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=DDP_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"phase 11 {case}: a rank ran past {DDP_TIMEOUT_S} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        if proc.returncode != 0:
+            fail(f"phase 11 {case}: rank {r} exited {proc.returncode}:\n{log[-3000:]}")
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def ddp_check(name: str, ranks: list, single: dict, per_step: dict,
+              top_cap: dict | None = None) -> dict:
+    """The world-2 step (the ranks' loss parts summed) against one process's
+    on the global batch within phase 6's STEP_* limits, every rank's model
+    equal bit for bit, the launches per rank, the ladder's blocks (the ranks'
+    together those of ``single``); the readings and times. ``top_cap``, one
+    process selecting the global top-cap blocks where ``single`` selected
+    per rank, gives the gap of the per-rank rule (reported)."""
+    differ = [f"{part} {k}" for part in ("params", "batch_stats", "spectral", "grads")
+              for k, v in ranks[0][part].items() if not torch.equal(v, ranks[1][part][k])]
+    if differ:
+        fail(f"phase 11 {name}: the ranks' models differ after the step at {differ[:5]}")
+    losses = {k: sum(r["losses"][k] for r in ranks) for k in ranks[0]["losses"]}
+    check = compare_steps(dict(ranks[0], losses=losses), single)
+    if not check["within"]:
+        fail(f"phase 11 {name}: world 2 differs from one process beyond the STEP_* limits: "
+             f"{check}")
+    for r, res in enumerate(ranks):
+        if res["launches"] != per_step:
+            fail(f"phase 11 {name}: rank {r} launched {res['launches']}, not {per_step}")
+    for i, want in enumerate(single["selections"]):
+        got = sorted(b for r in ranks for b in r["selections"][i]["blocks"])
+        if got != want["blocks"]:
+            fail(f"phase 11 {name}: the ranks kept other blocks than one process at the "
+                 f"ladder's call {i}")
+    check.update(launches_per_rank=[r["launches"] for r in ranks],
+                 ms_per_step_world2=[r["ms_per_step_median"] for r in ranks],
+                 ms_per_step_one_process=single["ms_per_step_median"],
+                 peak_mem_bytes_per_rank=[r["peak_mem_bytes"] for r in ranks],
+                 peak_mem_bytes_one_process=single["peak_mem_bytes"],
+                 selections_per_rank=[[{k: v for k, v in sel.items() if k != "blocks"}
+                                       for sel in r["selections"]] for r in ranks])
+    overflow = any(sel["active"] > sel["cap"] for r in ranks for sel in r["selections"])
+    if top_cap is not None:
+        kept = set(top_cap["selections"][0]["blocks"])
+        check["top_cap_gap"] = {
+            "blocks_differ": len(kept ^ set(single["selections"][0]["blocks"])),
+            "blocks_kept": len(kept),
+            "loss_rel": {k: abs(losses[k] - v) / max(abs(v), STEP_LOSS_ATOL / STEP_LOSS_RTOL)
+                         for k, v in top_cap["losses"].items()}}
+    print(f"phase 11 {name}: world 2 on one card vs one process: loss terms max rel "
+          f"{check['loss_max_rel']:.3g}, gradients rel L2 {check['grad_rel_l2']:.3g}, params max "
+          f"|d| {check['param_max_abs']:.3g}, BN stats {check['batch_stats_max_abs']:.3g}, SN "
+          f"u/v {check['spectral_max_abs']:.3g}; ranks bit-equal; launches per rank "
+          f"{check['launches_per_rank'][0]}; ladder {'overflows' if overflow else 'fits'} "
+          f"(per rank: {check['selections_per_rank'][0][0]}); ms/step ranks "
+          f"{[round(v, 3) for v in check['ms_per_step_world2']]} vs one process "
+          f"{check['ms_per_step_one_process']:.3f}; peak per rank "
+          f"{[round(v / 1e9, 3) for v in check['peak_mem_bytes_per_rank']]} GB vs one process "
+          f"{check['peak_mem_bytes_one_process'] / 1e9:.3f} GB", flush=True)
+    if "top_cap_gap" in check:
+        gap = check["top_cap_gap"]
+        print(f"  per-rank selection vs the global top-cap (the JAX package's): "
+              f"{gap['blocks_differ']} of {2 * gap['blocks_kept']} kept blocks differ, total "
+              f"loss {gap['loss_rel']['total']:.3g} relative", flush=True)
+    return check
+
+
+def ddp_logged_losses(path: str) -> dict:
+    """{iteration: {loss: value}} of a trainer log."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"Iter: (\d+)/\d+, (.*?), lr:", line)
+            if m:
+                out[int(m[1])] = {k: float(v) for k, v in
+                                  (kv.split(": ") for kv in m[2].split(", "))}
+    return out
+
+
+def ddp_cli(root: str) -> dict:
+    """11.3: ``python -m maggie_tpu_torch.main`` on phase 7's set for
+    DDP_CLI_ITERS iterations, as a user runs it (in a process of its own, so
+    that both runs take PyTorch's default TF32 settings), then the same
+    under ``torchrun --standalone --nproc_per_node 1`` (NCCL on cuda:0): the
+    same losses logged at every iteration, within DDP_LOG_ATOL."""
+    trainer_set(root)
+    opts = ["output_dir", os.path.join(root, "out"), "dataset.train.root_dir", root,
+            "dataset.train.split", "train", "dataset.test.root_dir", root,
+            "dataset.test.split", "val", "train.batch_size", str(TRAIN_BATCH),
+            "train.val_iter", "1000", "train.log_iter", "1", "test.log_iter", "1",
+            "train.max_iter", str(DDP_CLI_ITERS)]
+    cli = ["-m", "maggie_tpu_torch.main", "--config", "configs/maggie_image.yaml"] + opts
+    launchers = {"alone": [sys.executable],
+                 "torchrun": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                              "--nproc_per_node", "1"]}
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH", "")]))
+    wall = {}
+    for name, launcher in launchers.items():
+        t0 = time.perf_counter()
+        try:
+            run = subprocess.run(launcher + cli + ["name", name], env=env, capture_output=True,
+                                 text=True, timeout=DDP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"phase 11.3: the {name} run took more than {DDP_TIMEOUT_S} s")
+        wall[name] = time.perf_counter() - t0
+        if run.returncode != 0:
+            fail(f"phase 11.3: the {name} run exited {run.returncode}:\n"
+                 f"{(run.stdout + run.stderr)[-3000:]}")
+    logs = {name: ddp_logged_losses(os.path.join(root, "out", name, "log_rank0.log"))
+            for name in launchers}
+    want = list(range(1, DDP_CLI_ITERS + 1))
+    worst = 0.0
+    for name, log in logs.items():
+        if sorted(log) != want:
+            fail(f"phase 11.3: {name} logged iterations {sorted(log)}, not {want}")
+    for it in want:
+        a, b = logs["alone"][it], logs["torchrun"][it]
+        if set(a) != set(b):
+            fail(f"phase 11.3: iteration {it} logged {sorted(b)} under torchrun, {sorted(a)} alone")
+        worst = max([worst] + [abs(a[k] - b[k]) for k in a])
+    if worst > DDP_LOG_ATOL:
+        fail(f"phase 11.3: torchrun's logged losses differ from the run without it by {worst}: "
+             f"{logs}")
+    with open(os.path.join(root, "out", "torchrun", "log_rank0.log")) as f:
+        if "rank 0 of 1 on cuda:0, backend nccl" not in f.read():
+            fail("phase 11.3: the torchrun run did not log its NCCL group on cuda:0")
+    out = {"iterations": DDP_CLI_ITERS, "logged_losses_max_abs_diff": worst,
+           "total": {it: (logs["alone"][it]["total"], logs["torchrun"][it]["total"])
+                     for it in want},
+           "wall_s": wall}
+    print(f"phase 11.3: the trainer under torchrun (world 1, NCCL) logged the losses of the run "
+          f"without it at iterations {want} (max |d| {worst:.3g}); {wall['alone']:.1f} s "
+          f"alone, {wall['torchrun']:.1f} s under torchrun", flush=True)
+    return out
+
+
+def ddp_add_launches(launches: dict, ranks: list, modes) -> None:
+    for r in ranks:
+        for mode in modes:
+            for k in launches:
+                launches[k] += r[mode]["launches"][k]
+
+
+def ddp_image(dev, root: str, modes=("none", "selective")) -> tuple[dict, dict]:
+    """11.1: phase 6's image step (batch 2 x 512x512, 10 slots, f32), a row
+    a rank, on two gloo ranks on the card under each remat mode of
+    ``modes``, against one process on the card on the global batch; phase
+    6's batch overflows the ladder (every slot uncertain), so that process
+    selects blocks per rank as the ranks do, and once more globally for the
+    rule's gap. Returns the checks by mode and the ranks' launches."""
+    from maggie_tpu_torch.flagship import flagship_cfg, train_batch
+    from maggie_tpu_torch.models import build_model
+    cfg = flagship_cfg()
+    state = build_model(cfg.model, device="cpu",
+                        generator=torch.Generator().manual_seed(0)).state_dict()
+    batch = train_batch(TRAIN_BATCH, TRAIN_HW, TRAIN_HW, TRAIN_SLOTS, seed=0)
+    ranks = ddp_spawn("image", {"cfg": cfg.to_dict(), "state": state, "batch": batch,
+                                "modes": modes}, root)
+    model = build_model(cfg.model, device=dev)
+    model.load_state_dict(state)
+    on_dev = {k: v.to(dev) for k, v in batch.items()}
+    single = ddp_steps(model, cfg, on_dev, dev, modes, split=DDP_WORLD)
+    top_cap = ddp_steps(model, cfg, on_dev, dev, ("none",), timed=False)["none"]
+    del model, on_dev
+    per_step = {mode: PER_ITER if mode == "none" else remat_per_step(mode) for mode in modes}
+    out = {mode: ddp_check(f"11.1 image {mode}", [r[mode] for r in ranks], single[mode],
+                           per_step[mode], top_cap if mode == "none" else None)
+           for mode in modes}
+    launches = dict.fromkeys(PER_ITER, 0)
+    ddp_add_launches(launches, ranks, modes)
+    return out, launches
+
+
+def ddp_video(dev, root: str) -> tuple[dict, dict]:
+    """11.2: the video step (``configs/maggie_video.yaml``, f32) on two clips
+    of DDP_VIDEO frames at 512x512, a clip a rank, against one process; the
+    ladder must fit (3 instances in 10 slots)."""
+    from maggie_tpu_torch.models import build_model
+    cfg = video_train_cfg()
+    state = build_model(cfg.model, device="cpu",
+                        generator=torch.Generator().manual_seed(0)).state_dict()
+    clips = [video_train_batch(*DDP_VIDEO, seed=s) for s in (0, 1)]
+    batch = {k: torch.cat([c[k] for c in clips]) for k in clips[0]}
+    ranks = ddp_spawn("video", {"cfg": cfg.to_dict(), "state": state, "batch": batch,
+                                "modes": ("none",)}, root)
+    model = build_model(cfg.model, device=dev)
+    model.load_state_dict(state)
+    single = ddp_steps(model, cfg, {k: v.to(dev) for k, v in batch.items()}, dev, ("none",))
+    del model
+    out = ddp_check("11.2 video", [r["none"] for r in ranks], single["none"], PER_ITER)
+    if any(sel["active"] > sel["cap"] for r in out["selections_per_rank"] for sel in r):
+        fail("phase 11 11.2 video: the ladder overflowed; the clips were meant to fit")
+    launches = dict.fromkeys(PER_ITER, 0)
+    ddp_add_launches(launches, ranks, ("none",))
+    return out, launches
+
+
+def phase_ddp(dev, detail) -> dict:
+    """Phase 11: 11.1 ``ddp_image``, 11.2 ``ddp_video``, 11.3 ``ddp_cli``.
+    Returns each kernel's launches over the ranks' checked steps."""
+    import tempfile
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        out["image"], image = ddp_image(dev, root)
+        torch.cuda.empty_cache()
+        out["video"], video = ddp_video(dev, root)
+        torch.cuda.empty_cache()
+        out["cli"] = ddp_cli(root)
+    launches = {k: image[k] + video[k] for k in image}
+    out["launches"] = launches
+    detail["ddp"] = out
+    print(f"phase 11: done in {time.perf_counter() - t0:.1f} s; launches over the ranks' "
+          f"checked steps {launches}", flush=True)
+    for k, n in launches.items():
+        if n == 0:
+            fail(f"phase 11: {k} was not launched on the data-parallel path")
+    return launches
+
+
+def ddp_only(dev) -> int:
+    """``--ddp``: build the kernels, then phase 11; details to
+    output/torch_port/chip_smoke_ddp.json."""
+    from maggie_tpu_torch.ops.kernels import build
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                     "--format=csv,noheader"], capture_output=True,
+                                    text=True, check=True).stdout.strip(), flush=True)
+    build.build_all()
+    detail = {}
+    phase_ddp(dev, detail)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_ddp.json"), "w") as f:
+        json.dump(detail, f, indent=1, default=str)
     return 0
 
 

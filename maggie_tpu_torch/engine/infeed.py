@@ -42,6 +42,8 @@ class DeviceInfeed:
     def __init__(self, host_iter: Iterator[dict], device: torch.device, depth: int = 2):
         self.host_iter = host_iter
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
@@ -63,6 +65,11 @@ class DeviceInfeed:
 
     def _produce(self):
         try:
+            if self._stream is not None:
+                # this thread's current card is the infeed's (a rank's own
+                # under data parallelism): pinned buffers and copies make no
+                # context on another card
+                torch.cuda.set_device(self.device)
             for batch in self.host_iter:
                 if self._stop.is_set():
                     return

@@ -30,6 +30,7 @@ from functools import partial
 import numpy as np
 import torch
 
+from .. import parallel
 from ..data import build_dataset
 from ..data.loader import DataLoader
 from ..device import resolve_device
@@ -325,13 +326,6 @@ def eval_metrics(names: list[str]) -> dict:
     return val_error_dict
 
 
-def _process_group() -> tuple[int, int]:
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
-    return 1, 0
-
-
 def test(cfg, model=None, device=None):
     """Reference ``test`` (test.py:299-371). Returns the metric dict.
 
@@ -344,7 +338,7 @@ def test(cfg, model=None, device=None):
     dev = resolve_device(device) if model is None else _model_device(model)
     logger.info("Creating testing dataset...")
     val_dataset = build_dataset(cfg, is_train=False, device=dev)
-    nproc, pid = _process_group()
+    nproc, pid = parallel.world(), parallel.rank()
     val_loader = DataLoader(val_dataset, batch_size=cfg.test.batch_size,
                             num_shards=nproc, shard_index=pid)
 

@@ -29,6 +29,17 @@ running BatchNorm statistics, neither stepped) and returns it to train mode.
 Checkpoints: ``last_state.pt`` (``utils/checkpoint.py::save_train_state``)
 with ``best_score.txt``, ``last_step.txt`` and ``best_metrics.txt`` beside it,
 and ``best_model.npz`` in the JAX package's variables layout.
+
+Data parallel (``parallel/``; the CLI joins the group under ``torchrun``):
+``cfg.train.batch_size`` is one host's batch, as in the JAX package, so a
+rank takes ``batch_size / LOCAL_WORLD_SIZE`` rows (a ``ValueError`` where
+that does not divide: a launched rank cannot sit idle), from the train set
+sharded by global rank; the validation set is sharded under
+``train.val_dist``. The logged losses are the global batch's. Every rank
+makes the same best-score decision (the metrics are all-reduced); rank 0
+alone writes the checkpoints, the sidecars and wandb, and every rank waits
+for it after each save. A resume loads ``last_state.pt`` onto each rank's
+own device.
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ import time
 import numpy as np
 import torch
 
+from .. import parallel
 from ..data import build_dataset
 from ..data.loader import DataLoader
 from ..device import resolve_device
@@ -51,7 +63,7 @@ from ..utils.meters import AverageMeter
 from ..utils.metrics import build_metric
 from .infeed import DeviceInfeed
 from .optim import build_optimizer
-from .test import _process_group, eval_image, eval_video
+from .test import eval_image, eval_video
 from .train_step import TrainState, make_train_step
 
 logger = logging.getLogger(__name__)
@@ -99,14 +111,15 @@ def train(cfg, device=None, use_wandb: bool | None = None, is_sweep: bool = Fals
 
     dev = resolve_device(device)
     remat = remat_mode(cfg.model.get("remat", "none"))
-    nproc, pid = _process_group()
+    nproc, pid = parallel.world(), parallel.rank()
+    rank_batch = parallel.rank_batch_size(cfg.train.batch_size, parallel.local_world())
     want_wandb = use_wandb if use_wandb is not None else cfg.wandb.use
     wandb = _init_wandb(cfg, is_sweep) if want_wandb and pid == 0 else None
     seed = cfg.train.seed if cfg.train.seed >= 0 else 2023
 
     logger.info("Creating train dataset...")
     train_dataset = build_dataset(cfg, is_train=True, random_seed=seed)
-    train_loader = DataLoader(train_dataset, batch_size=cfg.train.batch_size, shuffle=True,
+    train_loader = DataLoader(train_dataset, batch_size=rank_batch, shuffle=True,
                               drop_last=True, seed=seed, num_shards=nproc, shard_index=pid,
                               infinite=True)
     logger.info("Creating val dataset...")
@@ -165,7 +178,7 @@ def train(cfg, device=None, use_wandb: bool | None = None, is_sweep: bool = Fals
     eval_fn = eval_video if cfg.dataset.test.name == "VIM" else eval_image
     out_dir = cfg.output_dir
 
-    def save_last():
+    def save_last():   # rank 0
         save_train_state(os.path.join(out_dir, "last_state.pt"), state)
         with open(os.path.join(out_dir, "best_score.txt"), "w") as f:
             f.write(str(best_score))
@@ -206,7 +219,7 @@ def train(cfg, device=None, use_wandb: bool | None = None, is_sweep: bool = Fals
                                    atten_loss_enabled=atten_loss_enabled)
 
             if it % cfg.train.log_iter == 0:
-                host_losses = {k: float(v) for k, v in loss_dict.items()}
+                host_losses = {k: float(v) for k, v in parallel.sum_values(loss_dict).items()}
                 if not np.isfinite(host_losses["total"]):
                     logger.error(f"Iter {it}: non-finite loss {host_losses['total']}")
                 for k, v in host_losses.items():
@@ -259,14 +272,17 @@ def train(cfg, device=None, use_wandb: bool | None = None, is_sweep: bool = Fals
                 if cfg.train.val_dist:
                     for v in val_error_dict.values():
                         v.gather_metric()
+                # the same decision on every rank: the metrics are the same
+                total_error = val_error_dict[cfg.train.val_best_metric].average()
+                improved, previous = total_error < best_score, best_score
+                if improved:
+                    best_score = total_error
                 if pid == 0:
                     logger.info("Validation:" + ", ".join(
                         f"{k}: {v.average():.4f}" for k, v in val_error_dict.items()))
-                    total_error = val_error_dict[cfg.train.val_best_metric].average()
-                    if total_error < best_score:
-                        logger.info(f"Best score changed from {best_score:.4f} to "
+                    if improved:
+                        logger.info(f"Best score changed from {previous:.4f} to "
                                     f"{total_error:.4f}")
-                        best_score = total_error
                         save_variables_npz(os.path.join(out_dir, "best_model.npz"), model)
                         with open(os.path.join(out_dir, "best_metrics.txt"), "w") as f:
                             f.write(f"iter: {it}\n")
@@ -277,8 +293,11 @@ def train(cfg, device=None, use_wandb: bool | None = None, is_sweep: bool = Fals
                                   | {"val/best_error": best_score, "val/iter": it})
                     logger.info("Saving the last model...")
                     save_last()
-            elif ckpt_iter and it % ckpt_iter == 0 and pid == 0:
-                save_last()
+                parallel.barrier()
+            elif ckpt_iter and it % ckpt_iter == 0:
+                if pid == 0:
+                    save_last()
+                parallel.barrier()
             end_time = time.time()
     finally:
         infeed.close()
@@ -288,10 +307,10 @@ def train(cfg, device=None, use_wandb: bool | None = None, is_sweep: bool = Fals
     if pid == 0 and batch_time.count > 0:
         meters = {
             "iters_measured": batch_time.count,
-            "batch_size": cfg.train.batch_size,
+            "batch_size": rank_batch * nproc,   # the global batch
             "batch_time_avg_s": batch_time.avg,
             "data_time_avg_s": data_time.avg,
-            "samples_per_sec_sustained": cfg.train.batch_size / batch_time.avg,
+            "samples_per_sec_sustained": rank_batch * nproc / batch_time.avg,
             "infeed_stall_frac": data_time.avg / batch_time.avg,
             "peak_mem_mb": device_peak_memory_mb(dev),
         }

@@ -21,6 +21,13 @@ flags are the JAX package's static ones; ``generator`` (a ``torch.Generator``
 on the model's device) feeds the forward's random draws. Every parameter gets
 a gradient, zero where the loss does not reach it, so that decoupled weight
 decay touches every parameter as optax's does.
+
+Under data parallelism (``parallel/``; each rank holds its rows of the global
+batch) the model's reductions are global, a rank's loss terms are its parts
+of the global batch's loss (``parallel.sum_values`` adds them up), and the
+gradients are summed over the ranks before the clip, so that every rank
+clips and steps on the global gradient and holds the same parameters. The
+step raises if the ranks disagree on the remat mode or the flags.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from typing import Callable
 import torch
 import torch.nn as nn
 
+from .. import parallel
 from ..models.remat import checkpointed, remat_mode
 from .optim import clip_by_global_norm_
 
@@ -54,10 +62,12 @@ class TrainState:
 def compute_grads(model: nn.Module, batch: dict, generator: torch.Generator | None,
                   remat: bool | str = "none", **flags) -> dict:
     """The train-mode forward and backward: leaves every parameter's gradient
-    in ``.grad`` (zeros where the loss does not reach it) and returns the
-    loss dict, detached. ``remat`` (``models/remat.py``): ``"full"`` runs the
-    whole forward, losses included, in one checkpoint segment; ``"selective"``
-    has the model run its stages in segments of their own."""
+    in ``.grad`` (zeros where the loss does not reach it; summed over the
+    ranks under data parallelism) and returns the loss dict, detached (this
+    rank's parts of the loss terms). ``remat`` (``models/remat.py``):
+    ``"full"`` runs the whole forward, losses included, in one checkpoint
+    segment; ``"selective"`` has the model run its stages in segments of
+    their own."""
     mode = remat_mode(remat)
     model.zero_grad(set_to_none=True)
     model.remat = "selective" if mode == "selective" else "none"
@@ -73,6 +83,7 @@ def compute_grads(model: nn.Module, batch: dict, generator: torch.Generator | No
     for p in model.parameters():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    parallel.all_reduce_grads(list(model.parameters()))
     return {k: v.detach() for k, v in loss_dict.items()}
 
 
@@ -95,6 +106,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             raise ValueError("the train state holds another model or optimizer than the step")
         if not model.training:
             raise ValueError("the train step needs the model in train mode (model.train())")
+        parallel.check_same("the train step's remat mode and flags",
+                            (mode, use_mask_atten, use_gt_guidance, use_prm_weights,
+                             atten_loss_enabled))
         loss_dict = compute_grads(model, batch, generator, mode, use_mask_atten=use_mask_atten,
                                   use_gt_guidance=use_gt_guidance,
                                   use_prm_weights=use_prm_weights,

@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import parallel
 from .layers import LayerNorm, Linear, xavier_
 
 
@@ -98,8 +99,12 @@ class CrossAttentionLayer(nn.Module):
 
 def dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability 1 - p (a uniform
-    draw from ``generator`` at or above p) and scale it by 1 / (1 - p)."""
-    u = torch.rand(x.shape, generator=generator, device=generator.device).to(x.device)
+    draw from ``generator`` at or above p) and scale it by 1 / (1 - p). Dim 0
+    is the batch's: under data parallelism the draw is the global batch's,
+    of which this rank keeps its rows."""
+    u = parallel.shard_draw(lambda shape: torch.rand(shape, generator=generator,
+                                                     device=generator.device), x.shape)
+    u = u.to(x.device)
     return torch.where(u >= p, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

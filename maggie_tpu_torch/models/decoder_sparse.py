@@ -41,6 +41,7 @@ from typing import Callable
 import torch
 import torch.nn as nn
 
+from .. import parallel
 from . import remat
 from .attention import FFNLayer
 from .instance_decoder import InstanceMatteDecoder
@@ -519,14 +520,15 @@ class ResShortCutInstMattSpconvDec(nn.Module):
         guided, use_gt = x_os8, None
         if step.gt_alphas is not None:
             # warmup guidance by the GT, and its rescue of an all-zero
-            # prediction (:552-558), as a select on the card
-            use_gt = (x_os8.sum() == 0) | step.use_gt_guidance
+            # prediction (:552-558), as a select on the card; both tests
+            # here are the global batch's under data parallelism
+            use_gt = (parallel.global_sum(x_os8.sum()) == 0) | step.use_gt_guidance
             guided = torch.where(use_gt, step.gt_alphas, x_os8)
         unknown_os8 = compute_unknown(guided, k_size=30)
         # an empty uncertainty map gets a fixed patch (:563-568)
         patch = torch.zeros_like(unknown_os8)
         patch[:, :, 200:250, 200:250] = 1.0
-        unknown_os8 = torch.where(unknown_os8.amax() == 0, patch, unknown_os8)
+        unknown_os8 = torch.where(parallel.global_max(unknown_os8.amax()) == 0, patch, unknown_os8)
         q = queries[:, None].expand((b, n_f) + queries.shape[1:])
         q = q.reshape((b * n_f,) + queries.shape[1:])[:, :x_os8.shape[1]]
         return x_os8, use_gt, unknown_os8, q

@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from .. import parallel
 from .conv_gru import ConvGRU
 from . import remat
 from .decoder_sparse import ResShortCutInstMattSpconvDec, TrainStep
@@ -220,8 +221,8 @@ class ResShortCutInstMattSpconvTempDec(ResShortCutInstMattSpconvDec):
         sg = spar_gt.reshape((b, -1) + spar_gt.shape[1:])[:, 1:, 0:1]   # (b, n_f-1, 1, H, W)
 
         def bce(logits, labels):
-            return (logits.clamp(min=0) - logits * labels
-                    + torch.log1p(torch.exp(-logits.abs()))).mean()
+            return parallel.global_mean(logits.clamp(min=0) - logits * labels
+                                        + torch.log1p(torch.exp(-logits.abs())))
         fwd, bwd = diff_forward[:, 1:], diff_backward[:, :-1]
         bce_sum = bce(fwd[:, :, 0], sg[:, :, 0]) + bce(bwd[:, :, 0], sg[:, :, 0])
         ones = torch.ones_like(sg)

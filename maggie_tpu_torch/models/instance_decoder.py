@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from .. import parallel
 from .attention import CrossAttentionLayer, FFNLayer, SelfAttentionLayer
 from .layers import MLP, BatchNorm, Conv2d, Embedding, LayerNorm, per_frame
 from .position_encoding import temporal_position_embedding_sine
@@ -113,7 +114,7 @@ class InstanceMatteDecoder(nn.Module):
         def atten_loss(att):
             vals = (guidance * att).sum(dim=2)
             gt = torch.where(guidance.sum(dim=2) == 0, 0.0, 1.0)
-            return (gt - vals).sum() / (n_f * b)
+            return (gt - vals).sum() / (n_f * b * parallel.world())   # the global frames
 
         # paint instance IDs onto the feature map: max over instances of mask*id
         n_i_in = mask.shape[2]

@@ -22,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from . import remat
+from .. import parallel
 
 EPS_L2NORM = 1e-12
 
@@ -103,7 +104,13 @@ class BatchNorm(nn.BatchNorm2d):
     variance updated with that BIASED variance, where ``nn.BatchNorm2d`` would
     take the unbiased one. The running statistics update in place, but not
     in a remat recompute (``remat.replaying()``), which replays a forward
-    that has already stepped them."""
+    that has already stepped them.
+
+    Under data parallelism the statistics are the global batch's, as in the
+    JAX package's sharded step, whatever ``model.sync_bn`` says: the ranks'
+    per-channel sums of x and x^2 are all-reduced (differentiably, so the
+    backward carries every rank's term) and the running statistics step from
+    the global values, equal on every rank."""
 
     def __init__(self, num_features: int, zero_init: bool = False):
         super().__init__(num_features)
@@ -117,8 +124,14 @@ class BatchNorm(nn.BatchNorm2d):
 
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if parallel.world() == 1:
+            mean = xf.mean(dim=(0, 2, 3))
+            mean_sq = (xf * xf).mean(dim=(0, 2, 3))
+        else:
+            sums = parallel.all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                                      (xf * xf).sum(dim=(0, 2, 3))]))
+            mean, mean_sq = (sums / (xf.numel() // xf.shape[1] * parallel.world())).chunk(2)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         if not remat.replaying():
             self._step_stats(mean, var)
         mul = torch.rsqrt(var + self.eps) * self.weight

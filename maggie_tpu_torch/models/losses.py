@@ -9,6 +9,13 @@
   element as the reference's ``torch.sum(mask + 1e-6)`` does.
 
 Maps are (..., h, w); ``lap_loss`` takes (n, 1, h, w). Everything runs in f32.
+
+Each loss is a masked mean, sum(...) / sum(weight). Under data parallelism
+(``parallel/``) a rank's term is its own numerator over the GLOBAL
+denominator (all-reduced, detached; an ``eps`` per element counts the global
+elements), so the ranks' terms sum to the loss of the global batch, as the
+JAX package's sharded step computes it; an unweighted mean is the local sum
+over the global count.
 """
 
 from __future__ import annotations
@@ -17,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
+
 
 def regression_loss(logit: torch.Tensor, target: torch.Tensor, loss_type: str = "l1",
                     weight: torch.Tensor | None = None) -> torch.Tensor:
@@ -24,8 +33,9 @@ def regression_loss(logit: torch.Tensor, target: torch.Tensor, loss_type: str = 
         raise NotImplementedError(loss_type)
     dist = torch.abs if loss_type == "l1" else torch.square
     if weight is None:
-        return dist(logit - target).mean()
-    return dist(logit * weight - target * weight).sum() / (weight.sum() + 1e-8)
+        return parallel.global_mean(dist(logit - target))
+    return (dist(logit * weight - target * weight).sum()
+            / (parallel.global_sum(weight.sum()) + 1e-8))
 
 
 def loss_dtssd(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -33,7 +43,8 @@ def loss_dtssd(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor) -> torc
     dadt = pred[:, 1:] - pred[:, :-1]
     dgdt = gt[:, 1:] - gt[:, :-1]
     m = mask[:, 1:]
-    return ((dadt - dgdt) ** 2 * m).sum() / (m.sum() + 1e-6 * m.numel())
+    return (((dadt - dgdt) ** 2 * m).sum()
+            / (parallel.global_sum(m.sum()) + 1e-6 * (m.numel() * parallel.world())))
 
 
 _SOBEL_X = np.array([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]], np.float32) / 8.0
@@ -55,9 +66,9 @@ def gradient_loss(logit: torch.Tensor, label: torch.Tensor, mask: torch.Tensor |
                   eps: float = 1e-6) -> torch.Tensor:
     """Reference ``GradientLoss.forward`` (loss.py:73-88)."""
     if mask is None:
-        return torch.abs(sobel_magnitude(logit) - sobel_magnitude(label)).mean()
+        return parallel.global_mean(torch.abs(sobel_magnitude(logit) - sobel_magnitude(label)))
     diff = torch.abs(sobel_magnitude(logit * mask) - sobel_magnitude(label * mask))
-    return diff.sum() / (mask.sum() + eps)
+    return diff.sum() / (parallel.global_sum(mask.sum()) + eps)
 
 
 def _conv_gauss(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
@@ -93,8 +104,8 @@ def lap_loss(inp: torch.Tensor, target: torch.Tensor, weight: torch.Tensor | Non
     w = None if weight is None else weight.float()
     for a, b in zip(pi, pt):
         if w is None:
-            total = total + torch.abs(a - b).mean()
+            total = total + parallel.global_mean(torch.abs(a - b))
         else:
-            total = total + (torch.abs(a - b) * w).sum() / (w.sum() + 1e-6)
+            total = total + (torch.abs(a - b) * w).sum() / (parallel.global_sum(w.sum()) + 1e-6)
             w = w[..., ::2, ::2]
     return total

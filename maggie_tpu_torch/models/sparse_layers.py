@@ -21,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from . import remat
+from .. import parallel
 from .layers import BatchNorm, xavier_
 
 
@@ -93,7 +94,14 @@ class MaskedBatchNorm(BatchNorm):
     ladder passes the halo-free cores of valid blocks, so that each active
     site counts once) and of ``mask`` otherwise; biased variance to
     normalize, unbiased (count / (count - 1)) for the running estimate,
-    which a remat recompute does not step."""
+    which a remat recompute does not step.
+
+    Under data parallelism the statistics are the global batch's, in the
+    JAX package's two passes: the masked sums and the counts are all-reduced
+    first and divided (a rank may hold no active site, and counts differ
+    per rank, so per-rank means are never averaged), then the masked squared
+    deviations from that global mean; the running variance's correction
+    takes the global count."""
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 stats_mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -101,9 +109,17 @@ class MaskedBatchNorm(BatchNorm):
             return super().forward(x) * mask.to(x.dtype)
         m = (mask if stats_mask is None else stats_mask).float()
         xf = x.float()
-        count = torch.clamp(m.sum(), min=1.0)
-        mean = (xf * m).sum(dim=(0, 2, 3)) / count
-        var = ((xf - mean[:, None, None]) ** 2 * m).sum(dim=(0, 2, 3)) / count
+        if parallel.world() == 1:
+            count = torch.clamp(m.sum(), min=1.0)
+            mean = (xf * m).sum(dim=(0, 2, 3)) / count
+            var = ((xf - mean[:, None, None]) ** 2 * m).sum(dim=(0, 2, 3)) / count
+        else:
+            sums = parallel.all_reduce_sum(torch.cat([(xf * m).sum(dim=(0, 2, 3)),
+                                                      m.sum().reshape(1)]))
+            count = torch.clamp(sums[-1], min=1.0)
+            mean = sums[:-1] / count
+            var = parallel.all_reduce_sum(
+                ((xf - mean[:, None, None]) ** 2 * m).sum(dim=(0, 2, 3))) / count
         if not remat.replaying():
             with torch.no_grad():
                 self._step_stats(mean, var * count / torch.clamp(count - 1.0, min=1.0))

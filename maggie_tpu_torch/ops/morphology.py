@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
+
 LOWER_THRES = 1.0 / 255.0
 UPPER_THRES = 254.0 / 255.0
 
@@ -137,7 +139,9 @@ def dilate_ellipse_random(binary: torch.Tensor, k_size: int,
     if widths is None:
         if generator is None:
             raise ValueError("dilate_ellipse_random needs widths or a torch.Generator")
-        widths = torch.randint(1, k_size, (n,), generator=generator, device=generator.device)
+        # the global batch's maps under data parallelism, then this rank's
+        widths = parallel.shard_draw(lambda shape: torch.randint(
+            1, k_size, shape, generator=generator, device=generator.device), (n,))
     kernels = bank.to(binary.device)[widths.to(binary.device) - 1]          # (n, buf, buf)
     y = F.conv2d(binary.reshape(1, n, h, w).float(), kernels[:, None], padding=buf // 2, groups=n)
     return (y > 0.5).reshape(binary.shape).to(binary.dtype)

@@ -84,12 +84,11 @@ class Metric:
         return self.score / (self.count + 1e-6)
 
     def gather_metric(self):
-        import torch.distributed as dist
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            t = torch.tensor([self.score, self.count], dtype=torch.float64)
-            if dist.get_backend() == "nccl":
-                t = t.cuda()
-            dist.all_reduce(t)
+        """Sum the score and the count over the ranks (``parallel/``)."""
+        from .. import parallel
+        if parallel.world() > 1:
+            t = parallel.host_all_reduce(torch.tensor([self.score, self.count],
+                                                      dtype=torch.float64))
             self.score, self.count = float(t[0]), float(t[1])
 
 

@@ -493,3 +493,24 @@ def test_infeed_copies_batches_to_the_card(card):
     next(feed)
     feed.close()
     assert not feed._thread.is_alive() and feed._q.empty()
+
+
+def test_ddp_two_ranks_on_the_card_match_one_process(card, tmp_path):
+    """``chip_smoke.py`` phase 11.1 (``chip_smoke.ddp_image``): phase 6's
+    image step on two gloo ranks on the card, a row each, plain and under
+    ``model.remat selective``, against one process on the global batch
+    within the STEP_* limits; the ranks' models equal bit for bit; K1, its
+    backward and K2 launched 10 / 6 / 1 (selective 20 / 6 / 2) times a step
+    on each rank. TF32 is off for the comparison, as the script sets it."""
+    import chip_smoke as cs
+    from maggie_tpu_torch.ops.kernels import build
+    build.build_all()
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        checks, launches = cs.ddp_image(card, str(tmp_path))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert all(c["within"] for c in checks.values()), checks
+    assert launches == {"gather_patches": 2 * (10 + 20), "gather_patches_bwd": 2 * (6 + 6),
+                        "compute_unknown": 2 * (1 + 2)}
