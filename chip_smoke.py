@@ -7,6 +7,7 @@
     python3 chip_smoke.py --video-train
     python3 chip_smoke.py --remat
     python3 chip_smoke.py --ddp
+    python3 chip_smoke.py --baselines
 
 The second form only answers requests 0 and 1 in f32 and bf16 and saves the
 outputs to PATH; with REF, saved by the same form from another version, it
@@ -15,7 +16,7 @@ K1's backward: its checks of phase 2 and its timing of phase 6.3 (run it in a
 copy of another version to compare the two in one call). The fourth runs the
 video path only: phase 2's video shapes and phase 8. The fifth runs video
 training only: phase 2's video train shapes and phase 9. The sixth runs
-phase 10 alone, the seventh phase 11 alone.
+phase 10 alone, the seventh phase 11 alone, the eighth phase 12 alone.
 
 Phases (any failure exits non-zero):
 1. print the card's name and power limit; build the CUDA kernels from the
@@ -142,13 +143,30 @@ Phases (any failure exits non-zero):
    11.3 ``torchrun --standalone --nproc_per_node 1 -m maggie_tpu_torch.main``
    (NCCL) trains phase 7's set for 4 iterations and must log the losses of
    the same run without torchrun. ``--ddp`` runs phase 11 alone.
+12. the MGM baseline family (``configs/mgm*.yaml``) at full width from seed
+   0: 12.1 ``mgm`` (arch MGM_SingInst) and ``mgm_stacked`` answer 4 frames
+   (576x1024, 3 blob instances) in f32 with TF32 off, K2 launched twice a
+   harness forward (the fusion's k=30 and k=15; a forward per instance for
+   the SingInst arch) and K1 never, one frame held against the CPU port at
+   phase 3's rule, ms/frame f32 and bf16, bf16 vs f32, peak memory; 12.2
+   ``mgm_tcvom`` and ``mgm_stacked_tcvom`` stream one 576x1024 video of 5
+   frames through ``eval_video`` (3 windows of 3 frames; the whole forward
+   on every window), the same launch rule, window 0 against the CPU port,
+   ms/window (beside the window's frames encoded in one batch, as the JAX
+   package does), peak memory; K2 against its twin at each config's shapes;
+   12.3 one f32 train step of ``mgm_stacked`` (batch 2 x 512x512) and of
+   ``mgm_tcvom`` (batch 1 x clip 8 x 512x512) on the card against the CPU
+   port within phase 6's STEP_* limits, then ms/step and peak memory.
+   ``--baselines`` runs phase 12 alone.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's ``ddp_launches``: its
-launches over the ranks' checked steps of 11.1 and 11.2) and the card line, and last
+launches over the ranks' checked steps of 11.1 and 11.2; ``baseline_launches``:
+phase 12.1's and 12.2's) and the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to output/torch_port/chip_smoke.json
 (``chip_smoke_video.json``, ``chip_smoke_video_train.json``,
-``chip_smoke_remat.json`` and ``chip_smoke_ddp.json`` for ``--video``,
-``--video-train``, ``--remat`` and ``--ddp``).
+``chip_smoke_remat.json``, ``chip_smoke_ddp.json`` and
+``chip_smoke_baselines.json`` for ``--video``,
+``--video-train``, ``--remat``, ``--ddp`` and ``--baselines``).
 """
 
 from __future__ import annotations
@@ -684,6 +702,8 @@ def main() -> int:
         return ddp_rank_main(*sys.argv[i + 1:i + 4])
     if "--ddp" in sys.argv:
         return ddp_only(torch.device("cuda"))
+    if "--baselines" in sys.argv:
+        return baselines_only(torch.device("cuda"))
     if "--gather-bwd" in sys.argv:
         print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                          "--format=csv,noheader"], capture_output=True,
@@ -852,8 +872,14 @@ def main() -> int:
     for kern in kernels:
         kern["ddp_launches"] = ddp[kern["name"]]
 
+    # ---- phase 12: the MGM baseline family ----
+    torch.cuda.empty_cache()
+    baselines = phase_baselines(dev, detail)
+    for kern in kernels:
+        kern["baseline_launches"] = baselines["launches"].get(kern["name"], 0)
+
     detail["phases_s"] = time.perf_counter() - t_start
-    print(f"phases 1-11 done in {detail['phases_s']:.1f} s (from main(), imports not counted)",
+    print(f"phases 1-12 done in {detail['phases_s']:.1f} s (from main(), imports not counted)",
           flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -3233,6 +3259,395 @@ def ddp_only(dev) -> int:
     phase_ddp(dev, detail)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_ddp.json"), "w") as f:
+        json.dump(detail, f, indent=1, default=str)
+    return 0
+
+
+# ---------------------------------------------------------------- phase 12
+# The MGM baseline family (configs/mgm*.yaml) at full width from seed 0,
+# spectral norm folded for eval: the image configs answer BASE_REQUESTS
+# frames (576x1024, N_INST blob instances) in f32 and bf16, the video configs
+# stream one 576x1024 video of BASE_VIDEO_FRAMES frames through eval_video
+# (3-frame windows, overlap 2); then one f32 train step of mgm_stacked and of
+# mgm_tcvom each on the card and on the CPU. The family's decoders have no
+# fusion of their own: the harness's (MaGGIe.fuse) launches K2 twice a
+# forward, k=30 then k=15, and once per instance for the SingInst archs,
+# which run one instance at a time; K1 never launches.
+BASE_IMAGE = ("mgm", "mgm_stacked")
+BASE_VIDEO = ("mgm_tcvom", "mgm_stacked_tcvom")
+BASE_SINGLE = ("mgm", "mgm_tcvom")           # arch MGM_SingInst / TCVOM_SingInst
+BASE_REQUESTS = 4
+BASE_VIDEO_FRAMES = 5                         # 3 windows of 3 frames
+BASE_TIMING_REPS = 3
+# (config, batch, clip, size): the yamls' crops and clip, a smaller batch
+BASE_TRAIN = (("mgm_stacked", 2, 1, 512), ("mgm_tcvom", 1, 8, 512))
+BASE_TRAIN_STEPS = 3
+# the card-vs-CPU rule of phase 3 on the family's outputs: the alphas within
+# REFINED_ATOL, except where a discrete threshold may have flipped between the
+# two: the pixels within the k=30 band's reach (width 15) of an os8 or os4
+# alpha within NEAR of K2's thresholds, and for TCVOM within BASE_BAND_REACH
+# of a first-pass os1 alpha within NEAR of the FAM band's 0.01 and 0.99 (its
+# 15x15 max pool, one os8 site, and the decoder's receptive field after it)
+BASE_BAND_REACH = 63
+
+
+def base_cfg(name: str, precision: str = "fp32"):
+    from maggie_tpu_torch.config import load_config
+    cfg = load_config(os.path.join("configs", f"{name}.yaml"))
+    cfg.model.precision = precision
+    return cfg
+
+
+def base_eval_models(name: str, dev, bf16: bool = False):
+    """``name``'s model from seed 0, SN folded: on the CPU, its copy on
+    ``dev`` in f32, and (``bf16``) on ``dev`` in bf16 with the same weights."""
+    from maggie_tpu_torch.models import build_model
+    from maggie_tpu_torch.utils.checkpoint import fold_spectral_norm
+    cpu = build_model(base_cfg(name).model, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    fold_spectral_norm(cpu)
+    out = [cpu, copy.deepcopy(cpu).to(dev)]
+    if bf16:
+        half = build_model(base_cfg(name, "bf16").model, device="cpu")
+        fold_spectral_norm(half)
+        half.load_state_dict(cpu.state_dict())
+        out.append(half.to(dev))
+    return out
+
+
+class K2Spy:
+    """Counts and keeps (a copy of) what K2 gets on the harness's fusion
+    (``models.maggie.compute_unknown``), and each first-pass os1 alpha that
+    draws TCVOM's band; the calls go on to the real functions."""
+
+    def __init__(self, keep: int = 2):
+        self.keep, self.k2, self.band = keep, [], []
+
+    def __enter__(self):
+        import maggie_tpu_torch.models.maggie as mg
+        from maggie_tpu_torch.models.tcvom import TCVOM
+        self.mg, self.tcvom = mg, TCVOM
+        self.unknown, self.dilate = mg.compute_unknown, TCVOM.dilate
+
+        def unknown(a, k):
+            if len(self.k2) < self.keep:
+                self.k2.append((a.detach().clone(), k))
+            return self.unknown(a, k)
+
+        def dilate(a):
+            self.band.append(a.detach().clone())
+            return self.dilate(a)
+        mg.compute_unknown = unknown
+        TCVOM.dilate = staticmethod(dilate)
+        return self
+
+    def __exit__(self, *exc):
+        self.mg.compute_unknown = self.unknown
+        self.tcvom.dilate = staticmethod(self.dilate)
+
+
+def base_cpu_check(card_out: dict, cpu_out: dict, bands=()) -> dict:
+    """Phase 3's rule on one frame or window of the family (see
+    BASE_BAND_REACH); ``bands`` the CPU run's first-pass os1 alphas."""
+    from maggie_tpu_torch.ops.morphology import LOWER_THRES, UPPER_THRES, dilate_ellipse
+    near = lambda a, lo, hi: ((a - lo).abs() < NEAR) | ((a - hi).abs() < NEAR)
+    a8, a4 = cpu_out["alpha_os8"], cpu_out["alpha_os4"]
+    k2_near = near(a8, LOWER_THRES, UPPER_THRES) | near(a4, LOWER_THRES, UPPER_THRES)
+    allowed = dilate_ellipse(k2_near.float(), 15) > 0
+    band_near = 0
+    for a1 in bands:                                   # (b*n_f, slots, H, W)
+        m = near(a1, 0.01, 0.99).amax(dim=1)           # any slot
+        band_near += int(m.sum())
+        if bool(m.any()):
+            reach = torch.nn.functional.max_pool2d(m[:, None].float(), 2 * BASE_BAND_REACH + 1,
+                                                   1, BASE_BAND_REACH)[:, 0] > 0
+            allowed = allowed | reach.reshape((1, -1, 1) + reach.shape[-2:])
+    out = {"k2_near_threshold_pixels": int(k2_near.sum()), "band_near_threshold_pixels": band_near}
+    for k in ("alpha_os1", "alpha_os4", "alpha_os8", "refined_masks"):
+        err = (card_out[k].float().cpu() - cpu_out[k]).abs()
+        outside = err[~allowed.expand_as(err)]
+        out[k] = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+                  "max_abs_err_outside_flips": float(outside.max()) if outside.numel() else 0.0}
+        if out[k]["max_abs_err_outside_flips"] > REFINED_ATOL:
+            fail(f"phase 12: {k} differs from the CPU port by "
+                 f"{out[k]['max_abs_err_outside_flips']} > {REFINED_ATOL} outside the pixels "
+                 f"that near-threshold values explain ({out})")
+    return out
+
+
+def base_check_outputs(label: str, outs: list, shape: tuple) -> None:
+    for i, o in enumerate(outs):
+        if sorted(o) != ["alpha_os1", "alpha_os4", "alpha_os8", "refined_masks"]:
+            fail(f"phase 12 {label}: output {i} has keys {sorted(o)}")
+        for k, v in o.items():
+            if tuple(v.shape) != shape or not bool(torch.isfinite(v).all()):
+                fail(f"phase 12 {label}: output {i} {k} has shape {tuple(v.shape)} (want "
+                     f"{shape}) or non-finite values")
+        r = o["refined_masks"]
+        if float(r.min()) < 0 or float(r.max()) > 1:
+            fail(f"phase 12 {label}: refined_masks outside [0, 1]")
+
+
+def base_k2_twins(spy: K2Spy, label: str, out: dict, worst: dict) -> None:
+    """K2 at the shapes this config gave it, against its plain twin."""
+    for a, k in spy.k2:
+        check_unknown(a, k, f"{label} {tuple(a.shape)}", out, worst)
+
+
+def base_image(name: str, dev, checks: dict, worst: dict) -> dict:
+    """12.1: ``name`` answers BASE_REQUESTS frames in f32; launches, one frame
+    against the CPU port, ms/frame f32 and bf16, bf16 vs f32, peak memory."""
+    from maggie_tpu_torch.flagship import blob_batch
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+    cpu, model, half = base_eval_models(name, dev, bf16=True)
+    requests = [{k: v.to(dev) for k, v in blob_batch(H, W, N_INST, seed).items()}
+                for seed in range(BASE_REQUESTS)]
+    forwards = BASE_REQUESTS * (N_INST if name in BASE_SINGLE else 1)
+    torch.cuda.synchronize()
+    with K2Spy() as spy, torch.inference_mode():
+        kg.launches = ku.launches = 0
+        outs = [model(r) for r in requests]
+        torch.cuda.synchronize()
+        launches = {"gather_patches": kg.launches, "compute_unknown": ku.launches}
+    want = {"gather_patches": 0, "compute_unknown": 2 * forwards}
+    if launches != want:
+        fail(f"phase 12 {name}: launches {launches} != {want} over {BASE_REQUESTS} frames")
+    base_check_outputs(name, outs, (1, 1, N_INST, H, W))
+    base_k2_twins(spy, name, checks, worst)
+    with torch.inference_mode():
+        cpu_out = cpu(blob_batch(H, W, N_INST, 0))
+    check = base_cpu_check(outs[0], cpu_out)
+    timing = {}
+    with torch.inference_mode():
+        for prec, m in (("fp32", model), ("bf16", half)):
+            reps = [cuda_ms(lambda: m(requests[0]), iters=5, warmup=2 if not i else 1)
+                    for i in range(BASE_TIMING_REPS)]
+            timing[prec] = {"ms_per_frame_median": float(np.median(reps)), "reps_ms": reps}
+        torch.cuda.reset_peak_memory_stats()
+        model(requests[0])
+        timing["fp32"]["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        bf = half(requests[0])
+        timing["bf16"]["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    base_check_outputs(f"{name} bf16", [bf], (1, 1, N_INST, H, W))
+    d = (bf["refined_masks"].float() - outs[0]["refined_masks"]).abs()
+    timing["bf16_vs_fp32"] = {"mean_abs": float(d.mean()), "max_abs": float(d.max()),
+                              "far_share": float((d > BF16_FAR).float().mean())}
+    print(f"phase 12 {name}: {BASE_REQUESTS} frames ({H}x{W}, {N_INST} instances), launches "
+          f"{launches}; CPU check {check['refined_masks']} (near K2's thresholds "
+          f"{check['k2_near_threshold_pixels']} px); f32 "
+          f"{timing['fp32']['ms_per_frame_median']:.3f} ms/frame, peak "
+          f"{timing['fp32']['peak_mem_bytes'] / 1e9:.3f} GB; bf16 "
+          f"{timing['bf16']['ms_per_frame_median']:.3f} ms/frame, peak "
+          f"{timing['bf16']['peak_mem_bytes'] / 1e9:.3f} GB; bf16 vs f32 "
+          f"{timing['bf16_vs_fp32']}", flush=True)
+    return {"launches": launches, "forwards": forwards, "cpu_check": check, "timing": timing}
+
+
+def base_video(name: str, dev, root: str, checks: dict, worst: dict) -> dict:
+    """12.2: ``eval_video`` streams the set's video through ``name`` (the
+    whole forward on every window: TCVOM does not split); launches, metrics,
+    window 0 against the CPU port, ms/window, peak memory."""
+    from maggie_tpu_torch.data import build_dataset
+    from maggie_tpu_torch.data.loader import DataLoader
+    from maggie_tpu_torch.engine.test import eval_video
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+    from maggie_tpu_torch.utils.metrics import build_metric
+    cfg = base_cfg(name)
+    cfg.dataset.test.root_dir, cfg.dataset.test.split = root, "chip"
+    loader = DataLoader(build_dataset(cfg, is_train=False, device=dev), batch_size=1)
+    cpu, model = base_eval_models(name, dev)
+    windows = BASE_VIDEO_FRAMES - VIDEO_FRAMES + 1
+    forwards = windows * (N_INST if name in BASE_SINGLE else 1)
+    metrics = build_metric(["MAD", "MSE", "SAD", "dtSSD"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with K2Spy() as spy:
+        kg.launches = ku.launches = 0
+        t0 = time.perf_counter()
+        batch_s, data_s, host_s = eval_video(model, loader, 100, metrics)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"gather_patches": kg.launches, "compute_unknown": ku.launches}
+    peak = torch.cuda.max_memory_allocated()
+    want = {"gather_patches": 0, "compute_unknown": 2 * forwards}
+    if launches != want:
+        fail(f"phase 12 {name}: eval_video launches {launches} != {want} over {windows} windows")
+    values = {k: v.average() for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in values.values()):
+        fail(f"phase 12 {name}: non-finite metrics {values}")
+    base_k2_twins(spy, name, checks, worst)
+    win = {k: torch.as_tensor(v)[:, :VIDEO_FRAMES].to(dev)
+           for k, v in next(iter(loader)).items() if k in ("image", "mask")}
+    with torch.inference_mode():
+        card_out = model(win)
+    with K2Spy() as cpu_spy, torch.inference_mode():
+        cpu_out = cpu({k: v.cpu() for k, v in win.items()})
+    base_check_outputs(name, [card_out], (1, VIDEO_FRAMES) + tuple(win["mask"].shape[2:3]) + (H, W))
+    check = base_cpu_check(card_out, cpu_out, cpu_spy.band)
+    timed = base_window_times(model, win)
+    reps = timed["frame_at_a_time"]
+    out = {"launches": launches, "forwards": forwards, "windows": windows, "metrics": values,
+           "cpu_check": check, "ms_per_window_median": float(np.median(reps)), "reps_ms": reps,
+           "batched_encoder_ms_per_window_median": float(np.median(timed["batched"])),
+           "batched_encoder_reps_ms": timed["batched"],
+           "engine": {"batch_time_s": batch_s, "data_time_s": data_s, "host_time_s": host_s,
+                      "wall_s": wall}, "peak_mem_bytes": peak}
+    print(f"phase 12 {name}: eval_video over {BASE_VIDEO_FRAMES} frames ({windows} windows of "
+          f"{VIDEO_FRAMES}, {H}x{W}, {win['mask'].shape[2]} instances), launches {launches}; "
+          f"metrics {values}; CPU check window 0 {check['refined_masks']} (near thresholds: "
+          f"K2 {check['k2_near_threshold_pixels']} px, band "
+          f"{check['band_near_threshold_pixels']} px); {out['ms_per_window_median']:.3f} "
+          f"ms/window (the window's frames encoded at once: "
+          f"{out['batched_encoder_ms_per_window_median']:.3f}), engine {wall:.2f} s, peak "
+          f"{peak / 1e9:.3f} GB", flush=True)
+    return out
+
+
+def base_window_times(model, win: dict) -> dict:
+    """ms per window of TCVOM's eval forward as it runs (the encoder a frame
+    at a time, ``TCVOM._encoded``) and with the window's frames encoded in
+    one batch, as the JAX package does, in turns (one, batched, batched,
+    one, ...): BASE_TIMING_REPS of each."""
+    from maggie_tpu_torch.models.tcvom import TCVOM
+    per_frame = TCVOM._encoded
+
+    def batched(self, inp, train):
+        out, mid_fea = self.encoder(inp)
+        return self.aspp(out), mid_fea["shortcut"]
+    times = {"frame_at_a_time": [], "batched": []}
+    order = ["frame_at_a_time", "batched", "batched", "frame_at_a_time"]
+    with torch.inference_mode():
+        for i in range(2 * BASE_TIMING_REPS):
+            kind = order[i % 4]
+            TCVOM._encoded = per_frame if kind == "frame_at_a_time" else batched
+            try:
+                times[kind].append(cuda_ms(lambda: model(win), iters=3, warmup=1))
+            finally:
+                TCVOM._encoded = per_frame
+    return times
+
+
+def base_train_batch(b: int, n_f: int, hw: int, slots: int, seed: int = 0) -> dict:
+    """Moving soft discs in min(N_INST, slots) of ``slots`` slots; masks the
+    alphas above 0.5, transitions their edges; uniform frames."""
+    n_i = min(N_INST, slots)
+    alpha = np.zeros((b, n_f, slots, hw, hw), np.float32)
+    for i in range(b):
+        alpha[i, :, :n_i] = video_alphas(n_f, hw, hw, n_i=n_i, seed=seed + i)[0]
+    rs = np.random.RandomState(seed + 100)
+    batch = {"image": rs.rand(b, n_f, hw, hw, 3).astype(np.float32),
+             "mask": (alpha > 0.5).astype(np.float32), "alpha": alpha,
+             "transition": ((alpha > 0) & (alpha < 1)).astype(np.float32)}
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def base_train(name: str, b: int, n_f: int, hw: int, dev) -> dict:
+    """12.3: one f32 step of ``name`` on the card against the CPU port (the
+    random widths from CPU generators of one seed on both sides) within phase
+    6's STEP_* limits, then BASE_TRAIN_STEPS steps on the card: ms/step
+    (steps after the first), peak memory, launches."""
+    from maggie_tpu_torch.engine.optim import build_optimizer
+    from maggie_tpu_torch.engine.train_step import TrainState, make_train_step
+    from maggie_tpu_torch.models import build_model
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+    cfg = base_cfg(name)
+    slots = int(cfg.model.encoder_args.num_mask)
+    batch = base_train_batch(b, n_f, hw, slots)
+    cpu_model = build_model(cfg.model, device="cpu", generator=torch.Generator().manual_seed(0))
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    t0 = time.perf_counter()
+    cpu = one_step(cpu_model, batch, torch.Generator().manual_seed(3), cfg)
+    cpu_s = time.perf_counter() - t0
+    dbatch = {k: v.to(dev) for k, v in batch.items()}
+    card = one_step(card_model, dbatch, torch.Generator().manual_seed(3), cfg)
+    check = compare_steps(card, cpu)
+    del cpu_model, cpu
+    if not check["within"]:
+        fail(f"phase 12 {name}: the card's step differs from the CPU port's beyond phase 6's "
+             f"STEP_* limits: {check}")
+    model = build_model(cfg.model, device=dev, generator=torch.Generator().manual_seed(0)).train()
+    opt, schedule = build_optimizer(cfg, model.parameters())
+    state, step = TrainState(model, opt), make_train_step(model, opt, schedule)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kg.launches = kg.bwd_launches = ku.launches = 0
+    ms, losses = [], []
+    for _ in range(BASE_TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ld = step(state, dbatch, gen, **TRAIN_FLAGS)
+        end.record()
+        losses.append({k: float(v) for k, v in ld.items()})
+        ms.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    launches = {"gather_patches": kg.launches, "gather_patches_bwd": kg.bwd_launches,
+                "compute_unknown": ku.launches}
+    if not all(np.isfinite(v) for ld in losses for v in ld.values()):
+        fail(f"phase 12 {name}: non-finite losses {losses}")
+    if any(launches.values()):
+        fail(f"phase 12 {name}: the train step launched {launches}; the family's train "
+             f"fusion dilates with random widths in plain torch")
+    out = {"size": f"batch {b} x clip {n_f} x {hw}x{hw}, {slots} slots", "check": check,
+           "cpu_step_s": cpu_s, "losses_card": card["losses"], "losses": losses,
+           "ms_per_step_median": float(np.median(ms[1:])), "ms_per_step": ms,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches}
+    print(f"phase 12 {name} train ({out['size']}, f32): card vs CPU loss terms max rel "
+          f"{check['loss_max_rel']:.3g}, gradients rel L2 {check['grad_rel_l2']:.3g}, params max "
+          f"|d| {check['param_max_abs']:.3g}, BN stats {check['batch_stats_max_abs']:.3g}, SN u/v "
+          f"{check['spectral_max_abs']:.3g} (CPU step {cpu_s:.1f} s); "
+          f"{out['ms_per_step_median']:.3f} ms/step, peak {out['peak_mem_bytes'] / 1e9:.3f} GB, "
+          f"launches {launches}", flush=True)
+    return out
+
+
+def phase_baselines(dev, detail) -> dict:
+    """Phase 12: 12.1 ``base_image`` per image config, 12.2 ``base_video`` per
+    video config, 12.3 ``base_train``; K2 held against its twin at each
+    config's shapes. Returns each kernel's launches over the counted runs."""
+    import tempfile
+    t0 = time.perf_counter()
+    checks, worst = {"unknown": []}, {"unknown": 0.0}
+    out = {}
+    for name in BASE_IMAGE:
+        out[name] = base_image(name, dev, checks, worst)
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        video_set(root, (("vid0", BASE_VIDEO_FRAMES),))
+        for name in BASE_VIDEO:
+            out[name] = base_video(name, dev, root, checks, worst)
+            torch.cuda.empty_cache()
+    out["train"] = {}
+    for name, b, n_f, hw in BASE_TRAIN:
+        out["train"][name] = base_train(name, b, n_f, hw, dev)
+        torch.cuda.empty_cache()
+    launches = {k: sum(out[n]["launches"][k] for n in BASE_IMAGE + BASE_VIDEO)
+                for k in ("gather_patches", "compute_unknown")}
+    out.update(launches=launches, kernel_checks=checks, k2_max_abs_err=worst["unknown"],
+               phase_s=time.perf_counter() - t0)
+    detail["baselines"] = out
+    print(f"phase 12: K2 equal to its plain twin at the family's {len(checks['unknown'])} "
+          f"shapes; launches {launches}; done in {out['phase_s']:.1f} s", flush=True)
+    if launches["compute_unknown"] == 0:
+        fail("phase 12: compute_unknown was not launched on the baselines' path")
+    return out
+
+
+def baselines_only(dev) -> int:
+    """``--baselines``: build the kernels, then phase 12; details to
+    output/torch_port/chip_smoke_baselines.json."""
+    from maggie_tpu_torch.ops.kernels import build
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                     "--format=csv,noheader"], capture_output=True,
+                                    text=True, check=True).stdout.strip(), flush=True)
+    build.build_all()
+    detail = {}
+    phase_baselines(dev, detail)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_baselines.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
     return 0
 

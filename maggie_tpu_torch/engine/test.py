@@ -197,6 +197,8 @@ def eval_video(model, val_loader, log_iter, val_error_dict, do_postprocessing=Fa
     ``skip`` frames a window adds, and the feature pack of the others rolls
     over from the previous window (``MaGGIe.encode_frames`` /
     ``decode_window``); the result is the monolithic forward's bit for bit.
+    Archs whose forward is not that split (``split_eval`` False: TCVOM, the
+    SingInst wrappers) run the whole forward on every window.
     A window without any mask is skipped, as in the reference, and the next
     one is encoded whole.
 
@@ -208,7 +210,10 @@ def eval_video(model, val_loader, log_iter, val_error_dict, do_postprocessing=Fa
     batch_time = AverageMeter("batch_time")
     data_time = AverageMeter("data_time")
     host_time = AverageMeter("host_time")
-    use_cache = bool(cache_features) and hasattr(model, "encode_frames")
+    # only where the forward is encode_frames then decode_window (TCVOM's and
+    # the SingInst wrappers' are not; the JAX package's hasattr test takes
+    # TCVOM's split, which skips its FAM pass: ROADMAP.md queue 3)
+    use_cache = bool(cache_features) and getattr(model, "split_eval", False)
     # device-side stream state, advanced as windows are launched
     mem_feats = prev_pred = feat_cache = None
     # host-side metric state, advanced as windows are processed, in order

@@ -68,7 +68,7 @@ def compute_grads(model: nn.Module, batch: dict, generator: torch.Generator | No
     ``"full"`` runs the whole forward, losses included, in one checkpoint
     segment; ``"selective"`` has the model run its stages in segments of
     their own."""
-    mode = remat_mode(remat)
+    mode = _checked_remat(model, remat)
     model.zero_grad(set_to_none=True)
     model.remat = "selective" if mode == "selective" else "none"
     try:
@@ -87,6 +87,17 @@ def compute_grads(model: nn.Module, batch: dict, generator: torch.Generator | No
     return {k: v.detach() for k, v in loss_dict.items()}
 
 
+def _checked_remat(model: nn.Module, remat: bool | str) -> str:
+    """``remat`` as a mode; anything but ``"none"`` raises for a model whose
+    remat is not ported (the MGM family's)."""
+    mode = remat_mode(remat)
+    if mode != "none" and not getattr(model, "remat_supported", True):
+        raise NotImplementedError(
+            f"model.remat {mode!r} is not ported for the MGM family's decoders yet "
+            f"(ROADMAP.md queue 1 item 12e); train them with model.remat none")
+    return mode
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     schedule: Callable[[int], float], remat: bool | str = "none") -> Callable:
     """``step(state, batch, generator, *, use_mask_atten, use_gt_guidance,
@@ -95,8 +106,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     ``cfg.model.remat``: ``"none"`` (or False), ``"full"`` (or True) or
     ``"selective"`` (``models/remat.py``); any other value raises. A remat
     step computes what a plain step computes: the recompute replays the
-    first pass's draws, BatchNorm and spectral-norm steps."""
-    mode = remat_mode(remat)
+    first pass's draws, BatchNorm and spectral-norm steps. The MGM family
+    trains without remat (``"none"``; any other mode raises)."""
+    mode = _checked_remat(model, remat)
     params = list(model.parameters())
 
     def step(state: TrainState, batch: dict, generator: torch.Generator | None, *,

@@ -1,6 +1,7 @@
-"""Model registries of the port: the MaGGIe image model (arch ``MaGGIe``) and
-the MaGGIe video model (arch ``MaGGIe_Temp``), eval and train; every other
-name raises and points to ROADMAP.md."""
+"""Model registries of the port: the MaGGIe image model (arch ``MaGGIe``), the
+MaGGIe video model (arch ``MaGGIe_Temp``) and the MGM baseline family (arch
+``MGM``, ``MGM_SingInst``, ``TCVOM``, ``TCVOM_SingInst``), eval and train;
+every other name raises and points to ROADMAP.md."""
 
 from __future__ import annotations
 
@@ -15,15 +16,28 @@ from .layers import init_weights
 _LATER = "is not ported yet; ROADMAP.md queue 1 lists the order of the port"
 
 
-def _enc_res_shortcut_embed_29(args: dict) -> nn.Module:
-    from .encoder import ResMaskEmbedShortCutD
+def _refuse_off_by_default(args: dict) -> None:
     for flag in ("lazy_os2_shortcut", "s2d_stem"):
         if args.get(flag, False):
             raise NotImplementedError(f"encoder_args.{flag} {_LATER} (item 14)")
+
+
+def _enc_res_shortcut_embed_29(args: dict) -> nn.Module:
+    from .encoder import ResMaskEmbedShortCutD
+    _refuse_off_by_default(args)
     return ResMaskEmbedShortCutD(
         layers=(3, 4, 4, 2), num_mask=int(args.get("num_mask", 10)),
         num_embed=int(args.get("num_embed", 3)),
         lazy_os1_shortcut=bool(args.get("lazy_os1_shortcut", False)))
+
+
+def _enc_res_shortcut_29(args: dict) -> nn.Module:
+    """The MGM encoder: RGB | ``num_mask`` masks in, no mask embedding
+    (``maggie_tpu/models/__init__.py:24-29``)."""
+    from .encoder import ResShortCutD
+    _refuse_off_by_default(args)
+    return ResShortCutD(3 + int(args.get("num_mask", 1)), (3, 4, 4, 2),
+                        lazy_os1_shortcut=bool(args.get("lazy_os1_shortcut", False)))
 
 
 def _dec_inst_matt_spconv(args: dict) -> nn.Module:
@@ -36,18 +50,35 @@ def _dec_inst_matt_spconv_temp(args: dict) -> nn.Module:
     return ResShortCutInstMattSpconvTempDec(**args)
 
 
-def _arch(name: str):
+def _dec_res_shortcut_22(args: dict) -> nn.Module:
+    from .decoder_dense import ResShortCutDec
+    return ResShortCutDec(**args)
+
+
+def _dec_res_shortcut_fam_22(args: dict) -> nn.Module:
+    from .decoder_fam import ResShortCutFAMDec
+    return ResShortCutFAMDec(**args)
+
+
+def _archs() -> dict:
     from .maggie import MaGGIe
     from .maggie_temp import MaGGIeTemp
-    return {"MaGGIe": MaGGIe, "MaGGIe_Temp": MaGGIeTemp}.get(name)
+    from .mgm_wrappers import MGMSingInst
+    from .tcvom import TCVOM, TCVOMSingInst
+    # MGM shares the MaGGIe harness with the dense decoder (maggie_tpu/models/__init__.py:104)
+    return {"MaGGIe": MaGGIe, "MaGGIe_Temp": MaGGIeTemp, "MGM": MaGGIe,
+            "MGM_SingInst": MGMSingInst, "TCVOM": TCVOM, "TCVOM_SingInst": TCVOMSingInst}
 
 
 ENCODERS: dict[str, Callable[[dict], nn.Module]] = {
     "res_shortcut_embed_29": _enc_res_shortcut_embed_29,
+    "res_shortcut_29": _enc_res_shortcut_29,
 }
 DECODERS: dict[str, Callable[[dict], nn.Module]] = {
     "res_shortcut_inst_matt_spconv_22": _dec_inst_matt_spconv,
     "res_shortcut_inst_matt_spconv_temp_22": _dec_inst_matt_spconv_temp,
+    "res_shortcut_22": _dec_res_shortcut_22,
+    "res_shortcut_fam_22": _dec_res_shortcut_fam_22,
 }
 
 
@@ -69,9 +100,10 @@ def build_model(model_cfg: Any, device: str | torch.device | None = None,
     in eval mode, with every parameter drawn on the CPU from ``generator``
     (``torch.Generator().manual_seed(0)`` when none is given)."""
     dev = resolve_device(device)
-    arch = _arch(model_cfg.arch)
+    archs = _archs()
+    arch = archs.get(model_cfg.arch)
     if arch is None:
-        raise KeyError(f"arch '{model_cfg.arch}' {_LATER}. Ported: ['MaGGIe', 'MaGGIe_Temp']")
+        raise KeyError(f"arch '{model_cfg.arch}' {_LATER}. Ported: {sorted(archs)}")
     # construct on the meta device so that no default initializer draws from
     # the global RNG; every tensor is then filled from the explicit generator
     with torch.device("meta"):

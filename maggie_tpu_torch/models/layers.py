@@ -320,16 +320,20 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     return F.leaky_relu(x, slope)
 
 
-def per_frame(fn, x: torch.Tensor, *rest: torch.Tensor) -> torch.Tensor:
+def per_frame(fn, x: torch.Tensor, *rest: torch.Tensor):
     """``fn`` on each frame (slice of the leading dim) of ``x`` and ``rest``,
-    concatenated: for frame-local eval layers on a batch of frames. At batch 3
-    with TF32 off, cuDNN's heuristics pick FFT algorithms for the decoder's
-    os8 convs, which made a video window 7.7x slower on an H100 and took 14 GB
-    more memory (PERF.md); a frame's result also stays the same whatever
-    batch it came in."""
+    concatenated (each of its outputs, where it returns a tuple): for
+    frame-local eval layers on a batch of frames. At batch 3 with TF32 off,
+    cuDNN's heuristics pick FFT algorithms for the decoder's os8 convs, which
+    made a video window 7.7x slower on an H100 and took 14 GB more memory
+    (PERF.md); a frame's result also stays the same whatever batch it came
+    in."""
     if x.shape[0] == 1:
         return fn(x, *rest)
-    return torch.cat([fn(x[i:i + 1], *(r[i:i + 1] for r in rest)) for i in range(x.shape[0])])
+    outs = [fn(x[i:i + 1], *(r[i:i + 1] for r in rest)) for i in range(x.shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o) for o in zip(*outs))
+    return torch.cat(outs)
 
 
 class BasicBlockEnc(nn.Module):

@@ -1,6 +1,7 @@
 """MaGGIe architecture: encoder -> ASPP -> decoder with PRM fusion, and the
 training loss (port of ``maggie_tpu/models/maggie.py``; reference
-``network/arch/maggie.py``).
+``network/arch/maggie.py``). Arch ``MGM`` is this harness with the dense
+decoder (``decoder_dense.py``), whose alphas it fuses itself (``fuse``).
 
 Interface as in the JAX package: ``batch['image']`` (b, n_f, H, W, 3) float,
 ``batch['mask']`` (b, n_f, n_i, hm, wm); in training also ``batch['alpha']``
@@ -32,15 +33,24 @@ from .aspp import ASPP
 from .decoder_sparse import TrainStep
 from .layers import end_sn_chains
 from .losses import gradient_loss, lap_loss, loss_dtssd, regression_loss
+from ..ops.kernels.unknown import compute_unknown
+from ..ops.morphology import compute_unknown_random
 from ..ops.resize import resize_nearest
 
-_LAZY_OS1_DECODERS = ("res_shortcut_inst_matt_spconv_22", "res_shortcut_inst_matt_spconv_temp_22")
+_SPARSE_DECODERS = ("res_shortcut_inst_matt_spconv_22", "res_shortcut_inst_matt_spconv_temp_22")
 _LAZY_OS1_ENCODERS = ("res_shortcut_embed_29",)
 _ALPHAS = ("alpha_os1", "alpha_os4", "alpha_os8")
 
 
 class MaGGIe(nn.Module):
-    """``cfg`` is the ``model`` subtree of the config."""
+    """``cfg`` is the ``model`` subtree of the config.
+
+    ``split_eval``: the eval forward is ``encode_frames`` then
+    ``decode_window``, so streaming video eval may cache the first half
+    (``engine/test.py::eval_video``); an arch whose forward is not that
+    split clears it."""
+
+    split_eval = True
 
     def __init__(self, cfg):
         super().__init__()
@@ -50,7 +60,7 @@ class MaGGIe(nn.Module):
         # the block-sparse decoder reads the os1 skip features only at selected
         # blocks: defer that encoder branch to patch domain unless overridden
         # (maggie_tpu/models/maggie.py:44-50)
-        if (cfg["decoder"] in _LAZY_OS1_DECODERS
+        if (cfg["decoder"] in _SPARSE_DECODERS
                 and cfg["decoder_args"].get("sparse_mode") == "block"
                 and not cfg["decoder_args"].get("phase_rung", False)
                 and "lazy_os1_shortcut" not in enc_args
@@ -70,23 +80,33 @@ class MaGGIe(nn.Module):
         self.loss_dtssd_w = float(cfg.get("loss_dtSSD_w", 1.0))
         # "none" or "selective" (remat.py); the train step sets it for its forward
         self.remat = "none"
+        # remat (remat.py) is held against JAX's for the sparse decoders only
+        self.remat_supported = cfg["decoder"] in _SPARSE_DECODERS
 
-    def _inputs(self, batch: dict, train: bool):
-        """Compute-dtype NCHW frames, masks at full size, and the encoder input
-        (reference ``prepare_input``, :200-235): RGB | masks zero-padded up to
-        ``num_masks`` slots. In train the padded masks (and alphas and
-        transitions) replace the true ones."""
+    def _inputs(self, batch: dict, train: bool, dtype: torch.dtype | None = None):
+        """Compute-dtype (or ``dtype``) NCHW frames, masks at full size, and
+        the encoder input (reference ``prepare_input``, :200-235): RGB | masks
+        zero-padded up to ``num_masks`` slots. In train the padded masks (and
+        alphas and transitions) replace the true ones."""
         x = batch["image"]                      # (b, n_f, H, W, 3)
         masks = batch["mask"]                   # (b, n_f, n_i, hm, wm)
         b, n_f, h, w, _ = x.shape
         n_i = masks.shape[2]
-        x = x.reshape(b * n_f, h, w, 3).permute(0, 3, 1, 2).to(self.compute_dtype)
+        dtype = self.compute_dtype if dtype is None else dtype
+        x = x.reshape(b * n_f, h, w, 3).permute(0, 3, 1, 2).to(dtype)
         masks = masks.reshape((b * n_f, n_i) + masks.shape[-2:])
         if masks.shape[-1] != w:
             masks = resize_nearest(masks, (h, w))
         masks = masks.to(x.dtype)
         gt = {}
         if train:
+            if self.num_masks > 0 and n_i > self.num_masks:
+                # the JAX package fails here too, at init or at the encoder's
+                # input width (ROADMAP.md queue 3)
+                raise ValueError(
+                    f"the train batch has {n_i} instance slots but the model takes "
+                    f"encoder_args.num_mask {self.num_masks}: set dataset.train.max_inst "
+                    f"to at most {self.num_masks}")
             gt = {k: batch[k].reshape(b * n_f, n_i, h, w) for k in ("alpha", "transition")}
         inp = x
         if self.num_masks > 0:
@@ -124,7 +144,7 @@ class MaGGIe(nn.Module):
         embedding = run(self.aspp, out)                                     # stage 2
         finish = functools.partial(self._train_loss, gt=gt, dims=dims,
                                    use_prm_weights=use_prm_weights,
-                                   atten_loss_enabled=atten_loss_enabled)
+                                   atten_loss_enabled=atten_loss_enabled, generator=generator)
         step = TrainStep(dims[0], dims[1], masks, gt["alpha"], gt["transition"], use_mask_atten,
                          use_gt_guidance, generator, finish=finish)
         return self.decoder.train_forward(run, embedding, feas, step)      # stages 3-6
@@ -134,23 +154,46 @@ class MaGGIe(nn.Module):
         out, mid_fea = self.encoder(inp)
         return (out, *mid_fea["shortcut"])
 
-    def _train_loss(self, pred: dict, gt: dict, dims, use_prm_weights: bool,
-                    atten_loss_enabled: bool):
-        """The end of the last stage: ``(output, loss_dict)`` from the
-        decoder's train result."""
-        b, n_f, n_i, h, w = dims
-        alpha_pred = pred["refined_masks"]
-        if use_prm_weights:
-            weight_os4, weight_os1 = pred["weight_os4"], pred["weight_os1"]
+    def fuse(self, pred: dict, generator: torch.Generator | None = None):
+        """PRM fusion of a decoder without its own (reference ``fuse``,
+        ``:51-61``): the os4 alpha where the os8 alpha's uncertain band
+        (k=30) reaches, then the os1 alpha where the result's band (k=15)
+        does. In eval K2 (``compute_unknown``) computes the bands, in train
+        the random-width dilation draws from ``generator``, k=30 first.
+        Returns the fused alpha and the two 0/1 bands (the os4 and os1 loss
+        weights)."""
+        if self.training:
+            unknown = lambda a, k: compute_unknown_random(a, k, generator)
         else:
-            weight_os4 = weight_os1 = pred["detail_mask"].to(alpha_pred.dtype)
+            unknown = compute_unknown
+        alpha = pred["alpha_os8"]
+        w4 = unknown(alpha, 30)
+        alpha = torch.where(w4 > 0, pred["alpha_os4"], alpha)
+        w1 = unknown(alpha, 15)
+        return torch.where(w1 > 0, pred["alpha_os1"], alpha), w4, w1
+
+    def _train_loss(self, pred: dict, gt: dict, dims, use_prm_weights: bool,
+                    atten_loss_enabled: bool, generator: torch.Generator | None = None):
+        """The end of the last stage: ``(output, loss_dict)`` from the
+        decoder's train result, fused here when the decoder has no fusion
+        of its own (its weights are then the fusion's bands)."""
+        b, n_f, n_i, h, w = dims
+        if "refined_masks" not in pred:
+            alpha_pred, weight_os4, weight_os1 = self.fuse(pred, generator)
+            pred = {**pred, "refined_masks": alpha_pred}
+        else:
+            alpha_pred = pred["refined_masks"]
+            if use_prm_weights:
+                weight_os4, weight_os1 = pred["weight_os4"], pred["weight_os1"]
+            else:
+                weight_os4 = weight_os1 = pred["detail_mask"].to(alpha_pred.dtype)
         output = self._transform_output(pred, b, n_f, n_i, h, w)
         output = {k: v for k, v in output.items() if not k.startswith("mem_")}
         valid = (gt["transition"].sum(dim=(2, 3), keepdim=True) > 0).float()
         alphas = {k: pred[k] * valid for k in _ALPHAS}
         loss_dict = self.compute_loss(alphas, weight_os4, weight_os1, gt["alpha"],
                                       (b, n_f, self.num_masks, h, w))
-        if self.loss_atten_w > 0 and atten_loss_enabled:
+        if "loss_max_atten" in pred and self.loss_atten_w > 0 and atten_loss_enabled:
             atten = pred["loss_max_atten"]
             loss_dict["loss_max_atten"] = (atten if torch.is_tensor(atten)
                                            else alpha_pred.new_tensor(atten))
@@ -223,14 +266,16 @@ class MaGGIe(nn.Module):
         mem = {} if mem_feat is None else {"mem_feat": mem_feat}
         pred = self.decoder(feats["embedding"], mid_fea, b=b, n_f=n_f, n_i=n_i,
                             masks=feats["masks"], **mem)
+        if "refined_masks" not in pred:
+            pred["refined_masks"] = self.fuse(pred)[0]
         return self._finalize_eval(self._transform_output(pred, b, n_f, n_i, h, w), prev_pred)
 
     def _transform_output(self, pred: dict, b, n_f, n_i, h, w) -> dict:
         """The first ``n_i`` slots' outputs as (b, n_f, n_i, H, W) (the true
-        instances in eval, every slot in train), and the decoder's memory
-        (``mem_*``) as it is."""
+        instances in eval, every slot in train; ``detail_mask`` where the
+        decoder gives one), and the decoder's memory (``mem_*``) as it is."""
         out = {k: pred[k][:, :n_i].reshape(b, n_f, n_i, h, w)
-               for k in _ALPHAS + ("refined_masks", "detail_mask")}
+               for k in _ALPHAS + ("refined_masks", "detail_mask") if k in pred}
         out.update({k: v for k, v in pred.items() if k.startswith("mem_")})
         return out
 
@@ -238,13 +283,15 @@ class MaGGIe(nn.Module):
         """Hook for the video arch's temporal rule (``MaGGIeTemp``)."""
         return output
 
-    def compute_loss(self, pred: dict, weight_os4, weight_os1, alphas, alpha_shape) -> dict:
+    def compute_loss(self, pred: dict, weight_os4, weight_os1, alphas, alpha_shape,
+                     reweight_os8: bool | None = None) -> dict:
         """Reference ``compute_loss`` (maggie.py:268-368); ``pred`` holds the
-        three alphas (b*n_f, n_i, H, W), ``alphas`` the GT."""
+        three alphas (b*n_f, n_i, H, W), ``alphas`` the GT; ``reweight_os8``
+        overrides ``loss_reweight_os8``."""
         a1, a4, a8 = (pred[k] for k in _ALPHAS)
         valid = (alphas.sum(dim=(2, 3), keepdim=True) > 0).float()
         weight_os8 = torch.ones_like(a8) * valid
-        if self.reweight_os8:
+        if self.reweight_os8 if reweight_os8 is None else reweight_os8:
             unk_gt = (alphas <= 254.0 / 255.0) & (alphas >= 1.0 / 255.0)
             unk_pred = (a8 <= 254.0 / 255.0) & (a8 >= 1.0 / 255.0)
             weight_os8 = (unk_gt | unk_pred).to(weight_os8.dtype) + weight_os8

@@ -100,8 +100,9 @@ def fold_spectral_norm(model: nn.Module) -> nn.Module:
 
 
 def _n_block(model: nn.Module) -> int:
-    """The attention blocks of the flagship decoder (its ``atten_block``)."""
-    return len(model.decoder.refine_OS8.sa_layers)
+    """The attention blocks of the MaGGIe decoder (its ``atten_block``; the
+    MGM family's decoders have none)."""
+    return len(getattr(model.decoder.refine_OS8, "sa_layers", ()))
 
 
 def save_train_state(path: str, state) -> None:
@@ -137,7 +138,7 @@ def partial_load(model: nn.Module, flat: dict[str, np.ndarray]) -> tuple[list, l
     flat = {k: v for k, v in flat.items() if k.startswith("params/")}
     params = dict(model.named_parameters())
     missing, mismatched, used = [], [], set()
-    for tkey, jkey, fn in key_map(_n_block(model)):
+    for tkey, jkey, fn in key_map(_n_block(model), params):
         if tkey not in params or not jkey.startswith("params/"):
             continue
         if jkey not in flat:

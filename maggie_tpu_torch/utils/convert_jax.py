@@ -7,9 +7,12 @@ train state's spectral u/v load too; ``flatten_collections`` makes the flat
 dict from a train state's ``params``, ``batch_stats`` and ``spectral`` trees).
 It inverts the JAX package's torch-checkpoint converter
 (``maggie_tpu/utils/convert_torch.py::Converter.maggie``, ``:270-288``) for the
-image and the video MaGGIe, with the port's own copy of the key map: the port's modules
-carry the original torch reference's ``state_dict`` names, so the map is the
-reference's. ``to_jax`` is the reverse map, for holding the port's tensors
+image and the video MaGGIe and the MGM family (MGM and TCVOM), with the port's
+own copy of the key map: the port's modules carry the original torch
+reference's ``state_dict`` names, so the map is the reference's. The map is
+chosen by the model's own names: the MaGGIe encoder (``mask_embed_layer``)
+sits under ``encoder_mod/backbone`` in JAX, the MGM encoder directly under
+``encoder_mod`` (``:256-268``). ``to_jax`` is the reverse map, for holding the port's tensors
 (parameters, their gradients, running statistics, u/v) against the JAX
 package's after a step.
 """
@@ -99,9 +102,10 @@ class _KeyMap:
             else:
                 self.dec_basic_block(f"{tkey}.{i}", f"{dst}/block{i}", stride if i == 0 else 1)
 
-    def encoder(self, tkey, dst):
-        base = f"{dst}/backbone"
-        self.put(f"{tkey}.mask_embed_layer.weight", f"params/{dst}/mask_embed_layer/embedding")
+    def encoder(self, tkey, dst, embed=True):
+        base = f"{dst}/backbone" if embed else dst
+        if embed:
+            self.put(f"{tkey}.mask_embed_layer.weight", f"params/{dst}/mask_embed_layer/embedding")
         for c in (1, 2, 3):
             self.snconv(f"{tkey}.conv{c}", f"{base}/conv{c}")
             self.bn(f"{tkey}.bn{c}", f"{base}/bn{c}")
@@ -159,6 +163,24 @@ class _KeyMap:
         self.bn(f"{tkey}.diff_module.4", f"{dst}/diff_module/bn2")
         self.conv(f"{tkey}.diff_module.6", f"{dst}/diff_module/conv3")
 
+    def refine_head(self, tkey, dst):
+        """Dense head ``Sequential(conv, bn, lrelu, conv)`` (``Converter.refine_head``)."""
+        self.conv(f"{tkey}.0", f"{dst}/conv1")
+        self.bn(f"{tkey}.1", f"{dst}/bn")
+        self.conv(f"{tkey}.3", f"{dst}/conv2")
+
+    def mgm_decoder(self, tkey, dst):
+        """``res_shortcut_22`` (``Converter.mgm_decoder``, ``:234-241``) and
+        ``res_shortcut_fam_22``'s FAM convs."""
+        for name, blocks in (("layer1", 2), ("layer2", 3), ("layer3", 3), ("layer4", 2)):
+            self.res_layer(f"{tkey}.{name}", f"{dst}/{name}", blocks, enc=False)
+        self.snconv(f"{tkey}.conv1", f"{dst}/conv1", _convT_w)
+        self.bn(f"{tkey}.bn1", f"{dst}/bn1")
+        for h in ("OS8", "OS4", "OS1"):
+            self.refine_head(f"{tkey}.refine_{h}", f"{dst}/refine_{h}")
+        for c in ("key_conv", "query_conv", "value_conv"):
+            self.conv(f"{tkey}.fam.{c}", f"{dst}/fam/{c}")
+
     def sparse_decoder(self, tkey, dst, n_block):
         self.res_layer(f"{tkey}.layer1", f"{dst}/layer1", 2, enc=False)
         self.res_layer(f"{tkey}.layer2", f"{dst}/layer2", 3, enc=False)
@@ -185,16 +207,37 @@ class _KeyMap:
                 self.bn(f"{tkey}.{seq}.{i}", f"{dst}/{name}", masked=True)
 
 
-def key_map(n_block: int = 2) -> list[tuple[str, str, tuple | None]]:
-    """The MaGGIe map: encoder res_shortcut_embed_29, ASPP, decoder
-    res_shortcut_inst_matt_spconv_22 with ``n_block`` attention blocks, and
-    the video decoder's ConvGRU and diff module (entries a model lacks are
-    skipped by every reader)."""
+def _layout(names) -> tuple[bool, bool]:
+    """(the MaGGIe encoder with its mask embedding?, the MGM family's dense
+    decoder?) of a model, read from its ``state_dict`` names or any part of
+    them (its parameters, running statistics or u/v alone). The dense
+    decoders have ``decoder.conv1`` and ``decoder.bn1``. The encoder is told
+    by ``encoder.mask_embed_layer``, and in a part without parameters by the
+    decoder, as every config pairs them (the dense decoders with
+    ``res_shortcut_29``)."""
+    names = list(names)
+    dense = any(k.startswith(("decoder.conv1.", "decoder.bn1.")) for k in names)
+    if any(k.startswith("encoder.mask_embed_layer.") for k in names):
+        return True, dense
+    return not dense, dense
+
+
+def key_map(n_block: int = 2, names=()) -> list[tuple[str, str, tuple | None]]:
+    """The map of the model whose ``state_dict`` names are (or include)
+    ``names`` (``_layout``): the encoder res_shortcut_embed_29 or
+    res_shortcut_29, ASPP, and the decoder: MaGGIe's
+    res_shortcut_inst_matt_spconv_22 with ``n_block`` attention blocks and
+    the video decoder's ConvGRU and diff module, or MGM's res_shortcut_22
+    with TCVOM's FAM (entries a model lacks are skipped by every reader)."""
+    embed, dense = _layout(names)
     km = _KeyMap()
-    km.encoder("encoder", "encoder_mod")
+    km.encoder("encoder", "encoder_mod", embed)
     km.aspp("aspp", "aspp_mod")
-    km.sparse_decoder("decoder", "decoder_mod", n_block)
-    km.video_decoder("decoder", "decoder_mod")
+    if dense:
+        km.mgm_decoder("decoder", "decoder_mod")
+    else:
+        km.sparse_decoder("decoder", "decoder_mod", n_block)
+        km.video_decoder("decoder", "decoder_mod")
     return km.entries
 
 
@@ -204,7 +247,7 @@ def convert_jax(flat: dict, model: nn.Module, n_block: int = 2) -> dict[str, tor
     sd = model.state_dict()
     out: dict[str, torch.Tensor] = {}
     used: set[str] = set()
-    for tkey, jkey, fn in key_map(n_block):
+    for tkey, jkey, fn in key_map(n_block, sd):
         if tkey not in sd or tkey in out:
             continue
         if jkey not in flat:
@@ -250,7 +293,7 @@ def to_jax(tensors: Mapping[str, torch.Tensor], n_block: int = 2) -> dict[str, n
     gradients, buffers) -> ``{JAX flat key: array}`` in the JAX layout. Names
     without a JAX counterpart (``num_batches_tracked``) are left out."""
     out = {}
-    for tkey, jkey, fn in key_map(n_block):
+    for tkey, jkey, fn in key_map(n_block, tensors):
         if tkey in tensors and jkey not in out:
             value = tensors[tkey].detach().float().cpu().numpy()
             out[jkey] = value if fn is None else np.transpose(value, np.argsort(fn))

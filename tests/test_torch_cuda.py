@@ -201,6 +201,74 @@ def test_compute_unknown_kernel_video_path_equals_twin(card, k_size):
     assert 0.0 < float(ref.mean()) < 1.0 and torch.equal(out, ref)
 
 
+@pytest.mark.parametrize("k_size", [30, 15])
+@pytest.mark.parametrize("shape", [(1, 1, 576, 1024), (1, 10, 576, 1024), (3, 1, 576, 1024),
+                                   (3, 10, 576, 1024)])
+def test_compute_unknown_kernel_baseline_shapes_equal_twin(card, shape, k_size):
+    """The MGM family's fusion calls: one instance or 10 slots, one frame or
+    a 3-frame window (the slots past 3 hold mid-range alphas, as a random
+    head's are)."""
+    from maggie_tpu_torch.flagship import blob_alpha
+    rs = np.random.RandomState(k_size + shape[1])
+    a = np.stack([blob_alpha(*shape[-2:], 3, rs) for _ in range(shape[0])])[:, :shape[1]]
+    if shape[1] > 3:
+        a = np.concatenate([a, rs.uniform(0.2, 0.8, (shape[0], shape[1] - 3) + shape[-2:])], 1)
+    ta = torch.from_numpy(a.astype(np.float32)).to(card)
+    before = ku.launches
+    out = ku.compute_unknown(ta, k_size)
+    assert ku.launches == before + 1
+    ref = ku.compute_unknown_plain(ta, k_size)
+    torch.cuda.synchronize()
+    assert 0.0 < float(ref.mean()) < 1.0 and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("name", ["mgm", "mgm_stacked", "mgm_tcvom", "mgm_stacked_tcvom"])
+def test_baseline_eval_on_the_card_matches_cpu(card, name):
+    """Each baseline config at full width (seed 0, SN folded) on a 128x256
+    frame or 3-frame window with 3 instances, f32 with TF32 off: K2
+    launched twice a harness forward (a forward per instance for the
+    SingInst archs), K1 never, and the outputs within ``chip_smoke``'s
+    phase-3 rule of the CPU port's."""
+    import chip_smoke as cs
+    from maggie_tpu_torch.ops.kernels import gather as kg
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu, model = cs.base_eval_models(name, card)
+        n_f = 3 if "tcvom" in name else 1
+        alpha = cs.video_alphas(n_f, 128, 256)
+        batch = {"image": torch.from_numpy(np.random.RandomState(1).rand(1, n_f, 128, 256, 3)
+                                           .astype(np.float32)),
+                 "mask": torch.from_numpy((alpha > 0.5).astype(np.float32))}
+        k0, u0 = kg.launches, ku.launches
+        with torch.inference_mode():
+            out = model({k: v.to(card) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        forwards = 3 if name in cs.BASE_SINGLE else 1
+        assert (kg.launches - k0, ku.launches - u0) == (0, 2 * forwards)
+        with cs.K2Spy() as spy, torch.inference_mode():
+            want = cpu(batch)
+        check = cs.base_cpu_check(out, want, spy.band)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert check["refined_masks"]["max_abs_err_outside_flips"] <= cs.REFINED_ATOL, check
+
+
+@pytest.mark.parametrize("name,b,n_f", [("mgm_stacked", 2, 1), ("mgm_tcvom", 1, 4)])
+def test_baseline_train_step_on_the_card_matches_cpu(card, name, b, n_f):
+    """One f32 step of ``mgm_stacked`` (batch 2) and ``mgm_tcvom`` (clip 4)
+    at 256x256 on the card against the CPU port, within ``chip_smoke``'s
+    STEP_* limits (``base_train`` fails otherwise), with no kernel launch."""
+    import chip_smoke as cs
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = cs.base_train(name, b, n_f, 256, card)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert out["check"]["within"] and not any(out["launches"].values()), out
+
+
 def test_compute_unknown_kernel_refuses_wider_elements(card):
     before = ku.launches
     with pytest.raises(ValueError, match="k_size up to 67"):

@@ -58,8 +58,10 @@ def jax_shapes(model, n_i: int = 2) -> dict:
 
 
 def _is_transposed_sn(key: str) -> bool:
-    # the only SNConvTranspose modules: decoder ResLayerDec block0 upsamplers
-    return key.startswith("decoder_mod/layer") and key.endswith("block0/conv1/weight_bar")
+    # the SNConvTranspose modules: decoder ResLayerDec block0 upsamplers, and
+    # the MGM family's os2 -> os1 upsampler
+    return (key.startswith("decoder_mod/layer") and key.endswith("block0/conv1/weight_bar")
+            or key == "decoder_mod/conv1/weight_bar")
 
 
 def sn_matrix(key: str, w: np.ndarray) -> np.ndarray:
