@@ -89,12 +89,14 @@ def compute_grads(model: nn.Module, batch: dict, generator: torch.Generator | No
 
 def _checked_remat(model: nn.Module, remat: bool | str) -> str:
     """``remat`` as a mode; anything but ``"none"`` raises for a model whose
-    remat is not ported (the MGM family's)."""
+    remat is not ported (the MGM family's, the dense InstMatt decoder's and
+    SparseMat's)."""
     mode = remat_mode(remat)
     if mode != "none" and not getattr(model, "remat_supported", True):
         raise NotImplementedError(
-            f"model.remat {mode!r} is not ported for the MGM family's decoders yet "
-            f"(ROADMAP.md queue 1 item 12e); train them with model.remat none")
+            f"model.remat {mode!r} is not ported for the MGM family, the dense InstMatt "
+            f"decoder and SparseMat yet (ROADMAP.md queue 1 item 12e); train them with "
+            f"model.remat none")
     return mode
 
 
@@ -106,8 +108,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     ``cfg.model.remat``: ``"none"`` (or False), ``"full"`` (or True) or
     ``"selective"`` (``models/remat.py``); any other value raises. A remat
     step computes what a plain step computes: the recompute replays the
-    first pass's draws, BatchNorm and spectral-norm steps. The MGM family
-    trains without remat (``"none"``; any other mode raises)."""
+    first pass's draws, BatchNorm and spectral-norm steps. The MGM family,
+    the dense InstMatt decoder and SparseMat train without remat
+    (``"none"``; any other mode raises)."""
     mode = _checked_remat(model, remat)
     params = list(model.parameters())
 

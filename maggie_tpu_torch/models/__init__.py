@@ -1,7 +1,10 @@
 """Model registries of the port: the MaGGIe image model (arch ``MaGGIe``), the
-MaGGIe video model (arch ``MaGGIe_Temp``) and the MGM baseline family (arch
-``MGM``, ``MGM_SingInst``, ``TCVOM``, ``TCVOM_SingInst``), eval and train;
-every other name raises and points to ROADMAP.md."""
+MaGGIe video model (arch ``MaGGIe_Temp``), the MGM baseline family (arch
+``MGM``, ``MGM_SingInst``, ``TCVOM``, ``TCVOM_SingInst``) and SparseMat (arch
+``SparseMat``, ``SparseMat_SingInst``), eval and train; besides, the dense
+InstMatt ablation decoder ``res_shortcut_inst_matt_22`` and the plain
+``ResNetD`` encoder ``res_encoder_29`` (which no harness takes: ROADMAP.md
+queue 3). Every other name raises and points to ROADMAP.md."""
 
 from __future__ import annotations
 
@@ -40,6 +43,14 @@ def _enc_res_shortcut_29(args: dict) -> nn.Module:
                         lazy_os1_shortcut=bool(args.get("lazy_os1_shortcut", False)))
 
 
+def _enc_res_encoder_29(args: dict) -> nn.Module:
+    """``ResNetD``: the trunk alone, returning the pyramid dict
+    (``maggie_tpu/models/__init__.py:32-35``); input RGB | ``num_mask`` masks."""
+    from .encoder import ResNetD
+    _refuse_off_by_default(args)
+    return ResNetD(3 + int(args.get("num_mask", 1)), (3, 4, 4, 2))
+
+
 def _dec_inst_matt_spconv(args: dict) -> nn.Module:
     from .decoder_sparse import ResShortCutInstMattSpconvDec
     return ResShortCutInstMattSpconvDec(**args)
@@ -55,6 +66,11 @@ def _dec_res_shortcut_22(args: dict) -> nn.Module:
     return ResShortCutDec(**args)
 
 
+def _dec_inst_matt_dense(args: dict) -> nn.Module:
+    from .decoder_inst_dense import ResShortCutInstMattDec
+    return ResShortCutInstMattDec(**args)
+
+
 def _dec_res_shortcut_fam_22(args: dict) -> nn.Module:
     from .decoder_fam import ResShortCutFAMDec
     return ResShortCutFAMDec(**args)
@@ -64,19 +80,23 @@ def _archs() -> dict:
     from .maggie import MaGGIe
     from .maggie_temp import MaGGIeTemp
     from .mgm_wrappers import MGMSingInst
+    from .sparsemat import SparseMat, SparseMatSingInst
     from .tcvom import TCVOM, TCVOMSingInst
     # MGM shares the MaGGIe harness with the dense decoder (maggie_tpu/models/__init__.py:104)
     return {"MaGGIe": MaGGIe, "MaGGIe_Temp": MaGGIeTemp, "MGM": MaGGIe,
-            "MGM_SingInst": MGMSingInst, "TCVOM": TCVOM, "TCVOM_SingInst": TCVOMSingInst}
+            "MGM_SingInst": MGMSingInst, "TCVOM": TCVOM, "TCVOM_SingInst": TCVOMSingInst,
+            "SparseMat": SparseMat, "SparseMat_SingInst": SparseMatSingInst}
 
 
 ENCODERS: dict[str, Callable[[dict], nn.Module]] = {
     "res_shortcut_embed_29": _enc_res_shortcut_embed_29,
     "res_shortcut_29": _enc_res_shortcut_29,
+    "res_encoder_29": _enc_res_encoder_29,
 }
 DECODERS: dict[str, Callable[[dict], nn.Module]] = {
     "res_shortcut_inst_matt_spconv_22": _dec_inst_matt_spconv,
     "res_shortcut_inst_matt_spconv_temp_22": _dec_inst_matt_spconv_temp,
+    "res_shortcut_inst_matt_22": _dec_inst_matt_dense,
     "res_shortcut_22": _dec_res_shortcut_22,
     "res_shortcut_fam_22": _dec_res_shortcut_fam_22,
 }

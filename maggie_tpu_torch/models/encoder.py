@@ -1,7 +1,8 @@
 """GCA-style ResNet-D encoder with shortcut branches and the instance-mask ID
 embedding (port of ``maggie_tpu/models/encoder.py``), NCHW.
 
-``ResMaskEmbedShortCutD`` is MaGGIe's encoder (reference ``resnet.py:202-229``).
+``ResMaskEmbedShortCutD`` is MaGGIe's encoder (reference ``resnet.py:202-229``),
+``ResShortCutD`` MGM's, ``ResNetD`` their trunk alone.
 Its modules sit directly under ``encoder.`` as in the reference's ``state_dict``
 (the JAX package nests them under ``backbone``).
 """
@@ -13,6 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .layers import BatchNorm, Embedding, SNConv, res_layer_enc
+from ..ops.resize import resize_bilinear
 
 
 class ShortcutBlock(nn.Sequential):
@@ -34,7 +36,47 @@ class ShortcutBlock(nn.Sequential):
         return self[5](F.relu(self[3](x)))
 
 
-class ResShortCutD(nn.Module):
+class ResNetD(nn.Module):
+    """The plain ResNet-D trunk (reference ``res_encoder_29``,
+    ``resnet.py:42-153``): 3-conv stem and four residual stages, every conv
+    spectral-normed. ``forward`` returns the pyramid dict, os1 (the stem's
+    first output upsampled x2, align_corners True) to os32
+    (``maggie_tpu/models/encoder.py:51-84``). No harness takes it: the
+    MaGGIe harness refuses it, as the JAX package's fails on it
+    (ROADMAP.md queue 3)."""
+
+    returns_pyramid = True
+
+    def __init__(self, in_ch: int, layers=(3, 4, 4, 2)):
+        super().__init__()
+        self.conv1 = SNConv(in_ch, 32, 3, 2, 1)
+        self.bn1 = BatchNorm(32)
+        self.conv2 = SNConv(32, 32, 3, 1, 1)
+        self.bn2 = BatchNorm(32)
+        self.conv3 = SNConv(32, 64, 3, 2, 1)
+        self.bn3 = BatchNorm(64)
+        self.layer1 = res_layer_enc(64, 64, layers[0], 1)
+        self.layer2 = res_layer_enc(64, 128, layers[1], 2)
+        self.layer3 = res_layer_enc(128, 256, layers[2], 2)
+        self.layer_bottleneck = res_layer_enc(256, 512, layers[3], 2)
+
+    def trunk(self, inp: torch.Tensor):
+        """The stem's first output (os2 of the input), the os2 stem output,
+        and the four stages' outputs (os4 to os32)."""
+        x0 = F.relu(self.bn1(self.conv1(inp)))
+        x1 = F.relu(self.bn2(self.conv2(x0)))
+        x2 = self.layer1(F.relu(self.bn3(self.conv3(x1))))
+        x3 = self.layer2(x2)
+        x4 = self.layer3(x3)
+        return x0, x1, x2, x3, x4, self.layer_bottleneck(x4)
+
+    def forward(self, x: torch.Tensor) -> dict:
+        x0, *feats = self.trunk(x)
+        up = resize_bilinear(x0, (x0.shape[-2] * 2, x0.shape[-1] * 2), align_corners=True)
+        return dict(zip(("os1", "os2", "os4", "os8", "os16", "os32"), (up, *feats)))
+
+
+class ResShortCutD(ResNetD):
     """Encoder with shortcut branches (reference ``ResShortCut_D.forward``,
     ``resnet.py:177-200``). Input NCHW with ``in_ch`` channels.
 
@@ -47,31 +89,17 @@ class ResShortCutD(nn.Module):
     Train mode also switches every BatchNorm to batch statistics and every
     spectral norm to one power step per forward (``layers.py``)."""
 
+    returns_pyramid = False
+
     def __init__(self, in_ch: int, layers=(3, 4, 4, 2), lazy_os1_shortcut: bool = False):
-        super().__init__()
+        super().__init__(in_ch, layers)
         self.lazy_os1_shortcut = lazy_os1_shortcut
-        self.conv1 = SNConv(in_ch, 32, 3, 2, 1)
-        self.bn1 = BatchNorm(32)
-        self.conv2 = SNConv(32, 32, 3, 1, 1)
-        self.bn2 = BatchNorm(32)
-        self.conv3 = SNConv(32, 64, 3, 2, 1)
-        self.bn3 = BatchNorm(64)
-        self.layer1 = res_layer_enc(64, 64, layers[0], 1)
-        self.layer2 = res_layer_enc(64, 128, layers[1], 2)
-        self.layer3 = res_layer_enc(128, 256, layers[2], 2)
-        self.layer_bottleneck = res_layer_enc(256, 512, layers[3], 2)
         self.shortcut = nn.ModuleList([
             ShortcutBlock(in_ch, 32), ShortcutBlock(32, 32), ShortcutBlock(64, 64),
             ShortcutBlock(128, 128), ShortcutBlock(256, 256)])
 
     def backbone(self, inp: torch.Tensor):
-        out = F.relu(self.bn1(self.conv1(inp)))
-        x1 = F.relu(self.bn2(self.conv2(out)))
-        out = F.relu(self.bn3(self.conv3(x1)))
-        x2 = self.layer1(out)
-        x3 = self.layer2(x2)
-        x4 = self.layer3(x3)
-        out = self.layer_bottleneck(x4)
+        _, x1, x2, x3, x4, out = self.trunk(inp)
         mid_fea = {}
         if self.lazy_os1_shortcut and not self.training:
             fea1 = None

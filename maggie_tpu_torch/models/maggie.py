@@ -42,6 +42,24 @@ _LAZY_OS1_ENCODERS = ("res_shortcut_embed_29",)
 _ALPHAS = ("alpha_os1", "alpha_os4", "alpha_os8")
 
 
+def prm_fuse(alpha_os8, alpha_os4, alpha_os1, training: bool,
+             generator: torch.Generator | None = None):
+    """PRM fusion (reference ``fuse``, ``:51-61``): the os4 alpha where the
+    os8 alpha's uncertain band (k=30) reaches, then the os1 alpha where the
+    result's band (k=15) does. In eval K2 (``compute_unknown``) computes the
+    bands, in train the random-width dilation draws from ``generator``, k=30
+    first. Returns the fused alpha and the two 0/1 bands (the os4 and os1
+    loss weights)."""
+    if training:
+        unknown = lambda a, k: compute_unknown_random(a, k, generator)
+    else:
+        unknown = compute_unknown
+    w4 = unknown(alpha_os8, 30)
+    alpha = torch.where(w4 > 0, alpha_os4, alpha_os8)
+    w1 = unknown(alpha, 15)
+    return torch.where(w1 > 0, alpha_os1, alpha), w4, w1
+
+
 class MaGGIe(nn.Module):
     """``cfg`` is the ``model`` subtree of the config.
 
@@ -67,6 +85,11 @@ class MaGGIe(nn.Module):
                 and cfg["encoder"] in _LAZY_OS1_ENCODERS):
             enc_args["lazy_os1_shortcut"] = True
         self.encoder = build_encoder(cfg["encoder"], enc_args)
+        if getattr(self.encoder, "returns_pyramid", False):
+            # maggie_tpu/models/maggie.py:135 unpacks two values from it and fails
+            raise ValueError(f"encoder {cfg['encoder']!r} returns the feature pyramid dict, "
+                             f"which no harness takes (ROADMAP.md queue 3); use "
+                             f"res_shortcut_embed_29 or res_shortcut_29")
         self.aspp = ASPP(cfg["aspp"]["in_channels"], cfg["aspp"]["out_channels"])
         self.decoder = build_decoder(cfg["decoder"], dict(cfg["decoder_args"]))
         self.compute_dtype = (torch.bfloat16 if str(cfg.get("precision", "fp32")) in
@@ -155,22 +178,9 @@ class MaGGIe(nn.Module):
         return (out, *mid_fea["shortcut"])
 
     def fuse(self, pred: dict, generator: torch.Generator | None = None):
-        """PRM fusion of a decoder without its own (reference ``fuse``,
-        ``:51-61``): the os4 alpha where the os8 alpha's uncertain band
-        (k=30) reaches, then the os1 alpha where the result's band (k=15)
-        does. In eval K2 (``compute_unknown``) computes the bands, in train
-        the random-width dilation draws from ``generator``, k=30 first.
-        Returns the fused alpha and the two 0/1 bands (the os4 and os1 loss
-        weights)."""
-        if self.training:
-            unknown = lambda a, k: compute_unknown_random(a, k, generator)
-        else:
-            unknown = compute_unknown
-        alpha = pred["alpha_os8"]
-        w4 = unknown(alpha, 30)
-        alpha = torch.where(w4 > 0, pred["alpha_os4"], alpha)
-        w1 = unknown(alpha, 15)
-        return torch.where(w1 > 0, pred["alpha_os1"], alpha), w4, w1
+        """PRM fusion of a decoder without its own (``prm_fuse``)."""
+        return prm_fuse(pred["alpha_os8"], pred["alpha_os4"], pred["alpha_os1"], self.training,
+                        generator)
 
     def _train_loss(self, pred: dict, gt: dict, dims, use_prm_weights: bool,
                     atten_loss_enabled: bool, generator: torch.Generator | None = None):

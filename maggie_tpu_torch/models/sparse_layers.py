@@ -58,12 +58,18 @@ class _SpconvWeight(nn.Module):
 
 
 class SubMConv(_SpconvWeight):
-    """Submanifold conv: conv over masked input, output masked to the active set."""
+    """Submanifold conv: conv over masked input, output masked to the active
+    set; ``dilation`` d pads d * (k // 2) (SparseMat's layer4)."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int, bias: bool, dilation: int = 1):
+        super().__init__(in_ch, out_ch, k, bias)
+        self.dilation = dilation
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         m = mask.to(x.dtype)
         w = self.weight.permute(0, 3, 1, 2).to(x.dtype)       # (O, I, kh, kw)
-        y = self._bias(F.conv2d(x * m, w, padding=self.k // 2))
+        d = self.dilation
+        y = self._bias(F.conv2d(x * m, w, padding=d * (self.k // 2), dilation=d))
         return y * m
 
 

@@ -150,10 +150,17 @@ def compute_unknown(masks: torch.Tensor, k_size: int = 30) -> torch.Tensor:
     """Eval-mode uncertainty region of float alpha maps (..., H, W): threshold to
     (1/255, 254/255), then elliptical dilation of width ``k_size // 2``; a 0/1
     map in the input dtype (reference ``maggie/utils/utils.py:28-55``). The CUDA
-    kernel for a CUDA tensor, the plain twin for a CPU tensor."""
+    kernel for a CUDA tensor, the plain twin for a CPU tensor.
+
+    Alphas of another dtype (bf16) are widened to f32 first, for the twin as
+    for the kernel, so that both compare with the f32 thresholds, as the TPU
+    kernel does (``maggie_tpu/ops/pallas/unknown.py:100``)."""
+    out_dtype = masks.dtype
+    if masks.dtype != torch.float32:
+        masks = masks.float()
     if masks.device.type == "cpu":
-        return compute_unknown_plain(masks, k_size)
+        return compute_unknown_plain(masks, k_size).to(out_dtype)
     if masks.device.type != "cuda":
         raise ValueError(f"compute_unknown runs on cuda or cpu, not {masks.device}")
     with torch.cuda.device(masks.device):  # the launch goes to the current device
-        return _launch(masks, k_size)
+        return _launch(masks, k_size).to(out_dtype)

@@ -101,8 +101,9 @@ def fold_spectral_norm(model: nn.Module) -> nn.Module:
 
 def _n_block(model: nn.Module) -> int:
     """The attention blocks of the MaGGIe decoder (its ``atten_block``; the
-    MGM family's decoders have none)."""
-    return len(getattr(model.decoder.refine_OS8, "sa_layers", ()))
+    MGM family's decoders and SparseMat have none)."""
+    return len(getattr(getattr(getattr(model, "decoder", None), "refine_OS8", None),
+                       "sa_layers", ()))
 
 
 def save_train_state(path: str, state) -> None:

@@ -7,12 +7,18 @@ train state's spectral u/v load too; ``flatten_collections`` makes the flat
 dict from a train state's ``params``, ``batch_stats`` and ``spectral`` trees).
 It inverts the JAX package's torch-checkpoint converter
 (``maggie_tpu/utils/convert_torch.py::Converter.maggie``, ``:270-288``) for the
-image and the video MaGGIe and the MGM family (MGM and TCVOM), with the port's
-own copy of the key map: the port's modules carry the original torch
-reference's ``state_dict`` names, so the map is the reference's. The map is
-chosen by the model's own names: the MaGGIe encoder (``mask_embed_layer``)
-sits under ``encoder_mod/backbone`` in JAX, the MGM encoder directly under
-``encoder_mod`` (``:256-268``). ``to_jax`` is the reverse map, for holding the port's tensors
+image and the video MaGGIe, the dense InstMatt decoder and the MGM family (MGM
+and TCVOM), with the port's own copy of the key map: the port's modules carry
+the original torch reference's ``state_dict`` names, so the map is the
+reference's. The map is chosen by the model's own names (``_layout``): the
+MaGGIe encoder (``mask_embed_layer``) sits under ``encoder_mod/backbone`` in
+JAX, the MGM encoder directly under ``encoder_mod`` (``:256-268``).
+
+SparseMat's map is the port's own (``_KeyMap.sparsemat``): its torch names
+mirror the JAX package's, because the reference's SparseMat names cannot be
+read here and the JAX package's converter maps no SparseMat key. So a released
+SparseMat ``.pth`` is not known to load into the port; its weights come across
+from the JAX package only, through this module. ``to_jax`` is the reverse map, for holding the port's tensors
 (parameters, their gradients, running statistics, u/v) against the JAX
 package's after a step.
 """
@@ -181,6 +187,60 @@ class _KeyMap:
         for c in ("key_conv", "query_conv", "value_conv"):
             self.conv(f"{tkey}.fam.{c}", f"{dst}/fam/{c}")
 
+    def inst_dense_decoder(self, tkey, dst, n_block):
+        """``res_shortcut_inst_matt_22`` (the torch names of
+        ``Converter.inst_dense_decoder``, ``convert_torch.py:243-253``)."""
+        for name, blocks in (("layer1", 2), ("layer2", 3), ("layer3", 3), ("layer4", 2)):
+            self.res_layer(f"{tkey}.{name}", f"{dst}/{name}", blocks, enc=False)
+        self.instance_matte_decoder(f"{tkey}.refine_OS8", f"{dst}/refine_OS8_mod", n_block)
+        self.snconv(f"{tkey}.conv1", f"{dst}/conv1", _convT_w)
+        self.bn(f"{tkey}.bn1", f"{dst}/bn1")
+        for h in ("OS4", "OS1"):
+            self.refine_head(f"{tkey}.refine_{h}", f"{dst}/refine_{h}")
+
+    def sparsemat(self):
+        """SparseMat: ``lpn`` (MobileNetV2 and the MODNet branch; BatchNorms
+        under the JAX package's ``BatchNorm`` wrapper) and ``shm`` (spconv-
+        layout convs, masked BatchNorms; the context gate's plain convs).
+        The torch names mirror the JAX package's, since the reference's
+        cannot be read here and ``convert_torch.py`` maps none of them."""
+        lpn, bb = "lpn_mod", "lpn_mod/backbone"
+        for i in range(19):
+            t, d = f"lpn.backbone.features.{i}", f"{bb}/features_{i}"
+            self.conv(f"{t}.conv", f"{d}/conv")
+            self.bn(f"{t}.bn", f"{d}/bn")
+            for c in ("pw", "dw", "pw_linear"):
+                self.conv(f"{t}.{c}", f"{d}/{c}")
+                self.bn(f"{t}.{c}_bn", f"{d}/{c}_bn")
+        dec = f"{lpn}/decoder"
+        for fc in ("fc1", "fc2"):
+            self.put(f"lpn.decoder.se_block.{fc}.weight", f"params/{dec}/se_block/{fc}/kernel",
+                     _linear_w)
+        for name in ("p32x", "conv_dec16x_0", "conv_dec16x_1", "p16x", "conv_dec8x_0",
+                     "conv_dec8x_1", "p8x", "conv_dec4x_0", "conv_dec4x_1", "p4x",
+                     "conv_dec2x_0", "conv_dec2x_1", "conv_dec2x_2", "p2x", "conv_dec1x_0",
+                     "p1x", "p0x"):
+            self.conv(f"lpn.decoder.{name}.conv", f"{dec}/{name}/conv")
+            self.bn(f"lpn.decoder.{name}.ibn.bnorm", f"{dec}/{name}/ibn/bnorm")
+        bb = "shm_mod/backbone"
+        for i in (1, 2, 3):
+            self.conv(f"shm.backbone.conv{i}", f"{bb}/conv{i}", _spconv_w)
+            self.bn(f"shm.backbone.bn{i}", f"{bb}/bn{i}", masked=True)
+        for layer in range(1, 5):
+            for blk in range(2):
+                t, d = f"shm.backbone.layer{layer}.{blk}", f"{bb}/layer{layer}_block{blk}"
+                for c in ("conv1", "conv2", "downsample_conv"):
+                    self.conv(f"{t}.{c}", f"{d}/{c}", _spconv_w)
+                for n in ("bn1", "bn2", "downsample_bn"):
+                    self.bn(f"{t}.{n}", f"{d}/{n}", masked=True)
+        for c in ("conv_f", "conv_b", "conv_g"):
+            self.conv(f"shm.ctx.{c}", f"shm_mod/ctx/{c}")
+        for c in ("conv_up1", "conv_p8x", "conv_up2", "conv_p4x", "conv_up3", "conv_p2x",
+                  "alpha_conv1", "alpha_conv2", "alpha_conv3"):
+            self.conv(f"shm.decoder.{c}", f"shm_mod/decoder/{c}", _spconv_w)
+        for n in ("conv_up1_bn", "conv_up2_bn", "conv_up3_bn"):
+            self.bn(f"shm.decoder.{n}", f"shm_mod/decoder/{n}", masked=True)
+
     def sparse_decoder(self, tkey, dst, n_block):
         self.res_layer(f"{tkey}.layer1", f"{dst}/layer1", 2, enc=False)
         self.res_layer(f"{tkey}.layer2", f"{dst}/layer2", 3, enc=False)
@@ -207,34 +267,58 @@ class _KeyMap:
                 self.bn(f"{tkey}.{seq}.{i}", f"{dst}/{name}", masked=True)
 
 
-def _layout(names) -> tuple[bool, bool]:
-    """(the MaGGIe encoder with its mask embedding?, the MGM family's dense
-    decoder?) of a model, read from its ``state_dict`` names or any part of
-    them (its parameters, running statistics or u/v alone). The dense
-    decoders have ``decoder.conv1`` and ``decoder.bn1``. The encoder is told
-    by ``encoder.mask_embed_layer``, and in a part without parameters by the
-    decoder, as every config pairs them (the dense decoders with
-    ``res_shortcut_29``)."""
+def _layout(names) -> tuple[str, bool]:
+    """(the decoder's kind, the MaGGIe encoder with its mask embedding?) of
+    a model, read from its ``state_dict`` names or any part of them (its
+    parameters, running statistics or u/v alone). The kinds:
+
+    - ``"sparsemat"``: arch SparseMat (``lpn.``, ``shm.``);
+    - ``"inst_dense"``: the dense InstMatt decoder ``res_shortcut_inst_matt_22``,
+      told by ``decoder.conv1`` or ``decoder.bn1`` beside the instance
+      decoder's own names under ``decoder.refine_OS8`` (the MGM decoder's
+      ``refine_OS8`` is a head, ``.0``, ``.1``, ``.3``); a part of u/v alone
+      shows neither and takes the MGM map, whose u/v entries are the same;
+    - ``"dense"``: the MGM family's ``res_shortcut_22`` and TCVOM's FAM decoder
+      (``decoder.conv1``, ``decoder.bn1``);
+    - ``"sparse"``: MaGGIe's image and video decoders.
+
+    The encoder is told by ``encoder.mask_embed_layer``, or by its spectral
+    weights without it; in a part without parameters by the decoder, as
+    every config pairs them (the MaGGIe decoders, the dense InstMatt one
+    included, with the embedding; the MGM family without)."""
     names = list(names)
+    if any(k.startswith(("lpn.", "shm.")) for k in names):
+        return "sparsemat", False
     dense = any(k.startswith(("decoder.conv1.", "decoder.bn1.")) for k in names)
+    inst = dense and any(k.startswith("decoder.refine_OS8.") and k.split(".")[2] not in ("0", "1", "3")
+                         for k in names)
+    kind = "inst_dense" if inst else "dense" if dense else "sparse"
     if any(k.startswith("encoder.mask_embed_layer.") for k in names):
-        return True, dense
-    return not dense, dense
+        return kind, True
+    if any(k.startswith("encoder.") and k.endswith(".weight_bar") for k in names):
+        return kind, False
+    return kind, kind != "dense"
 
 
 def key_map(n_block: int = 2, names=()) -> list[tuple[str, str, tuple | None]]:
     """The map of the model whose ``state_dict`` names are (or include)
-    ``names`` (``_layout``): the encoder res_shortcut_embed_29 or
-    res_shortcut_29, ASPP, and the decoder: MaGGIe's
-    res_shortcut_inst_matt_spconv_22 with ``n_block`` attention blocks and
-    the video decoder's ConvGRU and diff module, or MGM's res_shortcut_22
+    ``names`` (``_layout``): SparseMat's LPN and SHM, or the encoder
+    res_shortcut_embed_29 or res_shortcut_29, ASPP, and the decoder:
+    MaGGIe's res_shortcut_inst_matt_spconv_22 with ``n_block`` attention
+    blocks and the video decoder's ConvGRU and diff module, the dense
+    InstMatt decoder res_shortcut_inst_matt_22, or MGM's res_shortcut_22
     with TCVOM's FAM (entries a model lacks are skipped by every reader)."""
-    embed, dense = _layout(names)
+    kind, embed = _layout(names)
     km = _KeyMap()
+    if kind == "sparsemat":
+        km.sparsemat()
+        return km.entries
     km.encoder("encoder", "encoder_mod", embed)
     km.aspp("aspp", "aspp_mod")
-    if dense:
+    if kind == "dense":
         km.mgm_decoder("decoder", "decoder_mod")
+    elif kind == "inst_dense":
+        km.inst_dense_decoder("decoder", "decoder_mod", n_block)
     else:
         km.sparse_decoder("decoder", "decoder_mod", n_block)
         km.video_decoder("decoder", "decoder_mod")

@@ -277,8 +277,19 @@ def test_compute_unknown_kernel_refuses_wider_elements(card):
 
 
 def test_compute_unknown_kernel_rejects_other_dtypes(card):
+    """The launch takes f32 only; the wrapper widens bf16 alphas to f32
+    first (as the TPU kernel does) and returns the input's dtype."""
+    a = torch.rand(2, 40, 136, generator=torch.Generator().manual_seed(0))
+    a[0, 5, 7] = 2.0 ** -8 + 2.0 ** -15          # bf16 just above 1/255
+    bf = a.to(card, torch.bfloat16)
     with pytest.raises(TypeError):
-        ku.compute_unknown(torch.zeros(1, 8, 8, device=card, dtype=torch.bfloat16), 15)
+        ku._launch(bf, 15)
+    before = ku.launches
+    out = ku.compute_unknown(bf, 15)
+    assert ku.launches == before + 1 and out.dtype == torch.bfloat16
+    ref = ku.compute_unknown_plain(bf.float(), 15)
+    torch.cuda.synchronize()
+    assert torch.equal(out.float(), ref)
 
 
 def test_eval_image_on_the_card(card, tmp_path):
@@ -582,3 +593,87 @@ def test_ddp_two_ranks_on_the_card_match_one_process(card, tmp_path):
     assert all(c["within"] for c in checks.values()), checks
     assert launches == {"gather_patches": 2 * (10 + 20), "gather_patches_bwd": 2 * (6 + 6),
                         "compute_unknown": 2 * (1 + 2)}
+
+
+# ---- SparseMat and the dense InstMatt ablation decoder (chip_smoke phase 13)
+def test_sparsemat_eval_on_the_card_matches_cpu(card):
+    """``sparsemat_image.yaml`` at its widths (seed 0, the LPN's last head
+    scaled as in ``chip_smoke`` phase 13) on a 128x256 frame with 2
+    instances (a forward each) and ``sparsemat_video.yaml`` on a 3-frame
+    clip whose last frame repeats half the one before: no kernel launched,
+    an active set neither empty nor full, the alphas within
+    ``chip_smoke.REFINED_ATOL`` of the CPU port's (``sm_cpu_check``)."""
+    import chip_smoke as cs
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, n_f, n_i in (("sparsemat_image", 1, 2), ("sparsemat_video", 3, 1)):
+            cpu, model = cs.sm_eval_models(name, card)
+            rs = np.random.RandomState(2)
+            img = rs.rand(1, n_f, 128, 256, 3).astype(np.float32)
+            img[0, -1, :64] = img[0, max(n_f - 2, 0), :64]
+            yy, xx = np.mgrid[0:128, 0:256]
+            mask = np.stack([[(yy - 64) ** 2 + (xx - 70 - 100 * j - 3 * t) ** 2 < 40 ** 2
+                              for j in range(n_i)] for t in range(n_f)])[None].astype(np.float32)
+            batch = {"image": torch.from_numpy(img), "mask": torch.from_numpy(mask)}
+            k0, u0 = kg.launches, ku.launches
+            with cs.SparsityRecord(keep=True) as rec, torch.inference_mode():
+                out = model({k: v.to(card) for k, v in batch.items()})
+            torch.cuda.synchronize()
+            assert (kg.launches - k0, ku.launches - u0) == (0, 0)
+            cs.sm_check_active(name, rec.active)
+            with cs.SparsityRecord(keep=True) as cpu_rec, torch.inference_mode():
+                want = cpu(batch)
+            check = cs.sm_cpu_check(out, want, rec, cpu_rec, name)
+            assert check["max_abs_err_held"] <= cs.REFINED_ATOL, (name, check)
+            if n_f > 1:
+                assert max(rec.shared_share) > 0, rec.shared_share
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.parametrize("name,b,n_f", [("sparsemat_image", 2, 1), ("sparsemat_video", 1, 3)])
+def test_sparsemat_train_step_on_the_card_matches_cpu(card, name, b, n_f):
+    """One f32 step of each SparseMat yaml at one slot, 256x256, on the card
+    against the CPU port within ``chip_smoke``'s STEP_* limits
+    (``sm_check_step`` fails otherwise)."""
+    import chip_smoke as cs
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        check = cs.sm_check_step(name, b, n_f, 256, card)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert check["within"], check
+
+
+def test_sparsemat_dense_decoder_launches_k2(card):
+    """The dense InstMatt ablation (``chip_smoke.dense_cfg``) on a 128x256
+    frame with 3 instances: K2 three times an eval forward, each call equal
+    to its twin, ``detail_mask`` equal to the CPU port's off near-threshold
+    pixels; one train step at 2 x 128x128 launches K2 once."""
+    import chip_smoke as cs
+    from maggie_tpu_torch.flagship import blob_batch
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu, model = cs.base_eval_models(cs.dense_cfg, card)
+        batch = blob_batch(128, 256, 3, 0)
+        u0 = ku.launches
+        with cs.K2Spy(keep=4) as spy, torch.inference_mode():
+            out = model({k: v.to(card) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        assert ku.launches - u0 == 3 and [k for _, k in spy.k2] == [30, 30, 15]
+        for a, k in spy.k2:
+            assert torch.equal(ku.compute_unknown(a, k), ku.compute_unknown_plain(a, k))
+        with torch.inference_mode():
+            want = cpu(batch)
+        near, n_diff, unexplained, _ = cs.detail_mask_check(out, want)
+        assert unexplained == 0, (near, n_diff)
+        # train the unfolded model: a folded spectral norm has no u/v to step
+        steps = cs.card_steps(cs.dense_cfg(), cs.base_train_batch(2, 1, 128, 10), card,
+                              "dense", steps=1)
+        assert steps["launches"] == {"gather_patches": 0, "gather_patches_bwd": 0,
+                                     "compute_unknown": 1}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
