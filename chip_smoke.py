@@ -9,6 +9,7 @@
     python3 chip_smoke.py --ddp
     python3 chip_smoke.py --baselines
     python3 chip_smoke.py --sparsemat
+    python3 chip_smoke.py --baselines-train
 
 The second form only answers requests 0 and 1 in f32 and bf16 and saves the
 outputs to PATH; with REF, saved by the same form from another version, it
@@ -18,7 +19,7 @@ copy of another version to compare the two in one call). The fourth runs the
 video path only: phase 2's video shapes and phase 8. The fifth runs video
 training only: phase 2's video train shapes and phase 9. The sixth runs
 phase 10 alone, the seventh phase 11 alone, the eighth phase 12 alone, the
-ninth phase 13 alone.
+ninth phase 13 alone, the tenth phase 14 alone.
 
 Phases (any failure exits non-zero):
 1. print the card's name and power limit; build the CUDA kernels from the
@@ -69,7 +70,7 @@ Phases (any failure exits non-zero):
    ``maggie_tpu_torch.main.main`` trains ``configs/maggie_image.yaml`` at full
    width (batch 2, 6 iterations, validation every 3, a loss logged every
    iteration), resumes to 8, trains 3 iterations with ``--precision 16``, and
-   then 60 f32 iterations logging every 10 without validation (long enough to
+   then 20 f32 iterations logging every 10 without validation (long enough to
    drain the loader's and the infeed's queues, so that its meters say which of
    the loader and the step sets the pace); checks finite losses, 10 K1, 6 K1-backward and 1 K2 launches per train
    iteration and 5 K1 and 3 K2 per val frame, the checkpoint files, that the
@@ -93,7 +94,7 @@ Phases (any failure exits non-zero):
    included) and prints peak memory. Then the video eval engine:
    ``maggie_tpu_torch.main.main`` with ``--eval-only --config
    configs/maggie_video.yaml`` on a synthetic VIM set written with PIL (2
-   videos of 6 frames at 720x1280, 3 instances, JPEG frames, PNG alphas and
+   videos of 4 frames at 720x1280, 3 instances, JPEG frames, PNG alphas and
    masks) at full width with the seven metrics; checks the run's launches
    (counted from 0) and those of each window, finite metrics and
    results.csv; prints frames/s with metrics on, the forward / loader / host
@@ -122,9 +123,10 @@ Phases (any failure exits non-zero):
    (10.2) under none, full and selective, in f32 and bf16: each remat step
    against the plain one within phase 6's STEP_* limits (whether bit-equal,
    the CUDA generator's state, one block-index replay checked a step; a
-   second plain step and one forwarded on a new thread beside them);
-   ms/step (median of steps 2-5), peak memory, launches asserted from the
-   stage layout (K1 10 / 20 / 20, its backward 6, K2 1 / 2 / 2). 10.3 fits
+   second plain step and one forwarded on a new thread beside them), each
+   step's launches asserted from the stage layout (K1 10 / 20 / 20, its
+   backward 6, K2 1 / 2 / 2); in f32 ms/step (median of steps 2-3), peak
+   memory and the timed steps' launches, asserted the same. 10.3 fits
    peak = fixed + per-frame x frames through two sizes (image batch 1 and
    2, video clip 4 and 8), predicts the largest batch under 95% of the
    memory the process can hold and runs ``selective`` at it (at most the
@@ -174,30 +176,50 @@ Phases (any failure exits non-zero):
    previous frame (``shared``), which must be above 0, and window 0's first
    instance against the CPU port by 13.1's rule; 13.3 one f32 step of each
    yaml at one slot on the card against the CPU port within phase 6's
-   STEP_* limits, then ms/step and peak memory at the yamls' own batches
-   (12 images, 4 clips of 8, at 512x512), or at the largest batch that
-   fits; 13.4 ``configs/maggie_image.yaml`` with the decoder
+   STEP_* limits (the yamls' own batches are phase 14.2's); 13.4
+   ``configs/maggie_image.yaml`` with the decoder
    ``res_shortcut_inst_matt_22`` (final_channel 128) through 12.1's
    ``base_image``: K2 three times a forward, the first forward's calls
    against its twin, the forward against the CPU port at phase 3's rule,
    f32 and bf16, bf16 vs f32 within BASE_BF16_*; and 3 train steps (K2 once
    a step).
    ``--sparsemat`` runs phase 13 alone.
+14. remat and data parallel for the baselines (``models/remat.py``: the
+   harness with a dense decoder in 3 segments, TCVOM in 2, SparseMat in 1),
+   f32, seed 0, yamls' widths, 512x512: 14.1 ``mgm_stacked`` (batch 2),
+   ``mgm_stacked_tcvom`` (1 clip of 8), ``sparsemat_video`` (1 clip of 8,
+   one slot) and the dense InstMatt decoder (batch 2) under none, full and
+   selective, 4 steps each from the same weights and generator seed: each
+   remat mode's first step against the plain one within phase 6's STEP_*
+   limits (bit-equal or not), the generator's state equal, ms/step (median
+   of steps 2-4), peak memory, K2 launches a step asserted from the layout
+   (the dense decoder 1 / 2 / 2, the rest 0; K1 never); 14.2 the yamls' own
+   batches (``mgm_stacked`` 12 images, ``mgm_stacked_tcvom`` and
+   ``sparsemat_video`` 4 clips of 8) under each mode: whether it fits,
+   ms/step and peak where it does, else the largest batch that fits (each
+   out-of-memory batch reported) with phase 10.3's fit through 14.1's
+   point; 14.3 ``mgm_stacked_tcvom`` (2 clips of
+   3, a clip a rank) and ``sparsemat_image`` (2 images) on two gloo ranks
+   on the card, plain and selective, against one process on the card
+   within STEP_*, the ranks bit-equal. ``--baselines-train`` runs phase 14
+   alone.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's ``ddp_launches``: its
 launches over the ranks' checked steps of 11.1 and 11.2; ``baseline_launches``:
-phase 12.1's and 12.2's; ``sparsemat_launches``: phase 13.4's) and the card
-line, and last
+phase 12.1's and 12.2's; ``sparsemat_launches``: phase 13.4's;
+``baseline_train_launches``: phase 14.1's) and the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to output/torch_port/chip_smoke.json
 (``chip_smoke_video.json``, ``chip_smoke_video_train.json``,
 ``chip_smoke_remat.json``, ``chip_smoke_ddp.json``,
-``chip_smoke_baselines.json`` and ``chip_smoke_sparsemat.json`` for
-``--video``, ``--video-train``, ``--remat``, ``--ddp``, ``--baselines`` and
-``--sparsemat``).
+``chip_smoke_baselines.json``, ``chip_smoke_sparsemat.json`` and
+``chip_smoke_baselines_train.json`` for ``--video``, ``--video-train``,
+``--remat``, ``--ddp``, ``--baselines``, ``--sparsemat`` and
+``--baselines-train``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -733,6 +755,8 @@ def main() -> int:
         return baselines_only(torch.device("cuda"))
     if "--sparsemat" in sys.argv:
         return sparsemat_only(torch.device("cuda"))
+    if "--baselines-train" in sys.argv:
+        return baselines_train_only(torch.device("cuda"))
     if "--gather-bwd" in sys.argv:
         print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                          "--format=csv,noheader"], capture_output=True,
@@ -913,8 +937,14 @@ def main() -> int:
     for kern in kernels:
         kern["sparsemat_launches"] = sparsemat["launches"].get(kern["name"], 0)
 
+    # ---- phase 14: remat and data parallel for the baselines ----
+    torch.cuda.empty_cache()
+    baselines_train = phase_baselines_train(dev, detail)
+    for kern in kernels:
+        kern["baseline_train_launches"] = baselines_train["launches"][kern["name"]]
+
     detail["phases_s"] = time.perf_counter() - t_start
-    print(f"phases 1-13 done in {detail['phases_s']:.1f} s (from main(), imports not counted)",
+    print(f"phases 1-14 done in {detail['phases_s']:.1f} s (from main(), imports not counted)",
           flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -1069,8 +1099,8 @@ PER_VAL_FRAME = {"gather_patches": 5, "gather_patches_bwd": 0, "compute_unknown"
 # a longer f32 run, logging every 10 iterations (the config's cadence) and not
 # validating: enough iterations to drain the loader's and the infeed's queues
 # (up to 5 batches ahead), so that its meters show which of the loader and the
-# step sets the pace (60 until phase 8 came, which needed the time)
-SUSTAINED_ITERS = 30
+# step sets the pace; no more, for the script's time limit
+SUSTAINED_ITERS = 20
 CKPT_FILES = ("last_state.pt", "best_model.npz", "best_score.txt", "last_step.txt",
               "train_meters.json", "config.yaml")
 
@@ -1475,32 +1505,46 @@ def gather_bwd_only(dev) -> int:
     return 0
 
 
+@contextlib.contextmanager
+def clip_inputs():
+    """The gradients as ``make_train_step``'s clip receives them, kept on the
+    host in the list this yields."""
+    from maggie_tpu_torch.engine import train_step as ts
+    grads, clip = [], ts.clip_by_global_norm_
+
+    def keep(gs, *args, **kwargs):
+        grads.extend(g.detach().float().cpu().clone() for g in gs)
+        return clip(gs, *args, **kwargs)
+    ts.clip_by_global_norm_ = keep
+    try:
+        yield grads
+    finally:
+        ts.clip_by_global_norm_ = clip
+
+
+def step_record(model, state, losses, grads, schedule, generator) -> dict:
+    """A step as ``compare_steps`` reads it: the loss dict, every gradient
+    before the clip, the learning rate, the parameters, BatchNorm
+    statistics and spectral u/v after, and the generator's state after."""
+    cpu = lambda d: {k: v.detach().to("cpu", torch.float32, copy=True) for k, v in d.items()}
+    return {"losses": {k: float(v) for k, v in losses.items()}, "lr": schedule(0),
+            "grads": dict(zip((k for k, _ in model.named_parameters()), grads)),
+            "params": cpu(state.params()), "batch_stats": cpu(state.batch_stats()),
+            "spectral": cpu(state.spectral()), "generator": generator.get_state()}
+
+
 def one_step(model, batch, generator, cfg, remat: str = "none") -> dict:
     """One ``make_train_step`` step of ``model`` (train mode) from a fresh
-    optimizer: the loss dict, every gradient before the clip, the learning
-    rate, the parameters, BatchNorm statistics and spectral u/v after, and
-    the generator's state after."""
+    optimizer, as ``step_record`` gives it."""
     from maggie_tpu_torch.engine import train_step as ts
     from maggie_tpu_torch.engine.optim import build_optimizer
     model.train()
     opt, schedule = build_optimizer(cfg, model.parameters())
     state = ts.TrainState(model, opt)
     step = ts.make_train_step(model, opt, schedule, remat=remat)
-    grads, clip = [], ts.clip_by_global_norm_
-
-    def keep(gs, *args, **kwargs):   # the gradients as the clip receives them
-        grads.extend(g.detach().float().cpu().clone() for g in gs)
-        return clip(gs, *args, **kwargs)
-    ts.clip_by_global_norm_ = keep
-    try:
+    with clip_inputs() as grads:
         losses = step(state, batch, generator, **TRAIN_FLAGS)
-    finally:
-        ts.clip_by_global_norm_ = clip
-    cpu = lambda d: {k: v.detach().to("cpu", torch.float32, copy=True) for k, v in d.items()}
-    return {"losses": {k: float(v) for k, v in losses.items()}, "lr": schedule(0),
-            "grads": dict(zip((k for k, _ in model.named_parameters()), grads)),
-            "params": cpu(state.params()), "batch_stats": cpu(state.batch_stats()),
-            "spectral": cpu(state.spectral()), "generator": generator.get_state()}
+    return step_record(model, state, losses, grads, schedule, generator)
 
 
 def compare_steps(a: dict, b: dict) -> dict:
@@ -1858,7 +1902,7 @@ VIDEO_STREAM_FRAMES = 10      # 8 windows of 3 frames, overlap 2
 PER_WINDOW = {"gather_patches": 5, "compute_unknown": 3}
 VIDEO_TIMING_REPS = 3
 VIDEO_SRC = (720, 1280)       # ResizeShort(576) -> 576x1024
-VIDEO_SET = (("vid0", 6), ("vid1", 6))   # (video, frames): 4 windows each
+VIDEO_SET = (("vid0", 4), ("vid1", 4))   # (video, frames): 2 windows each
 # the card's windows against the CPU port's (``video_window_check``):
 # refined_masks within phase 3's REFINED_ATOL outside the pixels that a value
 # within NEAR of one of the path's discrete decisions may move on rounding:
@@ -2617,6 +2661,13 @@ REMAT_IMAGE_SIZES = (1, TRAIN_BATCH)           # batches at 512x512 for the fit
 REMAT_VIDEO_SIZES = (4, VIDEO_TRAIN_CLIP)      # clips at batch 1 for the fit
 REMAT_YAML_BATCH = {"image": 12, "video": 4}   # configs/maggie_{image,video}.yaml
 REMAT_CLI_ITERS = 3
+# steps of each mode at phase 6's (9's) size: ms/step is the median of steps
+# 2-3, to keep the whole script within its time limit
+REMAT_STEPS = 3
+# the precisions whose modes are timed and fitted; bf16 runs the compare steps
+# only, their launches checked (its timings: PERF.md, PRs 11-14), to keep the
+# script within its limit
+REMAT_TIMED = ("fp32",)
 # K1's backward lists a call's entries and tiles in one thread block's shared
 # memory (ops/kernels/gather.py MAX_SMEM_BYTES): cap + tiles <= 57087; the
 # ladder's largest call has 0.5 * 64 entries and 64 tiles a map at 512x512
@@ -2631,43 +2682,15 @@ def remat_per_step(mode: str) -> dict:
 
 
 def remat_steps(dev, cfg, model, init, batch, mode: str, steps: int) -> dict:
-    """``steps`` steps of ``mode`` from the weights ``init`` with a fresh
-    optimizer and generator: ms per step (CUDA events), the peak memory of
-    each step, launches per step (checked against ``remat_per_step``)."""
-    from maggie_tpu_torch.engine.optim import build_optimizer
-    from maggie_tpu_torch.engine.train_step import TrainState, make_train_step
-    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
-    model.load_state_dict(init)
-    model.train().zero_grad(set_to_none=True)
-    opt, schedule = build_optimizer(cfg, model.parameters())
-    state, step = TrainState(model, opt), make_train_step(model, opt, schedule, remat=mode)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    kg.launches = kg.bwd_launches = ku.launches = 0
-    ms, peaks, losses = [], [], []
-    for _ in range(steps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        ld = step(state, batch, gen, **TRAIN_FLAGS)
-        end.record()
-        torch.cuda.synchronize()
-        ms.append(start.elapsed_time(end))
-        peaks.append(torch.cuda.max_memory_allocated())
-        torch.cuda.reset_peak_memory_stats()
-        losses.append({k: float(v) for k, v in ld.items()})
-    launches = kernel_counts()
-    per_step = {k: v / steps for k, v in launches.items()}
-    if per_step != remat_per_step(mode):
-        fail(f"remat {mode}: launches per step {per_step} != {remat_per_step(mode)}")
-    if not all(np.isfinite(v) for ld in losses for v in ld.values()):
-        fail(f"remat {mode}: non-finite losses {losses}")
-    model.zero_grad(set_to_none=True)
-    del opt, state, step
-    return {"ms_per_step": ms, "peak_bytes": peaks, "peak_max_bytes": max(peaks),
-            "launches": launches, "launches_per_step": per_step,
-            "ms_per_step_median": float(np.median(ms[1:])) if steps > 1 else ms[0]}
+    """``card_steps`` of ``mode`` from the weights ``init``, each step's
+    launches checked against ``remat_per_step``."""
+    run = card_steps(cfg, batch, dev, f"10 remat {mode}", steps, remat=mode, model=model,
+                     init=init)
+    if any(c != remat_per_step(mode) for c in run["launches_by_step"]):
+        fail(f"remat {mode}: launches by step {run['launches_by_step']} != "
+             f"{remat_per_step(mode)}")
+    run["launches_per_step"] = remat_per_step(mode)
+    return run
 
 
 def on_thread(fn):
@@ -2697,8 +2720,9 @@ def remat_compare(dev, cfg, model, init, batch) -> dict:
     seed, held against the plain step within phase 6's STEP_* limits; the
     generator's state after each step equal to the plain step's; with
     ``remat.check_replay``, each recompute's block indices equal the first
-    pass's. Beside them, the card's own repeatability: a second plain step,
-    and one whose forward runs on a new thread, as a recompute's does."""
+    pass's; each step's launches as ``remat_per_step`` says. Beside them,
+    the card's own repeatability: a second plain step, and one whose
+    forward runs on a new thread, as a recompute's does."""
     from maggie_tpu_torch.models import remat
     steps = {}
     remat.check_replay, remat.replay_checks = True, 0
@@ -2706,11 +2730,15 @@ def remat_compare(dev, cfg, model, init, batch) -> dict:
         for name, mode in (("none", "none"),) + tuple((b, "none") for b in REMAT_BASELINES) + (
                 ("full", "full"), ("selective", "selective")):
             model.load_state_dict(init)
-            before = remat.replay_checks
+            before, counts = remat.replay_checks, kernel_counts()
             run = lambda: one_step(model, batch, torch.Generator(device=dev).manual_seed(3), cfg,
                                    remat=mode)
             steps[name] = on_thread(run) if name == "none_thread" else run()
             steps[name]["replay_checks"] = remat.replay_checks - before
+            steps[name]["launches"] = {k: v - counts[k] for k, v in kernel_counts().items()}
+            if steps[name]["launches"] != remat_per_step(mode):
+                fail(f"remat {name}: the compare step launched {steps[name]['launches']}, not "
+                     f"{remat_per_step(mode)}")
     finally:
         remat.check_replay = False
     model.zero_grad(set_to_none=True)
@@ -2724,6 +2752,7 @@ def remat_compare(dev, cfg, model, init, batch) -> dict:
                           and c["spectral_max_abs"] == 0)
         c["generator_equal"] = bool(torch.equal(r["generator"], ref["generator"]))
         c["replay_checks"] = r["replay_checks"]
+        c["launches"] = r["launches"]
         out[name] = c
         if not c["within"] or not c["generator_equal"]:
             fail(f"remat {name} step vs the plain step: {c}")
@@ -2760,10 +2789,10 @@ def remat_batch(kind: str, size: int, dev) -> dict:
 
 
 def remat_kind(dev, kind: str, budget: int) -> dict:
-    """10.1 (image) or 10.2 (video): per precision, the compare steps, the
-    timed modes at phase 6's (9's) size, the fit's second size, the fit,
-    the predicted largest batch, and for selective a verified run at it
-    (at most the yaml's batch)."""
+    """10.1 (image) or 10.2 (video): per precision, the compare steps; in
+    REMAT_TIMED's, the timed modes at phase 6's (9's) size, the fit's
+    second size, the fit, the predicted largest batch, and for selective a
+    verified run at it (at most the yaml's batch)."""
     label = "10.1 image" if kind == "image" else "10.2 video"
     sizes = REMAT_IMAGE_SIZES if kind == "image" else REMAT_VIDEO_SIZES
     clip = 1 if kind == "image" else VIDEO_TRAIN_CLIP
@@ -2781,24 +2810,28 @@ def remat_kind(dev, kind: str, budget: int) -> dict:
                   f"{c['grad_rel_l2']:.3g}, params {c['param_max_abs']:.3g}, BN "
                   f"{c['batch_stats_max_abs']:.3g}, u/v {c['spectral_max_abs']:.3g}); generator "
                   f"equal {c['generator_equal']}; block-index replays checked "
-                  f"{c['replay_checks']}", flush=True)
+                  f"{c['replay_checks']}; launches {c['launches']}", flush=True)
+        if precision not in REMAT_TIMED:
+            del model, init, main_batch
+            torch.cuda.empty_cache()
+            continue
         small_batch = remat_batch(kind, sizes[0], dev)
         r["modes"] = {}
         for mode in REMAT_MODES:
             m = r["modes"][mode] = remat_steps(dev, cfg, model, init, main_batch, mode,
-                                               TRAIN_STEPS)
+                                               REMAT_STEPS)
             m["small"] = remat_steps(dev, cfg, model, init, small_batch, mode, 2)
-            fit = m["fit"] = remat_fit(((sizes[0], m["small"]["peak_max_bytes"]),
-                                        (sizes[1], m["peak_max_bytes"])))
+            fit = m["fit"] = remat_fit(((sizes[0], m["small"]["peak_mem_bytes"]),
+                                        (sizes[1], m["peak_mem_bytes"])))
             max_frames = int((REMAT_FIT_FRACTION * budget - fit["fixed_bytes"])
                              // fit["per_frame_bytes"])
             m["predicted_max_batch_memory"] = max_frames // clip
             m["predicted_max_batch"] = min(max_frames, KERNEL_MAX_MAPS // TRAIN_SLOTS) // clip
             print(f"phase {label} {precision} {mode}: {m['ms_per_step_median']:.3f} ms/step "
-                  f"(median of steps 2-{TRAIN_STEPS}: {[round(x, 3) for x in m['ms_per_step']]}), "
-                  f"peak {m['peak_max_bytes'] / 1e9:.3f} GB (steps "
+                  f"(median of steps 2-{REMAT_STEPS}: {[round(x, 3) for x in m['ms_per_step']]}), "
+                  f"peak {m['peak_mem_bytes'] / 1e9:.3f} GB (steps "
                   f"{[round(p / 1e9, 3) for p in m['peak_bytes']]}); size {sizes[0]}: peak "
-                  f"{m['small']['peak_max_bytes'] / 1e9:.3f} GB, "
+                  f"{m['small']['peak_mem_bytes'] / 1e9:.3f} GB, "
                   f"{m['small']['ms_per_step'][-1]:.3f} ms; launches per step "
                   f"{m['launches_per_step']}; fit {fit['fixed_bytes'] / 1e9:.3f} GB + "
                   f"{fit['per_frame_bytes'] / 1e9:.4f} GB a frame: largest batch "
@@ -2820,7 +2853,7 @@ def remat_kind(dev, kind: str, budget: int) -> dict:
                                          + sel["fit"]["per_frame_bytes"] * verify * clip)
             print(f"phase {label} {precision} selective at the predicted batch {verify}"
                   + ("" if kind == "image" else f" x clip {clip}")
-                  + f": peak {v['peak_max_bytes'] / 1e9:.3f} GB (fit "
+                  + f": peak {v['peak_mem_bytes'] / 1e9:.3f} GB (fit "
                   f"{v['predicted_peak_bytes'] / 1e9:.3f}), ms per step "
                   f"{[round(x, 3) for x in v['ms_per_step']]}", flush=True)
             del big
@@ -3009,8 +3042,9 @@ def ddp_steps(model, cfg, batch, dev, modes, split: int = 1, timed: bool = True)
 
 
 def ddp_rank_main(case: str, in_path: str, out_path: str) -> int:
-    """One rank of 11.1 / 11.2 (``--ddp-rank``): joins the gloo group on
-    cuda:0, takes its rows of the global batch and runs ``ddp_steps``."""
+    """One rank of 11.1 / 11.2 / 14.3 (``--ddp-rank``): joins the gloo group
+    on cuda:0, takes its rows of the global batch and runs ``ddp_steps``
+    (for each run of ``runs``, where the payload has several)."""
     from datetime import timedelta
     from maggie_tpu_torch import parallel
     from maggie_tpu_torch.config import ConfigNode
@@ -3021,21 +3055,27 @@ def ddp_rank_main(case: str, in_path: str, out_path: str) -> int:
     dev = parallel.init_from_env(device="cuda:0", backend="gloo",
                                  timeout=timedelta(seconds=DDP_GROUP_TIMEOUT_S))
     try:
-        cfg = ConfigNode(p["cfg"])
-        model = build_model(cfg.model, device=dev)
-        model.load_state_dict(p["state"])
-        rows = parallel.shard_rows(p["batch"], parallel.rank(), parallel.world())
-        res = ddp_steps(model, cfg, {k: v.to(dev) for k, v in rows.items()}, dev, p["modes"])
-        torch.save(res, out_path)
+        res = []
+        for run in p.get("runs", [p]):   # phase 14.3 runs several configs in one pair
+            cfg = ConfigNode(run["cfg"])
+            model = build_model(cfg.model, device=dev)
+            model.load_state_dict(run["state"])
+            rows = parallel.shard_rows(run["batch"], parallel.rank(), parallel.world())
+            res.append(ddp_steps(model, cfg, {k: v.to(dev) for k, v in rows.items()}, dev,
+                                 run["modes"], timed=run.get("timed", True)))
+            del model, rows
+            torch.cuda.empty_cache()
+        torch.save(res if "runs" in p else res[0], out_path)
     finally:
         parallel.destroy()
     return 0
 
 
-def ddp_spawn(case: str, payload: dict, root: str) -> list:
+def ddp_spawn(case: str, payload: dict, root: str, meanwhile=None) -> list:
     """``case`` in DDP_WORLD processes (``chip_smoke.py --ddp-rank``) with
-    torchrun's variables; their results by rank. Any rank's failure or
-    time-out fails the script, and every process is ended."""
+    torchrun's variables; their results by rank. ``meanwhile()`` runs in
+    this process while the ranks do. Any rank's failure or time-out fails
+    the script, and every process is ended."""
     import socket
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -3052,10 +3092,12 @@ def ddp_spawn(case: str, payload: dict, root: str) -> list:
                                       stderr=subprocess.STDOUT, text=True))
     logs = []
     try:
+        if meanwhile is not None:
+            meanwhile()
         for proc in procs:
             logs.append(proc.communicate(timeout=DDP_TIMEOUT_S)[0])
     except subprocess.TimeoutExpired:
-        fail(f"phase 11 {case}: a rank ran past {DDP_TIMEOUT_S} s")
+        fail(f"data-parallel case {case!r}: a rank ran past {DDP_TIMEOUT_S} s")
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -3063,7 +3105,8 @@ def ddp_spawn(case: str, payload: dict, root: str) -> list:
                 proc.communicate()
     for r, (proc, log) in enumerate(zip(procs, logs)):
         if proc.returncode != 0:
-            fail(f"phase 11 {case}: rank {r} exited {proc.returncode}:\n{log[-3000:]}")
+            fail(f"data-parallel case {case!r}: rank {r} exited {proc.returncode}:\n"
+                 f"{log[-3000:]}")
     return [torch.load(o, weights_only=False) for o in outs]
 
 
@@ -3078,27 +3121,29 @@ def ddp_check(name: str, ranks: list, single: dict, per_step: dict,
     differ = [f"{part} {k}" for part in ("params", "batch_stats", "spectral", "grads")
               for k, v in ranks[0][part].items() if not torch.equal(v, ranks[1][part][k])]
     if differ:
-        fail(f"phase 11 {name}: the ranks' models differ after the step at {differ[:5]}")
+        fail(f"phase {name}: the ranks' models differ after the step at {differ[:5]}")
     losses = {k: sum(r["losses"][k] for r in ranks) for k in ranks[0]["losses"]}
     check = compare_steps(dict(ranks[0], losses=losses), single)
     if not check["within"]:
-        fail(f"phase 11 {name}: world 2 differs from one process beyond the STEP_* limits: "
+        fail(f"phase {name}: world 2 differs from one process beyond the STEP_* limits: "
              f"{check}")
     for r, res in enumerate(ranks):
         if res["launches"] != per_step:
-            fail(f"phase 11 {name}: rank {r} launched {res['launches']}, not {per_step}")
+            fail(f"phase {name}: rank {r} launched {res['launches']}, not {per_step}")
     for i, want in enumerate(single["selections"]):
         got = sorted(b for r in ranks for b in r["selections"][i]["blocks"])
         if got != want["blocks"]:
-            fail(f"phase 11 {name}: the ranks kept other blocks than one process at the "
+            fail(f"phase {name}: the ranks kept other blocks than one process at the "
                  f"ladder's call {i}")
     check.update(launches_per_rank=[r["launches"] for r in ranks],
-                 ms_per_step_world2=[r["ms_per_step_median"] for r in ranks],
-                 ms_per_step_one_process=single["ms_per_step_median"],
-                 peak_mem_bytes_per_rank=[r["peak_mem_bytes"] for r in ranks],
-                 peak_mem_bytes_one_process=single["peak_mem_bytes"],
                  selections_per_rank=[[{k: v for k, v in sel.items() if k != "blocks"}
                                        for sel in r["selections"]] for r in ranks])
+    timed = "ms_per_step_median" in single
+    if timed:
+        check.update(ms_per_step_world2=[r["ms_per_step_median"] for r in ranks],
+                     ms_per_step_one_process=single["ms_per_step_median"],
+                     peak_mem_bytes_per_rank=[r["peak_mem_bytes"] for r in ranks],
+                     peak_mem_bytes_one_process=single["peak_mem_bytes"])
     overflow = any(sel["active"] > sel["cap"] for r in ranks for sel in r["selections"])
     if top_cap is not None:
         kept = set(top_cap["selections"][0]["blocks"])
@@ -3107,16 +3152,17 @@ def ddp_check(name: str, ranks: list, single: dict, per_step: dict,
             "blocks_kept": len(kept),
             "loss_rel": {k: abs(losses[k] - v) / max(abs(v), STEP_LOSS_ATOL / STEP_LOSS_RTOL)
                          for k, v in top_cap["losses"].items()}}
-    print(f"phase 11 {name}: world 2 on one card vs one process: loss terms max rel "
+    ladder = (f"ladder {'overflows' if overflow else 'fits'} (per rank: "
+              f"{check['selections_per_rank'][0][0]})" if single["selections"] else "no ladder")
+    times = (f"; ms/step ranks {[round(v, 3) for v in check['ms_per_step_world2']]} vs one "
+             f"process {check['ms_per_step_one_process']:.3f}; peak per rank "
+             f"{[round(v / 1e9, 3) for v in check['peak_mem_bytes_per_rank']]} GB vs one "
+             f"process {check['peak_mem_bytes_one_process'] / 1e9:.3f} GB") if timed else ""
+    print(f"phase {name}: world 2 on one card vs one process: loss terms max rel "
           f"{check['loss_max_rel']:.3g}, gradients rel L2 {check['grad_rel_l2']:.3g}, params max "
           f"|d| {check['param_max_abs']:.3g}, BN stats {check['batch_stats_max_abs']:.3g}, SN "
           f"u/v {check['spectral_max_abs']:.3g}; ranks bit-equal; launches per rank "
-          f"{check['launches_per_rank'][0]}; ladder {'overflows' if overflow else 'fits'} "
-          f"(per rank: {check['selections_per_rank'][0][0]}); ms/step ranks "
-          f"{[round(v, 3) for v in check['ms_per_step_world2']]} vs one process "
-          f"{check['ms_per_step_one_process']:.3f}; peak per rank "
-          f"{[round(v / 1e9, 3) for v in check['peak_mem_bytes_per_rank']]} GB vs one process "
-          f"{check['peak_mem_bytes_one_process'] / 1e9:.3f} GB", flush=True)
+          f"{check['launches_per_rank'][0]}; {ladder}{times}", flush=True)
     if "top_cap_gap" in check:
         gap = check["top_cap_gap"]
         print(f"  per-rank selection vs the global top-cap (the JAX package's): "
@@ -3250,7 +3296,7 @@ def ddp_video(dev, root: str) -> tuple[dict, dict]:
     del model
     out = ddp_check("11.2 video", [r["none"] for r in ranks], single["none"], PER_ITER)
     if any(sel["active"] > sel["cap"] for r in out["selections_per_rank"] for sel in r):
-        fail("phase 11 11.2 video: the ladder overflowed; the clips were meant to fit")
+        fail("phase 11.2 video: the ladder overflowed; the clips were meant to fit")
     launches = dict.fromkeys(PER_ITER, 0)
     ddp_add_launches(launches, ranks, ("none",))
     return out, launches
@@ -3610,7 +3656,7 @@ def base_window_times(model, win: dict) -> dict:
     from maggie_tpu_torch.models.tcvom import TCVOM
     per_frame = TCVOM._encoded
 
-    def batched(self, inp, train):
+    def batched(self, inp):
         out, mid_fea = self.encoder(inp)
         return self.aspp(out), mid_fea["shortcut"]
     times = {"frame_at_a_time": [], "batched": []}
@@ -3640,39 +3686,57 @@ def base_train_batch(b: int, n_f: int, hw: int, slots: int, seed: int = 0) -> di
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def card_steps(cfg, batch: dict, dev, label: str, steps: int = BASE_TRAIN_STEPS) -> dict:
-    """``steps`` f32 steps of ``cfg``'s model, from seed 0, on the card on
-    ``batch`` (random widths from a card generator of seed 0): ms a step
-    (median of the steps after the first), the losses (which must be
-    finite), peak memory and each kernel's launches over the steps."""
+def card_steps(cfg, batch: dict, dev, label: str, steps: int = BASE_TRAIN_STEPS,
+               remat: str = "none", model=None, init=None, first: bool = False) -> dict:
+    """``steps`` f32 steps of ``cfg``'s model under ``remat`` on the card on
+    ``batch``, with a fresh optimizer and a card generator of seed 0 (the
+    fusions' random widths): ms a step (CUDA events; the median of the
+    steps after the first), the losses (which must be finite), the peak
+    memory of each step and of all, each kernel's launches a step (the
+    counts set to 0 first) and over all. ``model`` is loaded with ``init``
+    where given, else built from seed 0; with ``first``, the first step as
+    ``step_record`` gives it."""
     from maggie_tpu_torch.engine.optim import build_optimizer
     from maggie_tpu_torch.engine.train_step import TrainState, make_train_step
     from maggie_tpu_torch.models import build_model
     from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
-    model = build_model(cfg.model, device=dev, generator=torch.Generator().manual_seed(0)).train()
+    if model is None:
+        model = build_model(cfg.model, device=dev, generator=torch.Generator().manual_seed(0))
+    else:
+        model.load_state_dict(init)
+    model.train().zero_grad(set_to_none=True)
     opt, schedule = build_optimizer(cfg, model.parameters())
-    state, step = TrainState(model, opt), make_train_step(model, opt, schedule)
+    state, step = TrainState(model, opt), make_train_step(model, opt, schedule, remat=remat)
     gen = torch.Generator(device=dev).manual_seed(0)
     dbatch = {k: v.to(dev) for k, v in batch.items()}
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kg.launches = kg.bwd_launches = ku.launches = 0
-    ms, losses = [], []
-    for _ in range(steps):
+    ms, losses, peaks, launches, record = [], [], [], [], None
+    for i in range(steps):
+        before = kernel_counts()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        ld = step(state, dbatch, gen, **TRAIN_FLAGS)
-        end.record()
-        losses.append({k: float(v) for k, v in ld.items()})
+        with clip_inputs() if first and i == 0 else contextlib.nullcontext() as grads:
+            start.record()
+            ld = step(state, dbatch, gen, **TRAIN_FLAGS)
+            end.record()
+        torch.cuda.synchronize()
         ms.append(start.elapsed_time(end))
-    torch.cuda.synchronize()
-    launches = {"gather_patches": kg.launches, "gather_patches_bwd": kg.bwd_launches,
-                "compute_unknown": ku.launches}
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        launches.append({k: v - before[k] for k, v in kernel_counts().items()})
+        losses.append({k: float(v) for k, v in ld.items()})
+        if grads is not None:
+            record = step_record(model, state, ld, grads, schedule, gen)
+    model.zero_grad(set_to_none=True)
+    del opt, state, step, dbatch
     if not all(np.isfinite(v) for ld in losses for v in ld.values()):
         fail(f"phase {label}: non-finite losses {losses}")
     return {"losses": losses, "ms_per_step_median": float(np.median(ms[1:] or ms)),
-            "ms_per_step": ms, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-            "launches": launches}
+            "ms_per_step": ms, "peak_bytes": peaks, "peak_mem_bytes": max(peaks),
+            "launches_by_step": launches, "first": record,
+            "launches": {k: sum(c[k] for c in launches) for k in launches[0]}}
 
 
 def base_train(name: str, b: int, n_f: int, hw: int, dev) -> dict:
@@ -3770,9 +3834,6 @@ SM_VIDEO_FRAMES = 5                       # 3 windows of 3 frames
 # last stages see 4x4 sites a frame (at 128x128, 2x2, and its f32 step is
 # ill-conditioned: tests/test_torch_sparsemat.py)
 SM_CHECK_STEPS = ((SM_IMAGE, 2, 1, 256), (SM_VIDEO, 1, 3, 256))
-# the yamls' own train batches at their 512x512 crops: 12 images, 4 clips of 8
-SM_YAML_STEPS = ((SM_IMAGE, 12, 1, 512), (SM_VIDEO, 4, 8, 512))
-SM_TRAIN_STEPS = 3
 # eval scales the LPN's last head (lpn.decoder.p0x) by SM_HEAD_SCALE on the
 # card and the CPU alike, as tests/test_torch_sparsemat.py does: at seed 0 the
 # random LPN leaves every pixel uncertain, and the SHM's masked path (active
@@ -4037,36 +4098,6 @@ def sm_check_step(name: str, b: int, n_f: int, hw: int, dev) -> dict:
     return check
 
 
-def sm_yaml_steps(name: str, b: int, n_f: int, hw: int, dev) -> dict:
-    """13.3: SM_TRAIN_STEPS steps (``card_steps``) at the yaml's batch, or,
-    where it does not fit on the card, at the largest smaller batch that
-    does; no kernel launched."""
-    import gc
-    cfg, tried = sm_cfg(name), []
-    for size in range(b, 0, -1):
-        try:
-            out = card_steps(cfg, base_train_batch(size, n_f, hw, 1), dev, f"13.3 {name}",
-                             SM_TRAIN_STEPS)
-            break
-        except torch.cuda.OutOfMemoryError:
-            tried.append(size)
-        gc.collect()
-        torch.cuda.empty_cache()
-    else:
-        fail(f"phase 13.3 {name}: no batch fits on the card (tried {tried})")
-    gc.collect()
-    torch.cuda.empty_cache()
-    if any(out["launches"].values()):
-        fail(f"phase 13.3 {name}: the train step launched {out['launches']}, want none")
-    out.update(size=f"batch {size} x clip {n_f} x {hw}x{hw}, 1 slot", yaml_batch=b, batch=size,
-               out_of_memory_at=tried)
-    note = "the yaml's batch" if size == b else f"the yaml's {b} did not fit (tried {tried})"
-    print(f"phase 13.3 {name} train ({out['size']}, f32; {note}): "
-          f"{out['ms_per_step_median']:.3f} ms/step, peak {out['peak_mem_bytes'] / 1e9:.3f} GB",
-          flush=True)
-    return out
-
-
 def dense_train(dev) -> dict:
     """13.4: BASE_TRAIN_STEPS f32 steps (``card_steps``) of the dense
     ablation at batch 2 x 512x512, 10 slots: K2 once a step
@@ -4085,7 +4116,7 @@ def dense_train(dev) -> dict:
 
 def phase_sparsemat(dev, detail) -> dict:
     """Phase 13: 13.1 ``sm_image``, 13.2 ``sm_video``, 13.3 the card-vs-CPU
-    steps and the yamls' batches, 13.4 the dense InstMatt ablation
+    steps (the yamls' batches are phase 14.2's), 13.4 the dense InstMatt ablation
     (``base_image``, ``dense_train``). Returns K2's launches over the
     counted runs (3 per dense forward, 1 per dense step; SparseMat launches
     none)."""
@@ -4099,7 +4130,6 @@ def phase_sparsemat(dev, detail) -> dict:
         out["video"] = sm_video(dev, root)
     torch.cuda.empty_cache()
     out["train_check"] = {n: sm_check_step(n, b, f, hw, dev) for n, b, f, hw in SM_CHECK_STEPS}
-    out["train"] = {n: sm_yaml_steps(n, b, f, hw, dev) for n, b, f, hw in SM_YAML_STEPS}
     out["dense_eval"] = base_image("dense", dev, checks, worst, cfg=dense_cfg, k2_per_forward=3,
                                    keys=DENSE_KEYS, label="13.4")
     torch.cuda.empty_cache()
@@ -4131,6 +4161,253 @@ def sparsemat_only(dev) -> int:
     phase_sparsemat(dev, detail)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_sparsemat.json"), "w") as f:
+        json.dump(detail, f, indent=1, default=str)
+    return 0
+
+
+# ---------------------------------------------------------------- phase 14
+# remat and data parallel for the baselines (models/remat.py's layouts: the
+# harness with a dense decoder 3 segments, TCVOM 2, SparseMat 1), f32, TF32
+# off, seed-0 weights, at the yamls' widths and 512x512 crops
+B14_HW = 512
+# 14.1 (config, batch, clip): one step of each mode held against the plain one
+B14_CHECK = (("mgm_stacked", 2, 1), ("mgm_stacked_tcvom", 1, 8), ("sparsemat_video", 1, 8),
+             ("dense", 2, 1))
+B14_STEPS = 4                 # the checked step, then steps 2-4 timed (median)
+# K2's launches a step, from the stage layout: the dense InstMatt decoder's
+# detail_mask sits in its decoder's segment, the last, which "full" and
+# "selective" both compute again in the backward; the MGM and TCVOM train
+# fusions dilate with random widths (plain torch) and SparseMat launches none
+B14_K2 = {"dense": {"none": 1, "full": 2, "selective": 2}}
+# 14.2 (config, batch, clip): the yamls' own train batches (sparsemat_image's
+# 12 images fit in every mode at 31.8 GB on an H100 80GB HBM3, 700 W, PERF.md
+# §6: left out for the script's time limit)
+B14_YAML = (("mgm_stacked", 12, 1), ("mgm_stacked_tcvom", 4, 8), ("sparsemat_video", 4, 8))
+B14_YAML_STEPS = 2            # ms/step: the second step's
+# 14.3 (config, global batch, clip): two gloo ranks on the card, a row a rank
+B14_DDP = (("mgm_stacked_tcvom", 2, 3), ("sparsemat_image", 2, 1))
+
+
+def b14_cfg(name: str):
+    if name == "dense":
+        return dense_cfg()
+    return sm_cfg(name) if name.startswith("sparsemat") else base_cfg(name)
+
+
+def b14_model(name: str, dev):
+    """``name``'s config, its model on ``dev`` from seed 0 and the initial
+    state dict, and its slots."""
+    from maggie_tpu_torch.models import build_model
+    cfg = b14_cfg(name)
+    model = build_model(cfg.model, device=dev, generator=torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    return cfg, model, init, int(cfg.model.encoder_args.num_mask)
+
+
+def b14_remat(dev) -> tuple[dict, dict]:
+    """14.1: per config of B14_CHECK, B14_STEPS steps of each remat mode from
+    the same weights, batch and generator seed; each remat mode's first step
+    against the plain one's within phase 6's STEP_* limits (and whether
+    bit-equal), the generator's state after it equal; K2's launches a step
+    as B14_K2 says, K1 and its backward none. Returns the readings and
+    each (config, mode)'s (frames, peak) for 14.2's fits."""
+    out, points = {}, {}
+    for name, b, n_f in B14_CHECK:
+        t0 = time.perf_counter()
+        cfg, model, init, slots = b14_model(name, dev)
+        batch = {k: v.to(dev) for k, v in base_train_batch(b, n_f, B14_HW, slots).items()}
+        runs = {mode: card_steps(cfg, batch, dev, f"14.1 {name} {mode}", B14_STEPS, remat=mode,
+                                 model=model, init=init, first=True)
+                for mode in REMAT_MODES}
+        r = out[name] = {"size": f"batch {b} x clip {n_f} x {B14_HW}x{B14_HW}, {slots} slots"}
+        for mode, run in runs.items():
+            want = {"gather_patches": 0, "gather_patches_bwd": 0,
+                    "compute_unknown": B14_K2.get(name, {}).get(mode, 0)}
+            if any(c != want for c in run["launches_by_step"]):
+                fail(f"phase 14.1 {name} {mode}: launches by step {run['launches_by_step']}, "
+                     f"want {want} a step")
+            entry = r[mode] = {k: run[k] for k in ("ms_per_step", "ms_per_step_median",
+                                                   "peak_mem_bytes", "launches")}
+            entry["launches_per_step"] = want
+            points[(name, mode)] = (b * n_f, run["peak_mem_bytes"])
+            if mode != "none":
+                c = compare_steps(run["first"], runs["none"]["first"])
+                c["bit_equal"] = (c["loss_max_rel"] == 0 and c["grad_rel_l2"] == 0
+                                  and c["param_max_abs"] == 0 and c["batch_stats_max_abs"] == 0
+                                  and c["spectral_max_abs"] == 0)
+                c["generator_equal"] = bool(torch.equal(run["first"]["generator"],
+                                                        runs["none"]["first"]["generator"]))
+                entry["vs_none"] = c
+                if not c["within"] or not c["generator_equal"]:
+                    fail(f"phase 14.1 {name}: the {mode} step vs the plain one: {c}")
+        r["seconds"] = time.perf_counter() - t0
+        print(f"phase 14.1 {name} ({r['seconds']:.1f} s; {r['size']}, f32): "
+              + "; ".join(f"{m} {r[m]['ms_per_step_median']:.3f} ms/step, peak "
+                          f"{r[m]['peak_mem_bytes'] / 1e9:.3f} GB, K2 "
+                          f"{r[m]['launches_per_step']['compute_unknown']}/step"
+                          for m in REMAT_MODES), flush=True)
+        for m in REMAT_MODES[1:]:
+            c = r[m]["vs_none"]
+            print(f"  {m} vs none: bit-equal {c['bit_equal']} (loss rel {c['loss_max_rel']:.3g}, "
+                  f"grad rel L2 {c['grad_rel_l2']:.3g}, params {c['param_max_abs']:.3g}, BN "
+                  f"{c['batch_stats_max_abs']:.3g}, u/v {c['spectral_max_abs']:.3g}); generator "
+                  f"equal {c['generator_equal']}", flush=True)
+        del model, init, batch, runs
+        torch.cuda.empty_cache()
+    return out, points
+
+
+def b14_yaml(dev, points: dict, budget: int) -> dict:
+    """14.2: per yaml of B14_YAML and mode, B14_YAML_STEPS steps at the
+    yaml's batch, or, where it does not fit, at the largest smaller batch
+    that does (each batch that ran out of memory reported); for a mode
+    that does not fit, phase 10.3's fit through 14.1's point and the
+    fitting batch's, and the largest batch it predicts under
+    REMAT_FIT_FRACTION of the memory this process holds."""
+    import functools
+    import gc
+    out = {}
+    for name, b, n_f in B14_YAML:
+        t0 = time.perf_counter()
+        cfg, model, init, slots = b14_model(name, dev)
+        host_batch = functools.lru_cache(lambda size: base_train_batch(size, n_f, B14_HW, slots))
+        r = out[name] = {"yaml_batch": b, "clip": n_f}
+        for mode in REMAT_MODES:
+            tried, run = [], None
+            for size in range(b, 0, -1):
+                batch = {k: v.to(dev) for k, v in host_batch(size).items()}
+                try:
+                    run = card_steps(cfg, batch, dev, f"14.2 {name} {mode}", B14_YAML_STEPS,
+                                     remat=mode, model=model, init=init)
+                except torch.cuda.OutOfMemoryError:
+                    tried.append(size)
+                del batch
+                gc.collect()
+                torch.cuda.empty_cache()
+                if run is not None:
+                    break
+            if run is None:
+                fail(f"phase 14.2 {name} {mode}: no batch fits on the card (tried {tried})")
+            entry = r[mode] = {"batch": size, "fits": size == b, "out_of_memory_at": tried,
+                               "ms_per_step": run["ms_per_step"],
+                               "ms_per_step_last": run["ms_per_step"][-1],
+                               "peak_mem_bytes": run["peak_mem_bytes"]}
+            p1 = points.get((name, mode))
+            if size < b and p1 is not None and p1[0] != size * n_f:
+                fit = remat_fit((p1, (size * n_f, run["peak_mem_bytes"])))
+                entry["fit"] = dict(fit, points=[p1, (size * n_f, run["peak_mem_bytes"])])
+                entry["fit_max_batch"] = int((REMAT_FIT_FRACTION * budget - fit["fixed_bytes"])
+                                             // fit["per_frame_bytes"]) // n_f
+                entry["fit_peak_at_yaml_batch"] = (fit["fixed_bytes"]
+                                                   + fit["per_frame_bytes"] * b * n_f)
+        r["seconds"] = time.perf_counter() - t0
+        print(f"phase 14.2 {name} ({r['seconds']:.1f} s; the yaml's batch {b}"
+              + (f" x clip {n_f}" if n_f > 1 else "")
+              + f", {B14_HW}x{B14_HW}, {slots} slots, f32): "
+              + "; ".join(
+                  f"{m} " + ("fits" if r[m]["fits"] else
+                             f"does not fit (out of memory at {r[m]['out_of_memory_at']}; runs "
+                             f"at {r[m]['batch']}" + (
+                                 f"; 10.3's fit {r[m]['fit']['fixed_bytes'] / 1e9:.2f} GB + "
+                                 f"{r[m]['fit']['per_frame_bytes'] / 1e9:.3f} GB a frame "
+                                 f"predicts {r[m]['fit_peak_at_yaml_batch'] / 1e9:.1f} GB at "
+                                 f"{b} and at most {r[m]['fit_max_batch']}"
+                                 if "fit" in r[m] else "; no second point for a fit") + ")")
+                  + f": {r[m]['ms_per_step_last']:.3f} ms/step, peak "
+                  f"{r[m]['peak_mem_bytes'] / 1e9:.3f} GB" for m in REMAT_MODES), flush=True)
+        del model, init, host_batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def b14_ddp(dev, root: str) -> dict:
+    """14.3: each config of B14_DDP on two gloo ranks on the card (one
+    spawn for both), a row a rank, plain and under selective, against one
+    process on the card (run while the ranks run) on the same global batch
+    within phase 6's STEP_*
+    limits, the ranks' models bit-equal after the update; no kernel
+    launched (no ladder, random-width fusions, SparseMat)."""
+    from maggie_tpu_torch.config import ConfigNode
+    from maggie_tpu_torch.models import build_model
+    modes = ("none", "selective")
+    runs = []
+    for name, b, n_f in B14_DDP:
+        cfg = b14_cfg(name)
+        state = build_model(cfg.model, device="cpu",
+                            generator=torch.Generator().manual_seed(0)).state_dict()
+        batch = base_train_batch(b, n_f, B14_HW, int(cfg.model.encoder_args.num_mask))
+        runs.append({"cfg": cfg.to_dict(), "state": state, "batch": batch, "modes": modes,
+                     "timed": False})
+    singles = []
+
+    def one_process():   # while the ranks run: nothing here is timed
+        for run in runs:
+            cfg = ConfigNode(run["cfg"])
+            model = build_model(cfg.model, device=dev)
+            model.load_state_dict(run["state"])
+            on_dev = {k: v.to(dev) for k, v in run["batch"].items()}
+            singles.append(ddp_steps(model, cfg, on_dev, dev, modes, timed=False))
+            del model, on_dev
+            torch.cuda.empty_cache()
+    ranks = ddp_spawn("baselines", {"runs": runs}, root, meanwhile=one_process)
+    none = dict.fromkeys(PER_ITER, 0)
+    out = {}
+    for i, (name, b, n_f) in enumerate(B14_DDP):
+        size = f"batch {b}" + (f" x clip {n_f}" if n_f > 1 else "") + f", {B14_HW}x{B14_HW}"
+        out[name] = {mode: ddp_check(f"14.3 {name} {mode} ({size}, a row a rank)",
+                                     [r[i][mode] for r in ranks], singles[i][mode], none)
+                     for mode in modes}
+    return out
+
+
+def phase_baselines_train(dev, detail) -> dict:
+    """Phase 14: 14.1 ``b14_remat``, 14.2 ``b14_yaml``, 14.3 ``b14_ddp``.
+    The allocator maps expandable segments during 14.1 and 14.2, as in
+    phase 10. Returns each kernel's launches over 14.1's steps."""
+    import tempfile
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        free, total = torch.cuda.mem_get_info(dev)
+        budget = free + torch.cuda.memory_reserved(dev)
+        out = {"budget_bytes": budget}
+        out["remat"], points = b14_remat(dev)
+        t1 = time.perf_counter()
+        out["yaml"] = b14_yaml(dev, points, budget)
+        t2 = time.perf_counter()
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    with tempfile.TemporaryDirectory() as root:
+        out["ddp"] = b14_ddp(dev, root)
+    out["seconds"] = {"14.1": t1 - t0, "14.2": t2 - t1, "14.3": time.perf_counter() - t2}
+    launches = {k: sum(out["remat"][n][m]["launches"][k]
+                       for n, _, _ in B14_CHECK for m in REMAT_MODES) for k in PER_ITER}
+    out.update(launches=launches, phase_s=time.perf_counter() - t0)
+    detail["baselines_train"] = out
+    print(f"phase 14: launches over 14.1's steps {launches}; done in {out['phase_s']:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in out['seconds'].items())})", flush=True)
+    if launches["compute_unknown"] == 0:
+        fail("phase 14: compute_unknown was not launched on the baselines' train path")
+    return out
+
+
+def baselines_train_only(dev) -> int:
+    """``--baselines-train``: build the kernels, then phase 14; details to
+    output/torch_port/chip_smoke_baselines_train.json."""
+    from maggie_tpu_torch.ops.kernels import build
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                     "--format=csv,noheader"], capture_output=True,
+                                    text=True, check=True).stdout.strip(), flush=True)
+    build.build_all()
+    detail = {}
+    phase_baselines_train(dev, detail)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_baselines_train.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
     return 0
 

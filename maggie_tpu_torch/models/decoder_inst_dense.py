@@ -16,8 +16,10 @@ bands (``maggie.prm_fuse``, the harness's fusion): three launches an eval
 forward. In training the fusion's bands are the random-width dilations
 (``compute_unknown_random``): one launch a step. The heads' logits are cast to f32
 before the alphas (``:85``); the os8 logits come f32 from the attention.
-The decoder runs its train forward as one stage (``train_forward``): remat
-is not ported for it (ROADMAP.md queue 1 item 12e).
+The decoder runs its train forward as one stage (``train_forward``): the
+JAX decoder tags nothing, so under ``model.remat selective`` its segment,
+K2 included, is recomputed whole (two K2 launches a step, as under
+``full``).
 """
 
 from __future__ import annotations

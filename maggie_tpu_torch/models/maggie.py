@@ -103,8 +103,6 @@ class MaGGIe(nn.Module):
         self.loss_dtssd_w = float(cfg.get("loss_dtSSD_w", 1.0))
         # "none" or "selective" (remat.py); the train step sets it for its forward
         self.remat = "none"
-        # remat (remat.py) is held against JAX's for the sparse decoders only
-        self.remat_supported = cfg["decoder"] in _SPARSE_DECODERS
 
     def _inputs(self, batch: dict, train: bool, dtype: torch.dtype | None = None):
         """Compute-dtype (or ``dtype``) NCHW frames, masks at full size, and
@@ -160,7 +158,10 @@ class MaGGIe(nn.Module):
                        atten_loss_enabled, generator):
         """The train forward as the stages of selective remat (``remat.py``):
         each in a checkpoint segment of its own when ``self.remat`` is
-        ``"selective"`` (the train step sets it), else called as it is."""
+        ``"selective"`` (the train step sets it), else called as it is. With
+        a dense decoder (``res_shortcut_22``, ``res_shortcut_inst_matt_22``),
+        which tags nothing in the JAX package, stages 3-6 are one: the
+        decoder, the fusion and the losses."""
         inp, masks, gt, dims = self._inputs(batch, train=True)
         run = remat.Stages(self.remat == "selective", generator)
         out, *feas = run(self._train_encode, inp)                          # stage 1

@@ -27,7 +27,18 @@ The segments of ``"selective"`` (``MaGGIe._train_forward`` and
 The JAX video decoder tags neither ``x_os8_logit`` nor ``feat8``
 (``maggie_tpu/models/decoder_video.py:154-163``), so there segments 3 and 4
 are one; the dense oracle ladder (``predict_details``) tags neither ``x4`` nor
-``x2``, so there segments 4 to 6 are one. Besides the tagged tensors, a
+``x2``, so there segments 4 to 6 are one. The baselines' layouts follow the
+same tags:
+
+- the harness with a dense decoder (``MGM``, ``MGM_SingInst`` and the dense
+  InstMatt decoder, which tag nothing past ASPP): segments 1 and 2 as
+  above, then the decoder, the fusion and the losses as one (3 segments);
+- ``TCVOM`` and ``TCVOM_SingInst`` (``tcvom.py``), which tag only the
+  encoder's outputs: the encoder, then the rest (2 segments);
+- ``SparseMat`` and ``SparseMat_SingInst`` (``sparsemat.py``), which tag
+  nothing: one segment, as ``full``.
+
+Besides the tagged tensors, a
 segment hands the next the small values that the JAX package recomputes
 instead: the tokens, the attention loss, the block indices and masks, the
 os8 alpha, the uncertainty map and the os4 logits (on video also ``feat8``,

@@ -26,6 +26,14 @@ Inputs as the MaGGIe harness's: ``batch['image']`` (b, n_f, H, W, 3),
 ``batch['mask']`` (b, n_f, n_i, hm, wm), in training ``batch['alpha']``.
 As in the JAX package, SparseMat reads no ``model.precision``: it runs in
 f32 under ``--precision 16`` too.
+
+Remat (``remat.py``): the JAX package tags no tensor of SparseMat, and
+``save_only_these_names("stage")`` with nothing tagged saves nothing, so
+``model.remat selective`` is ``full`` here: the whole train forward, losses
+included, in one checkpoint segment. Its recompute replays the first pass:
+the forward draws nothing, the max-pool dilation is deterministic, and the
+BatchNorm, masked BatchNorm and ``IBNorm`` statistics do not step again
+(``remat.replaying()``).
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from . import remat
 from .. import parallel
 from .losses import gradient_loss, lap_loss
 from .lpn import LPN
@@ -68,7 +77,6 @@ class SparseMat(nn.Module):
     """``cfg`` is the ``model`` subtree of the config."""
 
     split_eval = False       # eval_video runs the whole forward on every window
-    remat_supported = False  # ROADMAP.md queue 1 item 12e
 
     def __init__(self, cfg):
         super().__init__()
@@ -80,6 +88,8 @@ class SparseMat(nn.Module):
         self.loss_alpha_w = float(cfg.get("loss_alpha_w", 1.0))
         self.loss_alpha_lap_w = float(cfg.get("loss_alpha_lap_w", 1.0))
         self.loss_alpha_grad_w = float(cfg.get("loss_alpha_grad_w", 1.0))
+        # "none" or "selective" (remat.py); the train step sets it for its forward
+        self.remat = "none"
 
     def dilate(self, alpha: torch.Tensor) -> torch.Tensor:
         """The uncertain pixels (0.01 < a < 0.99), max-pooled."""
@@ -127,6 +137,10 @@ class SparseMat(nn.Module):
     def forward(self, batch: dict, generator: torch.Generator | None = None, **_unused):
         if not self.training:
             return self._eval_forward(batch)
+        # selective: one segment, as "full" (the module docstring)
+        return remat.Stages(self.remat == "selective", generator)(self._train_forward, batch)
+
+    def _train_forward(self, batch: dict):
         img, lr_pred, ctx, (b, n_f, h, w) = self._lr_pass(batch)
         mask = self.dilate(lr_pred)
         preds = self._run_shm(img, lr_pred, mask, ctx)

@@ -17,6 +17,14 @@ it does not gate its predictions by the valid instances in train.
 ``TCVOM_SingInst`` runs one instance at a time in eval. Neither splits its
 eval forward (``split_eval``): streaming video eval runs the whole forward
 on every window.
+
+Under ``model.remat selective`` (``remat.py``) the train forward has two
+segments, as the JAX package tags only the encoder's outputs
+(``maggie_tpu/models/encoder.py:171-185``; ``tcvom.py:65`` leaves ASPP's
+untagged): the encoder over every frame, then ASPP, the first decoder pass,
+the FAM passes (whose spectral norms chain their power steps within the
+segment), the fusion and the losses. Under data parallelism the attention
+loss divides by the global batch's band count (``compute_atten_loss``).
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import remat
+from .. import parallel
 from .layers import end_sn_chains, per_frame
 from .maggie import MaGGIe
 from .mgm_wrappers import one_instance_at_a_time
@@ -53,9 +63,34 @@ class TCVOM(MaGGIe):
             end_sn_chains(self)
 
     def _forward(self, batch: dict, train: bool, generator):
-        inp, _, gt, (b, n_f, n_i, h, w) = self._inputs(batch, train, batch["image"].dtype)
-        embedding, shortcuts = self._encoded(inp, train)
+        inp, _, gt, dims = self._inputs(batch, train, batch["image"].dtype)
+        if not train:
+            return self._clip(*self._encoded(inp), dims)
+        run = remat.Stages(self.remat == "selective", generator)
+        out, *feas = run(self._train_encode, inp)                            # stage 1
+        return run(self._train_clip, out, feas, gt, dims, generator)         # stage 2
 
+    def _encoded(self, inp: torch.Tensor):
+        """Eval: the ASPP output and the five skip features of every frame, a
+        frame at a time, as ``MaGGIe.encode_frames`` encodes: with TF32 off,
+        cuDNN picks FFT convolutions for a batch of 3 frames
+        (``layers.per_frame``; ``PERF.md`` gives TCVOM's window both ways)."""
+        def encode(x):
+            out, mid_fea = self.encoder(x)
+            return (self.aspp(out),) + tuple(mid_fea["shortcut"])
+        embedding, *shortcuts = per_frame(encode, inp)
+        return embedding, tuple(shortcuts)
+
+    def _train_clip(self, out, feas, gt: dict, dims, generator):
+        """Stage 2 of the train forward: ASPP, the decoder passes, the fusion
+        and the losses."""
+        return self._clip(self.aspp(out), tuple(feas), dims, gt, generator)
+
+    def _clip(self, embedding, shortcuts, dims, gt: dict | None = None, generator=None):
+        """The decoder passes over the clips of ``embedding`` and the skip
+        features, and the fusion: the output, and in train ``(output,
+        loss_dict)``."""
+        b, n_f, n_i, h, w = dims
         # the first pass over every frame, without the FAM (:26)
         raw, features, _, _, _ = self.decoder(embedding, shortcuts)
         unknown = self.dilate(raw["alpha_os1"])
@@ -76,7 +111,7 @@ class TCVOM(MaGGIe):
 
         alpha, weight_os4, weight_os1 = self.fuse(preds, generator)
         output = self._transform_output({**preds, "refined_masks": alpha}, b, n_f, n_i, h, w)
-        if not train:
+        if gt is None:
             return output
         loss_dict = self.compute_loss(preds, weight_os4, weight_os1, gt["alpha"],
                                       (b, n_f, n_i, h, w), reweight_os8=False)
@@ -86,17 +121,6 @@ class TCVOM(MaGGIe):
             loss_dict["loss_atten"] = loss_atten
             loss_dict["total"] = loss_dict["total"] + loss_atten * self.loss_atten_w
         return output, loss_dict
-
-    def _encoded(self, inp: torch.Tensor, train: bool):
-        """The ASPP output and the five skip features of every frame; in eval
-        a frame at a time, as ``MaGGIe.encode_frames`` encodes: with TF32
-        off, cuDNN picks FFT convolutions for a batch of 3 frames
-        (``layers.per_frame``; ``PERF.md`` gives TCVOM's window both ways)."""
-        def encode(x):
-            out, mid_fea = self.encoder(x)
-            return (self.aspp(out),) + tuple(mid_fea["shortcut"])
-        embedding, *shortcuts = encode(inp) if train else per_frame(encode, inp)
-        return embedding, tuple(shortcuts)
 
     @staticmethod
     def dilate(alpha: torch.Tensor) -> torch.Tensor:
@@ -108,8 +132,8 @@ class TCVOM(MaGGIe):
         """Window-9 attention BCE (reference ``:93-129``): for each middle
         frame, the FAM's logits against whether each window position's os8
         GT alpha lies within 0.3 of the query's (label 0.8, else 0), on the
-        band only; 0 for a frame whose band is empty. ``alphas`` (b, n_f, 1,
-        H, W) the GT's max over instances."""
+        band only; 0 for a frame whose band is empty in the global batch.
+        ``alphas`` (b, n_f, 1, H, W) the GT's max over instances."""
         os = 8
         bs, n_f, _, hh, ww = alphas.shape
         hw = (hh // os) * (ww // os)
@@ -119,7 +143,9 @@ class TCVOM(MaGGIe):
             bgt, fgt = (F.unfold(avg_pool2d(alphas[:, t], os), 9, padding=4) for t in (c - 1, c + 1))
             cgt = avg_pool2d(alphas[:, c], os).reshape(bs, 1, hw)
             m = small_mask[c].reshape(bs, hw)
-            cnt = m.sum()
+            # the global batch's band count (the JAX package's, one jit over
+            # it): the ranks' numerators then add up to the global loss
+            cnt = parallel.global_sum(m.sum())
 
             def masked_bce(logits, labels):
                 per = (torch.clamp(logits, min=0) - logits * labels

@@ -191,7 +191,8 @@ def compare_to_single(ranks: list, single: dict, mode: str = "none") -> dict:
     top = max(l2(g) for g in want["grads"].values())
     tensor_rel = max(l2(got["grads"][k] - g) / max(l2(g), 1e-6 * top)
                      for k, g in want["grads"].items())
-    diff = lambda name: max(float((got[name][k] - v).abs().max()) for k, v in want[name].items())
+    diff = lambda name: max((float((got[name][k] - v).abs().max()) for k, v in want[name].items()),
+                            default=0.0)   # SparseMat has no spectral norm
     out = dict(total_rel=total_rel, loss_rel=loss_rel,
                grad_rel_l2=num / sum(l2(g) ** 2 for g in want["grads"].values()) ** 0.5,
                grad_tensor_rel=tensor_rel, params=diff("params"),

@@ -234,17 +234,23 @@ def test_train_step_matches_jax():
     state = TrainState(tm, opt)
     with same_widths(widths):
         tld = make_train_step(tm, opt, schedule)(state, tb, torch.Generator(), **FLAGS)
+    check_train_step(jstate, jld, state, tld,
+                     {k: p.grad for k, p in grads_model.named_parameters()})
+
+
+def check_train_step(jstate, jld, state, tld, grads: dict) -> None:
+    """A port step (its state after, loss dict and gradients before the
+    clip) against JAX's at ``test_train_step_matches_jax``'s limits."""
     keys = tuple(f"loss_{t}{s}" for t in ("rec", "lap", "grad")
                  for s in ("", "_os1", "_os4", "_os8")) + ("loss_max_atten", "total")
     assert set(tld) == set(jld) == set(keys), sorted(set(tld) ^ set(jld))
     rel = {k: abs(float(tld[k]) / float(v) - 1) for k, v in jld.items()}
     assert max(rel.values()) <= TRAIN_LOSS_RTOL, rel
-    _check_grads(_flat("params", jstate.opt_state[1]),
-                 to_jax({k: p.grad for k, p in grads_model.named_parameters()}))
+    _check_grads(_flat("params", jstate.opt_state[1]), to_jax(grads))
     assert state.step == int(jstate.step) == 1
     # the whole state_dict at once: its u/v alone do not tell this decoder
     # (and so the embedding encoder) from MGM's (convert_jax._layout)
-    got = to_jax(tm.state_dict())
+    got = to_jax(state.model.state_dict())
     want = {**_flat("params", jstate.params), **_flat("batch_stats", jstate.batch_stats),
             **_flat("spectral", jstate.spectral)}
     assert set(got) == set(want)

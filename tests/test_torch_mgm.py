@@ -22,9 +22,10 @@ weights (seeded numpy values through ``convert_jax``) and inputs.
   for the four configs of the family;
 - the CLI on the CPU: ``--eval-only`` on ``mgm.yaml`` over a tiny HIM set,
   and two training iterations of ``mgm_stacked.yaml``;
-- what the family refuses: ``model.remat`` other than none, and a train set
-  with more slots than ``encoder_args.num_mask`` (the JAX package fails on
-  the SingInst yamls' 10-slot train set: ROADMAP.md queue 3).
+- that the family's train step takes every ``model.remat`` mode, and that
+  it refuses a train set with more slots than ``encoder_args.num_mask``
+  (the JAX package fails on the SingInst yamls' 10-slot train set:
+  ROADMAP.md queue 3).
 
 Random heads put almost every alpha inside (1/255, 254/255), so the final
 convs of the three heads are scaled by ``HEAD_SCALE``: the logits spread to
@@ -347,7 +348,7 @@ def train_batch(seed: int = 0, n_f: int = 1, slots: int = 10, n_i: int = 3, hw: 
 def step_pair(name: str, jb, tb, widths):
     """One step of JAX ``make_train_step`` and of the port's from identical
     variables, the random widths fed the same. Returns (JAX state, JAX loss
-    dict, port state, port loss dict, port gradient model)."""
+    dict, port state, port loss dict, port gradients before the clip)."""
     jcfg, jm, jv, tm, _ = build_pair(name, head_scale=TRAIN_HEAD_SCALE)
     tx = _keeping_grads(jax_build_optimizer(jcfg)[0])
     jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=jv["params"],
@@ -363,15 +364,16 @@ def step_pair(name: str, jb, tb, widths):
     state = TrainState(tm, opt)
     with same_widths(widths):
         tld = make_train_step(tm, opt, schedule)(state, tb, torch.Generator(), **FLAGS)
-    return jstate, jld, state, tld, grads_model
+    return jstate, jld, state, tld, {k: p.grad for k, p in grads_model.named_parameters()}
 
 
-def check_step(jstate, jld, state, tld, grads_model, keys):
+def check_step(jstate, jld, state, tld, grads: dict, keys):
+    """A port step (its state after, loss dict and gradients before the
+    clip) against JAX's at ``test_torch_train.py``'s tolerances."""
     assert set(tld) == set(jld) == set(keys), sorted(set(tld) ^ set(jld))
     for k, v in jld.items():
         np.testing.assert_allclose(float(tld[k]), float(v), rtol=LOSS_RTOL, err_msg=k)
-    _check_grads(_flat("params", jstate.opt_state[1]),
-                 to_jax({k: p.grad for k, p in grads_model.named_parameters()}))
+    _check_grads(_flat("params", jstate.opt_state[1]), to_jax(grads))
     assert state.step == int(jstate.step) == 1
     _check_state(jstate, state, lr=LR)
 
@@ -390,17 +392,19 @@ def test_mgm_stacked_train_step_matches_jax():
                LOSS_KEYS + ("total",))
 
 
-def test_family_refuses_remat_and_extra_slots():
-    """The family's train step refuses ``model.remat`` other than none
-    (ROADMAP.md item 12e), and the harness a train batch with more slots
-    than ``encoder_args.num_mask``, naming ``dataset.train.max_inst``."""
+def test_family_takes_remat_and_refuses_extra_slots():
+    """The family's train step takes every ``model.remat`` mode
+    (``tests/test_torch_baseline_remat.py`` holds the remat steps), and the
+    harness refuses a train batch with more slots than
+    ``encoder_args.num_mask``, naming ``dataset.train.max_inst``."""
     model = build_model(ConfigNode(jax_load_config(yaml_path("mgm")).model.to_dict()),
                         device="cpu").train()
     opt, schedule = build_optimizer(ConfigNode(jax_load_config(yaml_path("mgm")).to_dict()),
                                     model.parameters())
-    for mode in ("full", "selective"):
-        with pytest.raises(NotImplementedError, match="12e"):
-            make_train_step(model, opt, schedule, remat=mode)
+    for mode in ("none", "full", "selective", False, True):
+        assert callable(make_train_step(model, opt, schedule, remat=mode))
+    with pytest.raises(ValueError, match="must be one of"):
+        make_train_step(model, opt, schedule, remat="sometimes")
     with pytest.raises(ValueError, match="dataset.train.max_inst"):
         model(train_batch(slots=10, n_i=2)[1], generator=torch.Generator())
 

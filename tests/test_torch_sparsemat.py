@@ -18,7 +18,8 @@ through ``convert_jax``) and inputs:
   at ``test_torch_train.py``'s tolerances and the low-resolution LPN's,
   whose small maps make its step ill-conditioned in f32, at measured looser
   ones (the test's docstring);
-- the 10-slot refusal (the JAX package fails on it too), ``convert_jax``, and
+- the 10-slot refusal (the JAX package fails on it too), the train step
+  taking every ``model.remat`` mode, ``convert_jax``, and
   the CLI: ``--eval-only`` of both yamls on tiny sets, the image ``test()``
   equal to JAX ``test()`` within rtol 1e-4, and training at
   ``dataset.train.max_inst 1``.
@@ -389,6 +390,12 @@ def test_train_step_matches_jax():
         mp.setattr(port_step, "clip_by_global_norm_", before_clip)
         tld = make_train_step(tm, opt, schedule)(state, tb, None, **FLAGS)
     assert min(rec.alpha) >= MARGIN and 0.1 < rec.active[0] < 0.99, (rec.alpha, rec.active)
+    check_train_step(jstate, jld, state, tld, grads)
+
+
+def check_train_step(jstate, jld, state, tld, grads: dict) -> None:
+    """A port step (its state after, loss dict and gradients before the
+    clip) against JAX's at ``test_train_step_matches_jax``'s limits."""
     assert set(tld) == set(jld) == {"loss_rec", "loss_lap", "loss_grad", "total"}
     for k, v in jld.items():
         np.testing.assert_allclose(float(tld[k]), float(v), rtol=LOSS_RTOL, err_msg=k)
@@ -415,12 +422,13 @@ def test_train_step_matches_jax():
         assert worst[0] <= tol, worst
 
 
-def test_refuses_remat_and_ten_slots(pair):
+def test_takes_remat_and_refuses_ten_slots(pair):
     """The train forward at 10 slots (``sparsemat_*.yaml``'s
     ``dataset.train.max_inst``) raises naming ``dataset.train.max_inst``;
     the JAX package, initialised at one slot as its ``train()`` does, fails
-    on the same batch at the LPN's first conv (ROADMAP.md queue 3). Remat
-    other than none raises naming item 12e."""
+    on the same batch at the LPN's first conv (ROADMAP.md queue 3). The
+    train step takes every ``model.remat`` mode
+    (``tests/test_torch_baseline_remat.py`` holds the remat steps)."""
     jcfg, jm, jv, tm, _ = pair
     jb, tb = train_batch(n=1, hw=64, slots=10)
     with pytest.raises(ScopeParamShapeError, match="features_0/conv"):
@@ -429,9 +437,10 @@ def test_refuses_remat_and_ten_slots(pair):
     with pytest.raises(ValueError, match="dataset.train.max_inst"):
         model(tb)
     opt, schedule = build_optimizer(ConfigNode(jcfg.to_dict()), model.parameters())
-    for mode in ("full", "selective"):
-        with pytest.raises(NotImplementedError, match="12e"):
-            make_train_step(model, opt, schedule, remat=mode)
+    for mode in ("none", "full", "selective", False, True):
+        assert callable(make_train_step(model, opt, schedule, remat=mode))
+    with pytest.raises(ValueError, match="must be one of"):
+        make_train_step(model, opt, schedule, remat="sometimes")
 
 
 def test_convert_jax_leaves_nothing_over(pair):

@@ -84,19 +84,40 @@ def recorded_selection(record: list, split: int = 1):
     return recording
 
 
+def emptied_active_set(rows: list):
+    """``SparseMat.dilate`` with the active set of the global batch's
+    ``rows`` emptied (a rank takes its rows' part), so that a rank may hold
+    no active site in any masked BatchNorm."""
+    from maggie_tpu_torch.models.sparsemat import SparseMat
+    orig = SparseMat.dilate
+
+    def dilate(self, alpha):
+        out = orig(self, alpha)
+        first = parallel.rank() * out.shape[0]
+        keep = torch.ones(out.shape[0], 1, 1, 1, dtype=out.dtype, device=out.device)
+        for r in rows:
+            if first <= r < first + out.shape[0]:
+                keep[r - first] = 0
+        return out * keep
+    return dilate
+
+
 def run_step(p: dict) -> dict:
     """One ``make_train_step`` step from ``p['state']`` on this rank's rows of
     ``p['batch']`` for each remat mode of ``p['modes']``, the step generator
     seeded from ``p['seed']``: this rank's loss terms, the gradients as the
     clip receives them (summed over the ranks), the parameters, BatchNorm
-    statistics and spectral u/v after, the generator's state after, a hash
-    of the model, and the ladder's block selections (``recorded_selection``,
-    ``p['split_select']`` parts)."""
+    statistics and spectral u/v after, the whole state dict after, the
+    generator's state after, a hash of the model, and the ladder's block
+    selections (``recorded_selection``, ``p['split_select']`` parts).
+    ``p['empty_rows']``: rows of the global batch whose SparseMat active set
+    is emptied (``emptied_active_set``)."""
     import maggie_tpu_torch.models.decoder_sparse as ds
     import maggie_tpu_torch.ops.morphology as tmorph
     from maggie_tpu_torch.engine import train_step as ts
     from maggie_tpu_torch.engine.optim import build_optimizer
     from maggie_tpu_torch.models import build_model
+    from maggie_tpu_torch.models.sparsemat import SparseMat
 
     cfg = ConfigNode(p["cfg"])
     model = build_model(cfg.model, device="cpu")
@@ -118,18 +139,49 @@ def run_step(p: dict) -> dict:
         ts.clip_by_global_norm_ = keep
         if p.get("widths") is not None:
             tmorph.dilate_ellipse_random = injected_widths(p["widths"])
+        sm_dilate = SparseMat.dilate
+        if p.get("empty_rows"):
+            SparseMat.dilate = emptied_active_set(p["empty_rows"])
         gen = torch.Generator().manual_seed(p["seed"])
         try:
             losses = step(state, batch, gen, **p["flags"])
         finally:
             ts.clip_by_global_norm_, tmorph.dilate_ellipse_random = clip, dilate
-            ds.select_blocks = select
+            ds.select_blocks, SparseMat.dilate = select, sm_dilate
         out[mode] = {"losses": {k: float(v) for k, v in losses.items()}, "lr": schedule(0),
                      "grads": dict(zip((k for k, _ in model.named_parameters()), grads)),
                      "params": _cpu(state.params()), "batch_stats": _cpu(state.batch_stats()),
                      "spectral": _cpu(state.spectral()), "generator": gen.get_state(),
+                     "state_dict": {k: v.detach().cpu().clone()
+                                    for k, v in model.state_dict().items()},
                      "digest": digest(model), "selections": selections}
     return out
+
+
+def run_atten(p: dict) -> dict:
+    """TCVOM's attention loss (``TCVOM.compute_atten_loss``) on this rank's
+    rows of ``p``'s GT alphas, logits ``attb``/``attf`` and bands (one per
+    middle frame), and its backward: this rank's part of the loss and the
+    gradients of its rows' logits."""
+    from maggie_tpu_torch.models.tcvom import TCVOM
+
+    r, w = parallel.rank(), parallel.world()
+    rows = lambda t: None if t is None else parallel.shard_rows({"t": t}, r, w)["t"]
+    attb = [None if t is None else rows(t).clone().requires_grad_() for t in p["attb"]]
+    attf = [None if t is None else rows(t).clone().requires_grad_() for t in p["attf"]]
+    loss = TCVOM.compute_atten_loss(rows(p["alphas"]), attb, attf,
+                                    [rows(m) for m in p["small_mask"]])
+    loss.backward()
+    return {"loss": loss.detach(), "band_count": [None if m is None else float(rows(m).sum())
+                                                  for m in p["small_mask"]],
+            "attb_grad": [None if t is None else t.grad for t in attb],
+            "attf_grad": [None if t is None else t.grad for t in attf]}
+
+
+def run_cases(p: dict) -> dict:
+    """Each case of ``p['cases']`` (name -> (worker case, payload)) in turn,
+    in one group: the results by name."""
+    return {name: CASES[case](payload) for name, (case, payload) in p["cases"].items()}
 
 
 def run_disagree(p: dict) -> str:
@@ -232,7 +284,8 @@ def _record_write(event: str, args, writes: list) -> None:
         writes.append(os.path.basename(os.fsdecode(args[0])))
 
 
-CASES = {"step": run_step, "norms": run_norms, "cli": run_cli, "disagree": run_disagree}
+CASES = {"step": run_step, "norms": run_norms, "cli": run_cli, "disagree": run_disagree,
+         "atten": run_atten, "cases": run_cases}
 
 
 def main(case: str, in_path: str, out_dir: str) -> None:
