@@ -10,6 +10,7 @@
     python3 chip_smoke.py --baselines
     python3 chip_smoke.py --sparsemat
     python3 chip_smoke.py --baselines-train
+    python3 chip_smoke.py --demo
 
 The second form only answers requests 0 and 1 in f32 and bf16 and saves the
 outputs to PATH; with REF, saved by the same form from another version, it
@@ -19,7 +20,8 @@ copy of another version to compare the two in one call). The fourth runs the
 video path only: phase 2's video shapes and phase 8. The fifth runs video
 training only: phase 2's video train shapes and phase 9. The sixth runs
 phase 10 alone, the seventh phase 11 alone, the eighth phase 12 alone, the
-ninth phase 13 alone, the tenth phase 14 alone.
+ninth phase 13 alone, the tenth phase 14 alone, the eleventh phase 15
+alone.
 
 Phases (any failure exits non-zero):
 1. print the card's name and power limit; build the CUDA kernels from the
@@ -41,7 +43,7 @@ Phases (any failure exits non-zero):
    CUDA-graph replay; eager times with host cost go to the details file); as
    yardsticks, the NCHW->NHWC copies of the gathered encoder maps that the
    ladder no longer makes, and for K2 a clone of its input (the same bytes);
-5. the eval engine on the card: an HIM-style set of 4 frames at 720x1280
+5. the eval engine on the card: an HIM-style set of 2 frames at 720x1280
    with 3 blob instances each, held in memory and decoded through the port's
    ``HIMDataset`` (``ResizeShort`` downscales each to 576x1024 on the host),
    answered by ``engine.test.eval_image`` with the configuration's metrics, in
@@ -70,7 +72,7 @@ Phases (any failure exits non-zero):
    ``maggie_tpu_torch.main.main`` trains ``configs/maggie_image.yaml`` at full
    width (batch 2, 6 iterations, validation every 3, a loss logged every
    iteration), resumes to 8, trains 3 iterations with ``--precision 16``, and
-   then 20 f32 iterations logging every 10 without validation (long enough to
+   then 10 f32 iterations logging every 10 without validation (long enough to
    drain the loader's and the infeed's queues, so that its meters say which of
    the loader and the step sets the pace); checks finite losses, 10 K1, 6 K1-backward and 1 K2 launches per train
    iteration and 5 K1 and 3 K2 per val frame, the checkpoint files, that the
@@ -82,8 +84,8 @@ Phases (any failure exits non-zero):
    cost of one train sample by transform (mean over the 8 frames);
 8. the video model (``configs/maggie_video.yaml``, arch MaGGIe_Temp, the
    ConvGRU memory and the bidirectional fusion) at full width with seeded
-   random weights, SN folded: one synthetic video of 10 frames at 576x1024
-   (3 blob instances that move a few pixels a frame) streamed in 8 windows of
+   random weights, SN folded: one synthetic video of 6 frames at 576x1024
+   (3 blob instances that move a few pixels a frame) streamed in 4 windows of
    3 frames with the feature cache (``encode_frames`` on the new frame,
    ``decode_window`` on the rolled pack) in f32, TF32 off; checks 5 K1 and 3
    K2 launches and one encoded frame per window after the first, and holds
@@ -93,8 +95,8 @@ Phases (any failure exits non-zero):
    window cached and uncached in f32 and bf16 (CUDA events, host launch cost
    included) and prints peak memory. Then the video eval engine:
    ``maggie_tpu_torch.main.main`` with ``--eval-only --config
-   configs/maggie_video.yaml`` on a synthetic VIM set written with PIL (2
-   videos of 4 frames at 720x1280, 3 instances, JPEG frames, PNG alphas and
+   configs/maggie_video.yaml`` on a synthetic VIM set written with PIL (a
+   video of 4 frames at 720x1280, 3 instances, JPEG frames, PNG alphas and
    masks) at full width with the seven metrics; checks the run's launches
    (counted from 0) and those of each window, finite metrics and
    results.csv; prints frames/s with metrics on, the forward / loader / host
@@ -111,8 +113,8 @@ Phases (any failure exits non-zero):
    (torch.profiler) and any cuDNN FFT time; K1's backward per call at the
    video train shapes (cap 2560); then ``main.main`` training the yaml at
    full width (batch 1) on a synthetic V-HIM-style train split written with
-   PIL (2 videos of 16 frames at 720x1280, 3 moving instances) for 8
-   iterations, validating every 4 through ``eval_video`` on a 4-frame VIM
+   PIL (2 videos of 16 frames at 720x1280, 3 moving instances) for 4
+   iterations, validating at 4 through ``eval_video`` on a 4-frame VIM
    video from phase 8's writer, in f32: launches per iteration and per val
    window, finite losses, clips/s, ms per iteration against 9.2's
    step, ``data_time``, the stall share, peak memory and the host cost of a
@@ -143,36 +145,37 @@ Phases (any failure exits non-zero):
    backward and K2 launched 10 / 6 / 1 times (selective 20 / 6 / 2) a step
    on each rank, and the ladder without overflow; 11.2 the video step the
    same way on two clips of 3 frames at 512x512, a clip a rank; ms/step
-   (CUDA events, steps 2-4) and peak memory per rank beside one process's;
+   (CUDA events, steps 2-3) and peak memory per rank beside one process's;
    11.3 ``torchrun --standalone --nproc_per_node 1 -m maggie_tpu_torch.main``
-   (NCCL) trains phase 7's set for 4 iterations and must log the losses of
+   (NCCL) trains phase 7's set for 2 iterations and must log the losses of
    the same run without torchrun. ``--ddp`` runs phase 11 alone.
 12. the MGM baseline family (``configs/mgm*.yaml``) at full width from seed
-   0: 12.1 ``mgm`` (arch MGM_SingInst) and ``mgm_stacked`` answer 4 frames
+   0: 12.1 ``mgm`` (arch MGM_SingInst) and ``mgm_stacked`` answer 2 frames
    (576x1024, 3 blob instances) in f32 with TF32 off, K2 launched twice a
    harness forward (the fusion's k=30 and k=15; a forward per instance for
    the SingInst arch) and K1 never, one frame held against the CPU port at
    phase 3's rule, ms/frame f32 and bf16, bf16 vs f32 (within
    BASE_BF16_*), peak memory; 12.2
-   ``mgm_tcvom`` and ``mgm_stacked_tcvom`` stream one 576x1024 video of 5
-   frames through ``eval_video`` (3 windows of 3 frames; the whole forward
+   ``mgm_tcvom`` and ``mgm_stacked_tcvom`` stream one 576x1024 video of 4
+   frames through ``eval_video`` (2 windows of 3 frames; the whole forward
    on every window), the same launch rule, window 0 against the CPU port,
    ms/window (beside the window's frames encoded in one batch, as the JAX
    package does), peak memory; K2 against its twin at each config's shapes;
-   12.3 one f32 train step of ``mgm_stacked`` (batch 2 x 512x512) and of
-   ``mgm_tcvom`` (batch 1 x clip 8 x 512x512) on the card against the CPU
-   port within phase 6's STEP_* limits, then ms/step and peak memory.
+   12.3 one f32 train step of ``mgm_stacked`` (batch 2) and of
+   ``mgm_tcvom`` (batch 1 x clip 8) at 256x256 on the card against the CPU
+   port within phase 6's STEP_* limits, then ms/step and peak memory at
+   512x512.
    ``--baselines`` runs phase 12 alone.
 13. SparseMat (``configs/sparsemat_*.yaml``, arch SparseMat_SingInst) and
    the dense InstMatt ablation decoder, from seed 0: 13.1 the image yaml,
    its LPN's last head scaled so that a part of each frame is active,
-   answers 4 frames (576x1024, 3 blob instances: a forward per instance),
+   answers 2 frames (576x1024, 3 blob instances: a forward per instance),
    no kernel launched, each active share within SM_ACTIVE_RANGE, frame 0
    against the CPU port (within REFINED_ATOL off the reach of the pixels
    whose active set differs between the two), ms/frame and peak memory in
    f32 (SparseMat reads no precision); 13.2 the video yaml streams one
-   576x1024 video of 5 frames with a still background through
-   ``eval_video`` (3 windows), ms/window, the share of pixels kept from the
+   576x1024 video of 4 frames with a still background through
+   ``eval_video`` (2 windows), ms/window, the share of pixels kept from the
    previous frame (``shared``), which must be above 0, and window 0's first
    instance against the CPU port by 13.1's rule; 13.3 one f32 step of each
    yaml at one slot on the card against the CPU port within phase 6's
@@ -189,13 +192,14 @@ Phases (any failure exits non-zero):
    f32, seed 0, yamls' widths, 512x512: 14.1 ``mgm_stacked`` (batch 2),
    ``mgm_stacked_tcvom`` (1 clip of 8), ``sparsemat_video`` (1 clip of 8,
    one slot) and the dense InstMatt decoder (batch 2) under none, full and
-   selective, 4 steps each from the same weights and generator seed: each
+   selective, 3 steps each from the same weights and generator seed: each
    remat mode's first step against the plain one within phase 6's STEP_*
    limits (bit-equal or not), the generator's state equal, ms/step (median
-   of steps 2-4), peak memory, K2 launches a step asserted from the layout
+   of steps 2-3), peak memory, K2 launches a step asserted from the layout
    (the dense decoder 1 / 2 / 2, the rest 0; K1 never); 14.2 the yamls' own
    batches (``mgm_stacked`` 12 images, ``mgm_stacked_tcvom`` and
-   ``sparsemat_video`` 4 clips of 8) under each mode: whether it fits,
+   ``sparsemat_video`` 4 clips of 8, these two under ``selective`` only)
+   under each mode: whether it fits,
    ms/step and peak where it does, else the largest batch that fits (each
    out-of-memory batch reported) with phase 10.3's fit through 14.1's
    point; 14.3 ``mgm_stacked_tcvom`` (2 clips of
@@ -203,18 +207,32 @@ Phases (any failure exits non-zero):
    on the card, plain and selective, against one process on the card
    within STEP_*, the ranks bit-equal. ``--baselines-train`` runs phase 14
    alone.
+15. the demo's serving path (``maggie_tpu_torch/demo/``): the flagship
+   image and video models' seed-0 weights written as ``.safetensors`` with
+   numpy; ``demo.app.launch_http`` on a free port in this process, on the
+   card; 4 image requests (``POST /image``: a 720x1280 frame and 3 blob
+   mask PNGs) and a video request (``POST /video``: 5 frames at 576x1024,
+   masks for frame 0 only, carried by ``FlowPropagator``'s numpy
+   Farneback flow), sent twice (timed, then recorded); status 200 and
+   outputs that decode, K1 5 and K2 3 launches per request and per window,
+   request 0 and the recorded video against the same requests on the CPU
+   port (phase 3's and phase 8's rules); ms per image request (median of
+   2-4) split into model (CUDA events) and host, ms per window, the
+   propagator's host seconds per frame, peak memory. ``--demo`` runs phase
+   15 alone.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's ``ddp_launches``: its
 launches over the ranks' checked steps of 11.1 and 11.2; ``baseline_launches``:
 phase 12.1's and 12.2's; ``sparsemat_launches``: phase 13.4's;
-``baseline_train_launches``: phase 14.1's) and the card line, and last
+``baseline_train_launches``: phase 14.1's; ``demo_launches``: phase 15's
+requests) and the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to output/torch_port/chip_smoke.json
 (``chip_smoke_video.json``, ``chip_smoke_video_train.json``,
 ``chip_smoke_remat.json``, ``chip_smoke_ddp.json``,
-``chip_smoke_baselines.json``, ``chip_smoke_sparsemat.json`` and
-``chip_smoke_baselines_train.json`` for ``--video``, ``--video-train``,
-``--remat``, ``--ddp``, ``--baselines``, ``--sparsemat`` and
-``--baselines-train``).
+``chip_smoke_baselines.json``, ``chip_smoke_sparsemat.json``,
+``chip_smoke_baselines_train.json`` and ``chip_smoke_demo.json`` for
+``--video``, ``--video-train``, ``--remat``, ``--ddp``, ``--baselines``,
+``--sparsemat``, ``--baselines-train`` and ``--demo``).
 """
 
 from __future__ import annotations
@@ -234,8 +252,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA data sheet
 H, W, N_INST = 576, 1024, 3
-N_REQUESTS = 8
-SPLIT_FRAMES = 10             # frames per stage split and per profiled window
+N_REQUESTS = 6                # few, for the script's time limit
+SPLIT_FRAMES = 6              # frames per stage split and per profiled window
 CAP = 216                     # round(0.5 * 3 instances * 9 * 16 blocks)
 # Main-path K1 calls per frame (decoder_sparse.py predict_details_block):
 # (name, map shape (N, H, W, C) at 576x1024, block, halo, per-image index?,
@@ -338,7 +356,7 @@ BF16_FAR = 0.05
 BF16_FAR_SHARE = 3e-5
 OUT_DIR = os.path.join("output", "torch_port")  # git-ignored (output/*)
 # phase 5: the eval engine on an HIM-style set held in memory
-ENGINE_FRAMES = 4
+ENGINE_FRAMES = 2             # few, for the script's time limit
 ENGINE_SRC = (720, 1280)      # ResizeShort(576) takes each frame to 576x1024
 # frame 0's metrics on the card against the port on the CPU (relative error,
 # worst of the eight metrics). The first reading (PERF.md) was 7.37e-8
@@ -757,6 +775,8 @@ def main() -> int:
         return sparsemat_only(torch.device("cuda"))
     if "--baselines-train" in sys.argv:
         return baselines_train_only(torch.device("cuda"))
+    if "--demo" in sys.argv:
+        return demo_only(torch.device("cuda"))
     if "--gather-bwd" in sys.argv:
         print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                          "--format=csv,noheader"], capture_output=True,
@@ -774,12 +794,19 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     detail = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
 
+    laps, lap_t = {}, [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        laps[phase], lap_t[0] = now - lap_t[0], now
+
     # ---- phase 1: build ----
     t0 = time.perf_counter()
     build.build_all()
     detail["build_s"] = time.perf_counter() - t0
     print(f"phase 1: kernels built in {detail['build_s']:.1f} s", flush=True)
 
+    lap("1")
     # ---- phase 2: kernels vs plain twins ----
     worst = phase_kernels(dev, detail)
     print(f"phase 2: kernels equal to their plain twins at every main-path shape "
@@ -787,6 +814,7 @@ def main() -> int:
           f"{len(detail['kernel_checks']['gather_bwd'])} gather backward, "
           f"{len(detail['kernel_checks']['unknown'])} compute_unknown cases)", flush=True)
 
+    lap("2")
     # ---- phase 3: the main path ----
     t0 = time.perf_counter()
     cpu_model, model, bf16_model = build_models(dev)
@@ -831,6 +859,7 @@ def main() -> int:
           f"launches {launches}; CPU check: detail_mask diff {n_diff} px "
           f"({near} near-threshold), refined max |err| {err_outside:.3g}", flush=True)
 
+    lap("3")
     # ---- phase 4: timing ----
     batch = on_dev[0]
     timings = {}
@@ -884,27 +913,32 @@ def main() -> int:
               f"{row['uniform_ms'] * 1e3:.2f}), bound {row['bound_ms'] * 1e3:.2f} us, copy "
               f"{row['copy_ms'] * 1e3:.2f} us", flush=True)
 
+    lap("4")
     # ---- phase 5: the eval engine ----
     engine = phase_engine(cpu_model, model, bf16_model, detail)
     for kern in kernels:
         kern["engine_launches"] = engine["launches"][kern["name"]]
 
+    lap("5")
     # ---- phase 6: the train step ----
     kernels.append(phase_train(dev, worst, detail))
     for kern in kernels[:2]:
         kern["train_launches"] = detail["train"]["fp32"]["launches"][kern["name"]]
 
+    lap("6")
     # ---- phase 7: the trainer through the CLI ----
     trainer = phase_trainer(detail)
     for kern in kernels:
         kern["trainer_launches"] = trainer["launches"][kern["name"]]
 
+    lap("7")
     # ---- phase 8: the video model and the video eval engine ----
     video = phase_video(dev, detail)
     for kern in kernels[:2]:
         kern["video_launches"] = video["model"]["launches"][kern["name"]]
         kern["video_engine_launches"] = video["engine"]["launches"][kern["name"]]
 
+    lap("8")
     # ---- phase 9: video training, with the earlier phases' models freed ----
     del cpu_model, model, bf16_model, on_dev, outs, cpu_out, bf_out, batch
     torch.cuda.empty_cache()
@@ -913,39 +947,53 @@ def main() -> int:
         kern["video_train_launches"] = video_train["steps"][kern["name"]]
         kern["video_trainer_launches"] = video_train["trainer"][kern["name"]]
 
+    lap("9")
     # ---- phase 10: rematerialisation, the image and video train steps ----
     torch.cuda.empty_cache()
     remat = phase_remat(dev, detail)
     for kern in kernels:
         kern["remat_launches"] = remat[kern["name"]]
 
+    lap("10")
     # ---- phase 11: data parallel, two ranks on the card and torchrun ----
     torch.cuda.empty_cache()
     ddp = phase_ddp(dev, detail)
     for kern in kernels:
         kern["ddp_launches"] = ddp[kern["name"]]
 
+    lap("11")
     # ---- phase 12: the MGM baseline family ----
     torch.cuda.empty_cache()
     baselines = phase_baselines(dev, detail)
     for kern in kernels:
         kern["baseline_launches"] = baselines["launches"].get(kern["name"], 0)
 
+    lap("12")
     # ---- phase 13: SparseMat and the dense InstMatt ablation decoder ----
     torch.cuda.empty_cache()
     sparsemat = phase_sparsemat(dev, detail)
     for kern in kernels:
         kern["sparsemat_launches"] = sparsemat["launches"].get(kern["name"], 0)
 
+    lap("13")
     # ---- phase 14: remat and data parallel for the baselines ----
     torch.cuda.empty_cache()
     baselines_train = phase_baselines_train(dev, detail)
     for kern in kernels:
         kern["baseline_train_launches"] = baselines_train["launches"][kern["name"]]
 
+    lap("14")
+    # ---- phase 15: the demo's serving path ----
+    torch.cuda.empty_cache()
+    demo = phase_demo(dev, detail)
+    for kern in kernels:
+        kern["demo_launches"] = demo["launches"][kern["name"]]
+
+    lap("15")
     detail["phases_s"] = time.perf_counter() - t_start
-    print(f"phases 1-14 done in {detail['phases_s']:.1f} s (from main(), imports not counted)",
-          flush=True)
+    detail["phase_s"] = laps
+    print(f"phases 1-15 done in {detail['phases_s']:.1f} s (from main(), imports not counted); "
+          f"by phase {json.dumps({k: round(v, 1) for k, v in laps.items()})}", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
@@ -1100,7 +1148,7 @@ PER_VAL_FRAME = {"gather_patches": 5, "gather_patches_bwd": 0, "compute_unknown"
 # validating: enough iterations to drain the loader's and the infeed's queues
 # (up to 5 batches ahead), so that its meters show which of the loader and the
 # step sets the pace; no more, for the script's time limit
-SUSTAINED_ITERS = 20
+SUSTAINED_ITERS = 10
 CKPT_FILES = ("last_state.pt", "best_model.npz", "best_score.txt", "last_step.txt",
               "train_meters.json", "config.yaml")
 
@@ -1898,11 +1946,11 @@ def time_kernels(dev, worst, launches, detail) -> list:
 # the video model (configs/maggie_video.yaml, arch MaGGIe_Temp) streaming one
 # synthetic video window by window, then the video eval engine through the CLI
 VIDEO_CONFIG = os.path.join("configs", "maggie_video.yaml")
-VIDEO_STREAM_FRAMES = 10      # 8 windows of 3 frames, overlap 2
+VIDEO_STREAM_FRAMES = 6       # 4 windows of 3 frames, overlap 2
 PER_WINDOW = {"gather_patches": 5, "compute_unknown": 3}
-VIDEO_TIMING_REPS = 3
+VIDEO_TIMING_REPS = 2
 VIDEO_SRC = (720, 1280)       # ResizeShort(576) -> 576x1024
-VIDEO_SET = (("vid0", 4), ("vid1", 4))   # (video, frames): 2 windows each
+VIDEO_SET = (("vid0", 4),)   # (video, frames): 2 windows
 # the card's windows against the CPU port's (``video_window_check``):
 # refined_masks within phase 3's REFINED_ATOL outside the pixels that a value
 # within NEAR of one of the path's discrete decisions may move on rounding:
@@ -2413,7 +2461,7 @@ def phase_video_engine(detail) -> dict:
 # through eval_video
 VIDEO_REDUCED = (3, 256)      # 9.1: batch 1 x clip 3 x 256x256, 10 slots
 VIDEO_TRAIN_SET = (("v0", 16), ("v1", 16))   # 9.3's train videos at VIDEO_SRC
-VIDEO_TRAINER_ITERS, VIDEO_TRAINER_VAL_ITER = 8, 4
+VIDEO_TRAINER_ITERS, VIDEO_TRAINER_VAL_ITER = 4, 4
 VIDEO_TRAINER_VAL_SET = (("vid0", 4),)      # phase 8's writer: 2 windows a validation
 PER_VAL_WINDOW = {"gather_patches": 5, "gather_patches_bwd": 0, "compute_unknown": 3}
 
@@ -2952,9 +3000,9 @@ def remat_only(dev) -> int:
 DDP_WORLD = 2
 DDP_TIMEOUT_S = 400           # a rank's whole run; the group's own timeout is shorter
 DDP_GROUP_TIMEOUT_S = 300
-DDP_TIMED_STEPS = 4           # steps 2-4 timed (CUDA events) after the checked step
+DDP_TIMED_STEPS = 3           # steps 2-3 timed (CUDA events) after the checked step
 DDP_VIDEO = (3, 512)          # 11.2: one clip of 3 frames a rank (2 frames: dtSSD 0/0)
-DDP_CLI_ITERS = 4
+DDP_CLI_ITERS = 2
 # 11.3: the logs print each loss's running mean with 4 decimals; two plain f32
 # steps on the card differ by 2.9e-5 in gradient (cuDNN may sum in another
 # order; PERF.md §6), so a value may round either way of a last digit: the two
@@ -3186,9 +3234,10 @@ def ddp_logged_losses(path: str) -> dict:
 def ddp_cli(root: str) -> dict:
     """11.3: ``python -m maggie_tpu_torch.main`` on phase 7's set for
     DDP_CLI_ITERS iterations, as a user runs it (in a process of its own, so
-    that both runs take PyTorch's default TF32 settings), then the same
-    under ``torchrun --standalone --nproc_per_node 1`` (NCCL on cuda:0): the
-    same losses logged at every iteration, within DDP_LOG_ATOL."""
+    that both runs take PyTorch's default TF32 settings), and beside it, at
+    the same time on the card, the same under ``torchrun --standalone
+    --nproc_per_node 1`` (NCCL on cuda:0): the same losses logged at every
+    iteration, within DDP_LOG_ATOL."""
     trainer_set(root)
     opts = ["output_dir", os.path.join(root, "out"), "dataset.train.root_dir", root,
             "dataset.train.split", "train", "dataset.test.root_dir", root,
@@ -3201,18 +3250,26 @@ def ddp_cli(root: str) -> dict:
                               "--nproc_per_node", "1"]}
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(launcher + cli + ["name", name], env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name, launcher in launchers.items()}
     wall = {}
-    for name, launcher in launchers.items():
-        t0 = time.perf_counter()
-        try:
-            run = subprocess.run(launcher + cli + ["name", name], env=env, capture_output=True,
-                                 text=True, timeout=DDP_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            fail(f"phase 11.3: the {name} run took more than {DDP_TIMEOUT_S} s")
-        wall[name] = time.perf_counter() - t0
-        if run.returncode != 0:
-            fail(f"phase 11.3: the {name} run exited {run.returncode}:\n"
-                 f"{(run.stdout + run.stderr)[-3000:]}")
+    try:
+        for name, proc in procs.items():
+            try:
+                left = max(DDP_TIMEOUT_S - (time.perf_counter() - t0), 1)
+                log = proc.communicate(timeout=left)[0]
+            except subprocess.TimeoutExpired:
+                fail(f"phase 11.3: the {name} run took more than {DDP_TIMEOUT_S} s")
+            wall[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"phase 11.3: the {name} run exited {proc.returncode}:\n{log[-3000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     logs = {name: ddp_logged_losses(os.path.join(root, "out", name, "log_rank0.log"))
             for name in launchers}
     want = list(range(1, DDP_CLI_ITERS + 1))
@@ -3234,10 +3291,11 @@ def ddp_cli(root: str) -> dict:
     out = {"iterations": DDP_CLI_ITERS, "logged_losses_max_abs_diff": worst,
            "total": {it: (logs["alone"][it]["total"], logs["torchrun"][it]["total"])
                      for it in want},
-           "wall_s": wall}
+           "wall_s_concurrent": max(wall.values())}
     print(f"phase 11.3: the trainer under torchrun (world 1, NCCL) logged the losses of the run "
-          f"without it at iterations {want} (max |d| {worst:.3g}); {wall['alone']:.1f} s "
-          f"alone, {wall['torchrun']:.1f} s under torchrun", flush=True)
+          f"without it at iterations {want} (max |d| {worst:.3g}); the two ran side by side on "
+          f"the card, both done after {max(wall.values()):.1f} s (not a launcher's own time)",
+          flush=True)
     return out
 
 
@@ -3357,11 +3415,14 @@ def ddp_only(dev) -> int:
 BASE_IMAGE = ("mgm", "mgm_stacked")
 BASE_VIDEO = ("mgm_tcvom", "mgm_stacked_tcvom")
 BASE_SINGLE = ("mgm", "mgm_tcvom")           # arch MGM_SingInst / TCVOM_SingInst
-BASE_REQUESTS = 4
-BASE_VIDEO_FRAMES = 5                         # 3 windows of 3 frames
-BASE_TIMING_REPS = 3
+BASE_REQUESTS = 2
+BASE_VIDEO_FRAMES = 4                         # 2 windows of 3 frames
+BASE_TIMING_REPS = 2
 # (config, batch, clip, size): the yamls' crops and clip, a smaller batch
 BASE_TRAIN = (("mgm_stacked", 2, 1, 512), ("mgm_tcvom", 1, 8, 512))
+# 12.3's card-vs-CPU step at the timed size, mgm_tcvom's clip cut to 3 for it
+# (the CPU step of its clip of 8 took 42.1 s at 512x512 on the H100's host)
+BASE_CHECK_CLIP = {"mgm_tcvom": 3}
 BASE_TRAIN_STEPS = 3
 # the card-vs-CPU rule of phase 3 on the family's outputs: the alphas within
 # REFINED_ATOL, except where a discrete threshold may have flipped between the
@@ -3739,21 +3800,24 @@ def card_steps(cfg, batch: dict, dev, label: str, steps: int = BASE_TRAIN_STEPS,
             "launches": {k: sum(c[k] for c in launches) for k in launches[0]}}
 
 
-def base_train(name: str, b: int, n_f: int, hw: int, dev) -> dict:
-    """12.3: one f32 step of ``name`` on the card against the CPU port (the
-    random widths from CPU generators of one seed on both sides) within phase
-    6's STEP_* limits, then BASE_TRAIN_STEPS steps on the card
+def base_train(name: str, b: int, n_f: int, hw: int, dev, check_clip: int | None = None) -> dict:
+    """12.3: one f32 step of ``name`` on the card against the CPU port at
+    ``hw`` with a clip of at most ``check_clip`` frames (the random widths
+    from CPU generators of one seed on both sides) within phase 6's STEP_*
+    limits, then BASE_TRAIN_STEPS steps on the card at the whole clip
     (``card_steps``): ms/step, peak memory, launches."""
     from maggie_tpu_torch.models import build_model
     cfg = base_cfg(name)
     slots = int(cfg.model.encoder_args.num_mask)
     batch = base_train_batch(b, n_f, hw, slots)
+    check_f = min(n_f, check_clip or n_f)
+    check_batch = batch if check_f == n_f else base_train_batch(b, check_f, hw, slots)
     cpu_model = build_model(cfg.model, device="cpu", generator=torch.Generator().manual_seed(0))
     card_model = copy.deepcopy(cpu_model).to(dev)
     t0 = time.perf_counter()
-    cpu = one_step(cpu_model, batch, torch.Generator().manual_seed(3), cfg)
+    cpu = one_step(cpu_model, check_batch, torch.Generator().manual_seed(3), cfg)
     cpu_s = time.perf_counter() - t0
-    card = one_step(card_model, {k: v.to(dev) for k, v in batch.items()},
+    card = one_step(card_model, {k: v.to(dev) for k, v in check_batch.items()},
                     torch.Generator().manual_seed(3), cfg)
     check = compare_steps(card, cpu)
     del cpu_model, cpu, card_model
@@ -3767,7 +3831,9 @@ def base_train(name: str, b: int, n_f: int, hw: int, dev) -> dict:
              f"fusion dilates with random widths in plain torch")
     out.update(size=f"batch {b} x clip {n_f} x {hw}x{hw}, {slots} slots", check=check,
                cpu_step_s=cpu_s, losses_card=card["losses"])
-    print(f"phase 12 {name} train ({out['size']}, f32): card vs CPU loss terms max rel "
+    out["check_size"] = f"batch {b} x clip {check_f} x {hw}x{hw}"
+    print(f"phase 12 {name} train ({out['size']}, f32): card vs CPU (at "
+          f"{out['check_size']}) loss terms max rel "
           f"{check['loss_max_rel']:.3g}, gradients rel L2 {check['grad_rel_l2']:.3g}, params max "
           f"|d| {check['param_max_abs']:.3g}, BN stats {check['batch_stats_max_abs']:.3g}, SN u/v "
           f"{check['spectral_max_abs']:.3g} (CPU step {cpu_s:.1f} s); "
@@ -3794,7 +3860,7 @@ def phase_baselines(dev, detail) -> dict:
             torch.cuda.empty_cache()
     out["train"] = {}
     for name, b, n_f, hw in BASE_TRAIN:
-        out["train"][name] = base_train(name, b, n_f, hw, dev)
+        out["train"][name] = base_train(name, b, n_f, hw, dev, BASE_CHECK_CLIP.get(name))
         torch.cuda.empty_cache()
     launches = {k: sum(out[n]["launches"][k] for n in BASE_IMAGE + BASE_VIDEO)
                 for k in ("gather_patches", "compute_unknown")}
@@ -3828,8 +3894,8 @@ def baselines_only(dev) -> int:
 
 # ---- phase 13: SparseMat and the dense InstMatt ablation decoder ----
 SM_IMAGE, SM_VIDEO = "sparsemat_image", "sparsemat_video"
-SM_REQUESTS = 4
-SM_VIDEO_FRAMES = 5                       # 3 windows of 3 frames
+SM_REQUESTS = 2
+SM_VIDEO_FRAMES = 4                       # 2 windows of 3 frames
 # (config, batch, clip, size) of the card-vs-CPU step: at 256x256 the LPN's
 # last stages see 4x4 sites a frame (at 128x128, 2x2, and its f32 step is
 # ill-conditioned: tests/test_torch_sparsemat.py)
@@ -4173,16 +4239,20 @@ B14_HW = 512
 # 14.1 (config, batch, clip): one step of each mode held against the plain one
 B14_CHECK = (("mgm_stacked", 2, 1), ("mgm_stacked_tcvom", 1, 8), ("sparsemat_video", 1, 8),
              ("dense", 2, 1))
-B14_STEPS = 4                 # the checked step, then steps 2-4 timed (median)
+B14_STEPS = 3                 # the checked step, then steps 2-3 timed (median)
 # K2's launches a step, from the stage layout: the dense InstMatt decoder's
 # detail_mask sits in its decoder's segment, the last, which "full" and
 # "selective" both compute again in the backward; the MGM and TCVOM train
 # fusions dilate with random widths (plain torch) and SparseMat launches none
 B14_K2 = {"dense": {"none": 1, "full": 2, "selective": 2}}
-# 14.2 (config, batch, clip): the yamls' own train batches (sparsemat_image's
-# 12 images fit in every mode at 31.8 GB on an H100 80GB HBM3, 700 W, PERF.md
-# §6: left out for the script's time limit)
-B14_YAML = (("mgm_stacked", 12, 1), ("mgm_stacked_tcvom", 4, 8), ("sparsemat_video", 4, 8))
+# 14.2 (config, batch, clip, modes): the yamls' own train batches, only
+# under ``selective`` for the script's time limit (the other modes, on an
+# H100 80GB HBM3, 700 W: mgm_stacked's 12 images fit in every mode,
+# mgm_stacked_tcvom's 4 clips only under selective, sparsemat_video's in
+# every mode at 83.5-83.8 GB, and sparsemat_image's 12 images in every mode
+# at 31.8 GB; PERF.md §5)
+B14_YAML = (("mgm_stacked", 12, 1, ("selective",)), ("mgm_stacked_tcvom", 4, 8, ("selective",)),
+            ("sparsemat_video", 4, 8, ("selective",)))
 B14_YAML_STEPS = 2            # ms/step: the second step's
 # 14.3 (config, global batch, clip): two gloo ranks on the card, a row a rank
 B14_DDP = (("mgm_stacked_tcvom", 2, 3), ("sparsemat_image", 2, 1))
@@ -4267,12 +4337,12 @@ def b14_yaml(dev, points: dict, budget: int) -> dict:
     import functools
     import gc
     out = {}
-    for name, b, n_f in B14_YAML:
+    for name, b, n_f, modes in B14_YAML:
         t0 = time.perf_counter()
         cfg, model, init, slots = b14_model(name, dev)
         host_batch = functools.lru_cache(lambda size: base_train_batch(size, n_f, B14_HW, slots))
         r = out[name] = {"yaml_batch": b, "clip": n_f}
-        for mode in REMAT_MODES:
+        for mode in modes:
             tried, run = [], None
             for size in range(b, 0, -1):
                 batch = {k: v.to(dev) for k, v in host_batch(size).items()}
@@ -4314,7 +4384,7 @@ def b14_yaml(dev, points: dict, budget: int) -> dict:
                                  f"{b} and at most {r[m]['fit_max_batch']}"
                                  if "fit" in r[m] else "; no second point for a fit") + ")")
                   + f": {r[m]['ms_per_step_last']:.3f} ms/step, peak "
-                  f"{r[m]['peak_mem_bytes'] / 1e9:.3f} GB" for m in REMAT_MODES), flush=True)
+                  f"{r[m]['peak_mem_bytes'] / 1e9:.3f} GB" for m in modes), flush=True)
         del model, init, host_batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -4408,6 +4478,385 @@ def baselines_train_only(dev) -> int:
     phase_baselines_train(dev, detail)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_baselines_train.json"), "w") as f:
+        json.dump(detail, f, indent=1, default=str)
+    return 0
+
+
+# ---------------------------------------------------------------- phase 15
+# the demo's serving path (maggie_tpu_torch/demo/): its HTTP server on the
+# card, the flagship image and video models from .safetensors weights
+DEMO_IMAGE_SRC = (720, 1280)   # ResizeShort(576) -> 576x1024, no padding
+DEMO_REQUESTS = 4              # image requests; ms from the median of 2-4
+DEMO_VIDEO_FRAMES = 5          # 576x1024, masks for frame 0 only: 3 windows
+PER_DEMO_FORWARD = {"gather_patches": 5, "compute_unknown": 3}   # a frame or a window
+_ST_NAMES = {"float32": "F32", "float16": "F16", "int64": "I64", "int32": "I32", "uint8": "U8",
+             "bool": "BOOL", "float64": "F64"}
+
+
+def write_safetensors(path: str, state_dict: dict) -> None:
+    """``state_dict`` as a .safetensors file, with numpy and json: an 8-byte
+    little-endian header length, the JSON header, the raw arrays."""
+    header, blobs, offset = {}, [], 0
+    for name in sorted(state_dict):
+        a = state_dict[name].detach().cpu().contiguous().numpy()
+        data = a.tobytes()
+        header[name] = {"dtype": _ST_NAMES[a.dtype.name], "shape": list(a.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(np.array([len(head)], "<u8").tobytes() + head)
+        for b in blobs:
+            f.write(b)
+
+
+def demo_image_request(seed: int) -> tuple:
+    """(PIL image, [PNG bytes of each mask]): a 720x1280 frame of noise and 3
+    blob instances (``flagship.blob_alpha``) as 0/255 mask PNGs."""
+    import io
+    from PIL import Image
+    from maggie_tpu_torch.flagship import blob_alpha
+    rs = np.random.RandomState(seed)
+    h, w = DEMO_IMAGE_SRC
+    alpha = blob_alpha(h, w, N_INST, rs)
+    image = Image.fromarray((rs.rand(h, w, 3) * 255).astype(np.uint8))
+    masks = []
+    for a in alpha:
+        buf = io.BytesIO()
+        Image.fromarray(((a > 0.5) * 255).astype(np.uint8)).save(buf, "PNG")
+        masks.append(buf.getvalue())
+    return image, masks
+
+
+def demo_video_dir(root: str) -> tuple:
+    """(frames dir, masks dir): phase 8's moving blobs (``video_alphas``) on
+    noise, DEMO_VIDEO_FRAMES PNG frames at 576x1024, masks for frame 0 only."""
+    from PIL import Image
+    alpha = video_alphas(DEMO_VIDEO_FRAMES, H, W, seed=3)
+    rs = np.random.RandomState(4)
+    fdir, mdir = os.path.join(root, "frames"), os.path.join(root, "masks", "f0")
+    os.makedirs(fdir)
+    os.makedirs(mdir)
+    for t in range(DEMO_VIDEO_FRAMES):
+        frame = rs.rand(H, W, 3) * 160 + alpha[0, t].max(0)[..., None] * 90
+        Image.fromarray(frame.astype(np.uint8)).save(os.path.join(fdir, f"f{t}.png"))
+    for j in range(N_INST):
+        Image.fromarray(((alpha[0, 0, j] > 0.5) * 255).astype(np.uint8)).save(
+            os.path.join(mdir, f"{j:02d}.png"))
+    return fdir, os.path.dirname(mdir)
+
+
+class DemoRecorder:
+    """Forward hooks on the demo's models (added as ``matte`` first meets
+    each, through ``app`` or ``predict.video_windows``): per forward, the K1
+    and K2 launches, the model's device ms (CUDA events around the forward)
+    and, for the next ``keep`` forwards, its outputs on the host; and the
+    propagator's host seconds and masks."""
+
+    def __init__(self):
+        self.forwards, self.keep, self.hooked = [], False, set()
+        self.propagated = []
+
+    def _pre(self, module, args, kwargs):
+        from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+        rec = {"k0": (kg.launches, ku.launches)}
+        if next(module.parameters()).is_cuda:
+            rec["start"] = torch.cuda.Event(enable_timing=True)
+            rec["start"].record()
+        self.forwards.append(rec)
+
+    def _post(self, module, args, kwargs, out):
+        from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+        rec = self.forwards[-1]
+        if "start" in rec:
+            rec["end"] = torch.cuda.Event(enable_timing=True)
+            rec["end"].record()
+        k0, u0 = rec.pop("k0")
+        rec["launches"] = {"gather_patches": kg.launches - k0, "compute_unknown": ku.launches - u0}
+        if self.keep:
+            rec["out"] = {k: v.detach().float().cpu() for k, v in out.items()}
+            self.keep -= 1
+
+    def __enter__(self):
+        import maggie_tpu_torch.demo.app as app
+        import maggie_tpu_torch.demo.predict as predict
+        self.app, self.predict = app, predict
+        self.matte, self.prop = app.matte, app._propagated_masks
+
+        def matte(model, *a, **k):
+            if id(model) not in self.hooked:
+                model.register_forward_pre_hook(self._pre, with_kwargs=True)
+                model.register_forward_hook(self._post, with_kwargs=True)
+                self.hooked.add(id(model))
+            return self.matte(model, *a, **k)
+
+        def propagated(*a, **k):
+            t0 = time.perf_counter()
+            out = self.prop(*a, **k)
+            self.propagated.append((time.perf_counter() - t0, out))
+            return out
+        app.matte = predict.matte = matte
+        app._propagated_masks = propagated
+        return self
+
+    def __exit__(self, *exc):
+        self.app.matte = self.predict.matte = self.matte
+        self.app._propagated_masks = self.prop
+
+    def take(self) -> list:
+        """The forwards since the last ``take``, device ms filled in."""
+        out, self.forwards = self.forwards, []
+        for rec in out:
+            if "end" in rec:
+                rec["end"].synchronize()
+                rec["ms"] = rec.pop("start").elapsed_time(rec.pop("end"))
+        return out
+
+
+def _multipart(fields) -> tuple:
+    """(body, content type) of a multipart form: (name, filename, bytes)."""
+    import uuid
+    boundary = uuid.uuid4().hex
+    body = b""
+    for name, filename, data in fields:
+        body += (f"--{boundary}\r\nContent-Disposition: form-data; name=\"{name}\"; "
+                 f"filename=\"{filename}\"\r\nContent-Type: image/png\r\n\r\n").encode()
+        body += data + b"\r\n"
+    return body + f"--{boundary}--\r\n".encode(), f"multipart/form-data; boundary={boundary}"
+
+
+def demo_post(url: str, body: bytes, ctype: str) -> tuple:
+    """(status, response bytes, host seconds) of one POST; an error page
+    (the server's 500 with the exception) fails the phase."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=body, method="POST", headers={"Content-Type": ctype})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            data = r.read()
+            return r.status, data, time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        fail(f"phase 15: {url} answered {e.code}: {e.read()[:2000]!r}")
+
+
+def demo_check_forwards(label: str, forwards: list, n: int) -> dict:
+    """Each of ``n`` forwards launched K1 5 and K2 3 times; their sums."""
+    if len(forwards) != n:
+        fail(f"phase 15: {label}: {len(forwards)} forwards, not {n}")
+    for i, f in enumerate(forwards):
+        if f["launches"] != PER_DEMO_FORWARD:
+            fail(f"phase 15: {label}: forward {i} launched {f['launches']}, not {PER_DEMO_FORWARD}")
+    return {k: sum(f["launches"][k] for f in forwards) for k in PER_DEMO_FORWARD}
+
+
+def phase_demo(dev, detail) -> dict:
+    """Phase 15: ``maggie_tpu_torch.demo.app``'s HTTP server in this process
+    on the card (port 0, a thread), the flagship image and video models from
+    seed-0 weights written as .safetensors; DEMO_REQUESTS image requests
+    (a 720x1280 frame and 3 mask PNGs each, through ``POST /image``) and a
+    video request (DEMO_VIDEO_FRAMES frames at 576x1024 with masks for frame
+    0 only, ``POST /video``: ``FlowPropagator`` fills in the rest), window
+    0's outputs and decisions recorded (the recorder copies to the host
+    inside the forward, so the windows after it are the timed ones). Checks
+    status 200 and decodable outputs, K1 5 and K2 3 launches per frame and
+    per window, and request 0's and window 0's model outputs against the
+    same inputs answered by the port on the CPU (phase 3's rule for the
+    frame, phase 8's for the window, the card's propagated masks reused).
+    Returns the launches over the requests."""
+    import argparse
+    import io
+    import shutil
+    import tempfile
+    import maggie_tpu_torch.demo.app as app
+    from PIL import Image
+    from urllib.parse import urlencode
+    from maggie_tpu_torch.config import load_config
+    from maggie_tpu_torch.models import build_model
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+    t0 = time.perf_counter()
+    out = {}
+    root = tempfile.mkdtemp(prefix="demo_")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        weights = {}
+        for kind, cfg_path in (("image", "configs/maggie_image.yaml"), ("video", VIDEO_CONFIG)):
+            model = build_model(load_config(cfg_path).model, device="cpu",
+                                generator=torch.Generator().manual_seed(0))
+            weights[kind] = os.path.join(root, f"{kind}.safetensors")
+            write_safetensors(weights[kind], model.state_dict())
+            del model
+        args = argparse.Namespace(weights=weights["image"], video_weights=weights["video"],
+                                  config=None, video_config=None, port=0, device=None)
+        cpu_args = argparse.Namespace(**{**vars(args), "device": "cpu"})
+        app._STATE.clear()
+        ready = threading.Event()
+        box = {}
+
+        def on_ready(srv):
+            box["srv"] = srv
+            ready.set()
+        server = threading.Thread(target=app.launch_http, args=(args, on_ready), daemon=True)
+        server.start()
+        if not ready.wait(60):
+            fail("phase 15: the demo server did not start")
+        url = f"http://127.0.0.1:{box['srv'].server_address[1]}"
+        with DemoRecorder() as rec:
+            # ---- image requests ----
+            kg.launches = ku.launches = 0
+            image_ms, host_ms, model_ms = [], [], []
+            for i in range(DEMO_REQUESTS):
+                image, masks = demo_image_request(i)
+                buf = io.BytesIO()
+                image.save(buf, "PNG")
+                fields = [("image", "img.png", buf.getvalue())]
+                fields += [("masks", f"{j:02d}.png", m) for j, m in enumerate(masks)]
+                rec.keep = int(i == 0)
+                status, data, sec = demo_post(url + "/image", *_multipart(fields))
+                torch.cuda.synchronize()
+                fwd = rec.take()
+                if status != 200:
+                    fail(f"phase 15: image request {i} answered {status}")
+                row = np.array(Image.open(io.BytesIO(data)))
+                h, w = DEMO_IMAGE_SRC
+                if row.shape != (h, w * (N_INST + 1), 3):
+                    fail(f"phase 15: image request {i}: a {row.shape} PNG")
+                demo_check_forwards(f"image request {i}", fwd, 1)
+                if i == 0:
+                    first = (image, masks, fwd[0])
+                image_ms.append(sec * 1e3)
+                model_ms.append(fwd[0]["ms"])
+                host_ms.append(sec * 1e3 - fwd[0]["ms"])
+            launches = {"gather_patches": kg.launches, "compute_unknown": ku.launches}
+            if launches != {k: v * DEMO_REQUESTS for k, v in PER_DEMO_FORWARD.items()}:
+                fail(f"phase 15: image requests launched {launches}")
+            out["image"] = {"request_ms": image_ms, "model_ms": model_ms, "host_ms": host_ms,
+                            "ms_per_request_median_2_4": float(np.median(image_ms[1:])),
+                            "model_ms_median_2_4": float(np.median(model_ms[1:])),
+                            "host_ms_median_2_4": float(np.median(host_ms[1:]))}
+            # ---- the video request: window 0's outputs and decisions recorded ----
+            fdir, mdir = demo_video_dir(os.path.join(root, "video"))
+            windows = DEMO_VIDEO_FRAMES - 2
+            form = urlencode({"frames": fdir, "masks": mdir, "prop": "flow"}).encode()
+            rec.keep = 1
+            with ThresholdRecorder(1) as card_thr:
+                status, data, sec = demo_post(url + "/video", form,
+                                              "application/x-www-form-urlencoded")
+            torch.cuda.synchronize()
+            vfwd = rec.take()
+            prop_s, prop_masks = rec.propagated[-1]
+            if status != 200:
+                fail(f"phase 15: the video request answered {status}")
+            listed = data.decode().split("<br>")
+            files = [p for p in listed if not p.startswith("video: ")]
+            if len(files) != DEMO_VIDEO_FRAMES:
+                fail(f"phase 15: the video request listed {len(files)} frames")
+            for p in files:
+                if np.array(Image.open(p)).shape != (H, W * N_INST, 3):
+                    fail(f"phase 15: the video frame {p} does not decode to its grid")
+            videos = [p[len("video: "):] for p in listed if p.startswith("video: ")]
+            if not videos or os.path.getsize(videos[0]) == 0:
+                fail("phase 15: the video request muxed no video")
+            video_launches = demo_check_forwards("video request", vfwd, windows)
+            timed = [f["ms"] for f in vfwd[1:]]      # window 0 copied its records to the host
+            out["video"] = {"request_s": sec, "window_ms": [f["ms"] for f in vfwd],
+                            "ms_per_window_median": float(np.median(timed)),
+                            "propagator_s": prop_s,
+                            "propagator_s_per_frame": prop_s / (DEMO_VIDEO_FRAMES - 1),
+                            "video_file": os.path.basename(videos[0])}
+            out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+            box["srv"].shutdown()
+            server.join(60)
+            # ---- the same requests on the CPU port ----
+            t1 = time.perf_counter()
+            app._STATE.clear()      # the CPU port's models from here on
+            image, masks, card_fwd = first
+            paths = []
+            for j, m in enumerate(masks):
+                paths.append(os.path.join(root, f"m{j}.png"))
+                with open(paths[-1], "wb") as f:
+                    f.write(m)
+            rec.keep = 1
+            app.inference_image(cpu_args, image, paths)
+            cpu_fwd = rec.take()
+            near, n_diff, unexplained, region = detail_mask_check(card_fwd["out"],
+                                                                  cpu_fwd[0]["out"])
+            err = (card_fwd["out"]["refined_masks"] - cpu_fwd[0]["out"]["refined_masks"]
+                   ).abs()[0, 0]
+            err_out = float(err[~region].max()) if bool((~region).any()) else 0.0
+            out["image_cpu_check"] = {"near_threshold_pixels": near, "detail_mask_diff": n_diff,
+                                      "unexplained_diff": unexplained,
+                                      "refined_max_abs_err": float(err.max()),
+                                      "refined_max_abs_err_outside_flips": err_out}
+            if unexplained or err_out > REFINED_ATOL:
+                fail(f"phase 15: image request 0 against the CPU port: "
+                     f"{out['image_cpu_check']} (limit {REFINED_ATOL})")
+            # window 0 on the CPU port: the video's first 3 frames, the card's masks
+            fdir0 = os.path.join(root, "video_cpu_frames")
+            os.makedirs(fdir0)
+            for f in sorted(os.listdir(fdir))[:3]:
+                shutil.copy(os.path.join(fdir, f), fdir0)
+            app._propagated_masks = lambda *a, **k: prop_masks[:3]
+            rec.keep = 1
+            try:
+                with ThresholdRecorder(1) as cpu_thr:
+                    app.inference_video(cpu_args, fdir0, mdir, "flow",
+                                        os.path.join(root, "video_cpu"))
+            finally:
+                app._propagated_masks = rec.prop
+            cpu_vfwd = rec.take()
+            c = video_window_check(vfwd[0]["out"], cpu_vfwd[0]["out"], card_thr.records[0],
+                                   cpu_thr.records[0], None)
+            c.pop("frame1_flips")
+            bad = video_window_failures(c)
+            if bad:
+                fail(f"phase 15: video window 0 against the CPU port: {bad}: {c}")
+            checks = [c]
+            out["video_cpu_checks"] = checks
+            out["cpu_check_s"] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        app._STATE.clear()
+    out["launches"] = {k: launches[k] + video_launches[k] for k in PER_DEMO_FORWARD}
+    out["launches"]["gather_patches_bwd"] = 0
+    out["phase_s"] = time.perf_counter() - t0
+    detail["demo"] = out
+    i, v = out["image"], out["video"]
+    print(f"phase 15: the demo server answered {DEMO_REQUESTS} image requests "
+          f"({DEMO_IMAGE_SRC[0]}x{DEMO_IMAGE_SRC[1]}, "
+          f"{N_INST} masks) and a video request ({DEMO_VIDEO_FRAMES} frames at {H}x{W}, "
+          f"{windows} windows) from .safetensors weights; launches {out['launches']}", flush=True)
+    print(f"  image request {i['ms_per_request_median_2_4']:.1f} ms (median of requests 2-4): "
+          f"model {i['model_ms_median_2_4']:.3f} ms (CUDA events), host "
+          f"{i['host_ms_median_2_4']:.1f} ms; video {v['ms_per_window_median']:.3f} ms a window "
+          f"(model, CUDA events, median of windows 1-{windows - 1}; all windows "
+          f"{[round(m, 3) for m in v['window_ms']]}, window 0 recorded), request "
+          f"{v['request_s']:.2f} s, propagator "
+          f"{v['propagator_s_per_frame']:.3f} host s a frame; peak "
+          f"{out['peak_mem_bytes'] / 2**30:.2f} GiB; CPU checks {out['cpu_check_s']:.1f} s "
+          f"(image refined max |err| off flips "
+          f"{out['image_cpu_check']['refined_max_abs_err_outside_flips']:.3g}; video window 0 "
+          f"flips {out['video_cpu_checks'][0]['refined_flips']}); phase "
+          f"{out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def demo_only(dev) -> int:
+    """``--demo``: build the kernels, then phase 15; details to
+    output/torch_port/chip_smoke_demo.json."""
+    from maggie_tpu_torch.ops.kernels import build
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                     "--format=csv,noheader"], capture_output=True,
+                                    text=True, check=True).stdout.strip(), flush=True)
+    build.build_all()
+    detail = {}
+    phase_demo(dev, detail)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_demo.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
     return 0
 

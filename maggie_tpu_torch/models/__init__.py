@@ -4,7 +4,8 @@ MaGGIe video model (arch ``MaGGIe_Temp``), the MGM baseline family (arch
 ``SparseMat``, ``SparseMat_SingInst``), eval and train; besides, the dense
 InstMatt ablation decoder ``res_shortcut_inst_matt_22`` and the plain
 ``ResNetD`` encoder ``res_encoder_29`` (which no harness takes: ROADMAP.md
-queue 3). Every other name raises and points to ROADMAP.md."""
+queue 3); and the passthrough arch ``Dummy`` (the input masks as the
+prediction). Every other name raises and points to ROADMAP.md."""
 
 from __future__ import annotations
 
@@ -77,7 +78,7 @@ def _dec_res_shortcut_fam_22(args: dict) -> nn.Module:
 
 
 def _archs() -> dict:
-    from .maggie import MaGGIe
+    from .maggie import Dummy, MaGGIe
     from .maggie_temp import MaGGIeTemp
     from .mgm_wrappers import MGMSingInst
     from .sparsemat import SparseMat, SparseMatSingInst
@@ -85,7 +86,7 @@ def _archs() -> dict:
     # MGM shares the MaGGIe harness with the dense decoder (maggie_tpu/models/__init__.py:104)
     return {"MaGGIe": MaGGIe, "MaGGIe_Temp": MaGGIeTemp, "MGM": MaGGIe,
             "MGM_SingInst": MGMSingInst, "TCVOM": TCVOM, "TCVOM_SingInst": TCVOMSingInst,
-            "SparseMat": SparseMat, "SparseMat_SingInst": SparseMatSingInst}
+            "SparseMat": SparseMat, "SparseMat_SingInst": SparseMatSingInst, "Dummy": Dummy}
 
 
 ENCODERS: dict[str, Callable[[dict], nn.Module]] = {

@@ -333,3 +333,38 @@ class MaGGIe(nn.Module):
                                    self.loss_dtssd_w)
         loss_dict["total"] = total
         return loss_dict
+
+
+class Dummy(nn.Module):
+    """Passthrough arch (port of ``maggie_tpu/models/maggie.py::Dummy``;
+    reference ``arch/dummy.py:3-9``): the prediction is the input mask,
+    resized nearest to the image. It drives the engine, data and metric
+    loops without a model. One inert ``scale`` parameter (0) gives the
+    optimizer and the checkpoints something to hold; the train loss is zero.
+    The train forward returns ``(output, {"total": 0})``."""
+
+    split_eval = False
+
+    def __init__(self, cfg=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.zeros(()))
+        self.remat = "none"
+
+    def init_params(self, g: torch.Generator) -> None:
+        with torch.no_grad():
+            self.scale.zero_()
+
+    def forward(self, batch: dict, use_mask_atten: bool = False, use_gt_guidance: bool = False,
+                use_prm_weights: bool = True, atten_loss_enabled: bool = True,
+                generator: torch.Generator | None = None, mem_feat=None, prev_pred=None):
+        masks = batch["mask"]
+        b, n_f, n_i = masks.shape[:3]
+        h, w = batch["image"].shape[2:4]
+        if masks.shape[-1] != w:
+            m = resize_nearest(masks.reshape((b * n_f, n_i) + masks.shape[-2:]), (h, w))
+            masks = m.reshape(b, n_f, n_i, h, w)
+        m = masks.float()
+        out = {"refined_masks": m, "alpha_os8": m}
+        if self.training:
+            return out, {"total": m.mean() * 0.0 + self.scale * 0.0}
+        return out

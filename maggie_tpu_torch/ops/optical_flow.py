@@ -1,28 +1,37 @@
-"""Dense optical flow after Farneback, the ``MESSDdt`` metric's flow, in numpy
-(float32 where OpenCV computes in float, float64 where it does in double).
+"""Dense optical flow after Farneback in numpy (float32 where OpenCV
+computes in float, float64 where it does in double): the ``MESSDdt``
+metric's flow and the demo's flow propagator.
 
-``farneback_flow`` replicates ``cv2.calcOpticalFlowFarneback(prev, next, None,
-0.5, 5, 10, 2, 7, 1.5, cv2.OPTFLOW_FARNEBACK_GAUSSIAN)``, the one setting the
-metric uses (``maggie_tpu/utils/metrics.py:236-240``; OpenCV
-``video/src/optflowgf.cpp``):
+``farneback_flow`` replicates ``cv2.calcOpticalFlowFarneback(prev, next,
+None, pyr_scale, levels, winsize, iterations, poly_n, poly_sigma, flags)``
+(OpenCV ``video/src/optflowgf.cpp``). Its defaults are the metric's setting,
+``0.5, 5, 10, 2, 7, 1.5, cv2.OPTFLOW_FARNEBACK_GAUSSIAN``
+(``maggie_tpu/utils/metrics.py:236-240``); the demo's ``FlowPropagator``
+passes ``0.5, 4, 21, 5, 5, 1.1, 0`` (``demo/segmenters.py:155-160``):
 
 - the pyramid: as many levels as keep both sides at 32 px or more (at most
-  5). For each level, both frames are blurred at full size by a Gaussian of
-  sigma (1/scale - 1) / 2 (3x3 [1/4, 1/2, 1/4] at scale 1), resized to
-  the level's size bilinearly (an exact halving averages 2x2 blocks, as cv2's
-  resize does), and expanded; the flow starts at zero on the coarsest level
-  and each finer level starts from the coarser flow resized and doubled;
+  ``levels``). For each level, both frames are blurred at full size by a
+  Gaussian of sigma (1/scale - 1) / 2 (3x3 [1/4, 1/2, 1/4] at scale 1),
+  resized to the level's size bilinearly (an exact halving averages 2x2
+  blocks, as cv2's resize does), and expanded; the flow starts at zero on
+  the coarsest level and each finer level starts from the coarser flow
+  resized and divided by ``pyr_scale``;
 - the polynomial expansion (``FarnebackPolyExp``): a separable Gaussian-
-  weighted least-squares fit of 1, x, y, x^2, y^2, xy over a 15x15
-  neighbourhood (sigma 1.5, replicated borders), vertical sums in float,
-  horizontal ones in double, times the inverse of the fit's Gram matrix;
+  weighted least-squares fit of 1, x, y, x^2, y^2, xy over a
+  (2 poly_n + 1)^2 neighbourhood (sigma ``poly_sigma``, replicated borders),
+  vertical sums in float, horizontal ones in double, times the inverse of
+  the fit's Gram matrix;
 - the matrix update (``FarnebackUpdateMatrices``): the next frame's
   coefficients sampled bilinearly at the displaced position and averaged with
   the first frame's, the residual of the displacement, the products that
   make the 2x2 system and its right side, damped near the image border;
-- the flow solve (``FarnebackUpdateFlow_GaussianBlur``): those five maps
-  blurred by an 11x11 Gaussian (sigma 1.5), then the 2x2 system solved per
-  pixel in double; two iterations, the matrices updated after the first.
+- the flow solve, ``iterations`` times, the matrices updated after each but
+  the last: with ``OPTFLOW_FARNEBACK_GAUSSIAN``
+  (``FarnebackUpdateFlow_GaussianBlur``) the five maps blurred by a
+  winsize x winsize Gaussian (sigma 0.3 winsize/2), with ``flags`` 0
+  (``FarnebackUpdateFlow_Blur``) by a winsize x winsize box as cv2's running
+  sums compute it (rows in double from float differences, then columns in
+  double), then the 2x2 system solved per pixel in double.
 
 cv2 filters and resizes with vector code and, for the larger blurs, Intel
 IPP, which round some sums otherwise: the replica's flows differ from cv2's
@@ -37,9 +46,7 @@ import numpy as np
 
 f32 = np.float32
 
-# the metric's setting: pyr_scale 0.5, levels 5, winsize 10, iterations 2,
-# poly_n 7, poly_sigma 1.5, OPTFLOW_FARNEBACK_GAUSSIAN
-_PYR_SCALE, _LEVELS, _WINSIZE, _ITERATIONS, _POLY_N, _POLY_SIGMA = 0.5, 5, 10, 2, 7, 1.5
+OPTFLOW_FARNEBACK_GAUSSIAN = 256   # cv2's flag value
 _MIN_SIZE = 32                 # cv2 stops the pyramid before a side gets shorter
 _BORDER = np.array([0.14, 0.14, 0.4472, 0.4472, 0.4472], f32)
 
@@ -265,20 +272,65 @@ def _update_flow(mats: np.ndarray, block_size: int) -> np.ndarray:
                     axis=-1).astype(f32)
 
 
-def farneback_flow(prev: np.ndarray, nxt: np.ndarray) -> np.ndarray:
+def _update_flow_box(mats: np.ndarray, block_size: int) -> np.ndarray:
+    """``FarnebackUpdateFlow_Blur``: the five maps box-summed over
+    block_size x block_size with replicated borders, as cv2's running sums
+    compute them (each row's sum steps by the float difference of the rows
+    that enter and leave, kept in double; each column's by the double
+    difference), times 1 / block_size^2; the 2x2 system solved per pixel in
+    double; (H, W, 2) float32. cv2 updates the matrices in stripes behind
+    the sweep, rows that have left the window, so the result equals a sweep
+    over all rows followed by the update."""
+    m = block_size // 2
+    h, w = mats.shape[:2]
+    mats = mats.astype(f32)
+    rows = np.empty((h, w, 5))
+    v = (mats[0] * f32(m + 2)).astype(np.float64)
+    for y in range(1, m):
+        v += mats[min(y, h - 1)]
+    for y in range(h):
+        v = v + (mats[min(y + m, h - 1)] - mats[max(y - m - 1, 0)]).astype(np.float64)
+        rows[y] = v
+    pad = np.concatenate([np.repeat(rows[:, :1], m + 1, axis=1), rows,
+                          np.repeat(rows[:, -1:], m + 1, axis=1)], axis=1)   # x -> x + m + 1
+    s = rows[:, 0] * (m + 2)
+    for x in range(1, m):
+        s = s + pad[:, x + m + 1]
+    sums = np.empty((h, w, 5))
+    for x in range(w):
+        s = s + (pad[:, x + 2 * m + 1] - pad[:, x])
+        sums[:, x] = s
+    scale = 1.0 / (block_size * block_size)
+    g11, g12, g22, h1, h2 = (sums[..., c] * scale for c in range(5))
+    idet = 1.0 / (g11 * g22 - g12 * g12 + 1e-3)
+    return np.stack([(g11 * h2 - g12 * h1) * idet, (g22 * h1 - g12 * h2) * idet],
+                    axis=-1).astype(f32)
+
+
+def farneback_flow(prev: np.ndarray, nxt: np.ndarray, pyr_scale: float = 0.5, levels: int = 5,
+                   winsize: int = 10, iterations: int = 2, poly_n: int = 7,
+                   poly_sigma: float = 1.5, flags: int = OPTFLOW_FARNEBACK_GAUSSIAN
+                   ) -> np.ndarray:
     """Flow (H, W, 2) float32, (dx, dy) per pixel, from ``prev`` to ``nxt``
-    (uint8 or float (H, W) frames of at least 32x32)."""
+    (uint8 or float (H, W) frames of at least 32x32), as
+    ``cv2.calcOpticalFlowFarneback`` with the same arguments (no initial
+    flow); ``flags`` is ``OPTFLOW_FARNEBACK_GAUSSIAN`` or 0."""
+    if flags not in (0, OPTFLOW_FARNEBACK_GAUSSIAN):
+        raise ValueError(f"farneback_flow takes flags 0 or OPTFLOW_FARNEBACK_GAUSSIAN, not {flags}")
+    update = _update_flow if flags else _update_flow_box
     h0, w0 = prev.shape
     n_levels, scale = 0, 1.0
-    while n_levels < _LEVELS:
-        scale *= _PYR_SCALE
+    while n_levels < levels:
+        scale *= pyr_scale
         if w0 * scale < _MIN_SIZE or h0 * scale < _MIN_SIZE:
             break
         n_levels += 1
     frames = [np.asarray(prev).astype(f32), np.asarray(nxt).astype(f32)]
     flow = None
     for k in range(n_levels, -1, -1):
-        scale = _PYR_SCALE ** k
+        scale = 1.0
+        for _ in range(k):
+            scale *= pyr_scale
         sigma = (1.0 / scale - 1) * 0.5
         smooth = max(int(np.rint(sigma * 5)) | 1, 3)
         width, height = int(np.rint(w0 * scale)), int(np.rint(h0 * scale))
@@ -286,12 +338,12 @@ def farneback_flow(prev: np.ndarray, nxt: np.ndarray) -> np.ndarray:
             flow = np.zeros((height, width, 2), f32)
         else:
             flow = (_resize_linear(flow, width, height).astype(np.float64)
-                    * (1.0 / _PYR_SCALE)).astype(f32)
+                    * (1.0 / pyr_scale)).astype(f32)
         r = [_poly_exp(_resize_linear(_gaussian_blur(f, smooth, sigma), width, height),
-                       _POLY_N, _POLY_SIGMA) for f in frames]
+                       poly_n, poly_sigma) for f in frames]
         mats = _update_matrices(r[0], r[1], flow)
-        for i in range(_ITERATIONS):
-            flow = _update_flow(mats, _WINSIZE)
-            if i < _ITERATIONS - 1:
+        for i in range(iterations):
+            flow = update(mats, winsize)
+            if i < iterations - 1:
                 mats = _update_matrices(r[0], r[1], flow)
     return flow

@@ -1,7 +1,8 @@
 """Weights and train checkpoints (port of ``maggie_tpu/utils/checkpoint.py``).
 
-- ``load_model_weights``: a torch file, a snapshot dir or a JAX-package
-  ``.npz`` into an eval model; ``fold_spectral_norm`` for inference;
+- ``load_model_weights``: a torch file, a ``.safetensors`` file
+  (``read_safetensors``), a snapshot dir or a JAX-package ``.npz`` into an
+  eval model; ``fold_spectral_norm`` for inference;
 - ``save_train_state`` / ``restore_train_state``: the train loop's
   ``last_state.pt``, the model's ``state_dict`` (BatchNorm statistics and
   spectral-norm u/v included), the optimizer's state and the update count
@@ -16,6 +17,7 @@
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 
@@ -28,47 +30,97 @@ from .convert_jax import key_map, to_jax
 
 logger = logging.getLogger(__name__)
 
-_NOT_PORTED = ("is not ported yet (ROADMAP.md queue 1 item 9 leaves safetensors, "
-               "orbax and hub weights for later): point model.weights at a torch "
-               ".pth/.pt/.bin/.ckpt file, a snapshot dir holding pytorch_model.bin or "
-               "model.pth, or a JAX-package .npz")
+_NOT_PORTED = ("is not ported (orbax dirs and hub downloads are not read): point "
+               "model.weights at a local .safetensors/.bin/.pth file, a snapshot dir holding "
+               "pytorch_model.bin, model.safetensors or model.pth, or a JAX-package .npz "
+               "(maggie_tpu.utils.checkpoint.save_variables_npz writes one from an orbax "
+               "checkpoint)")
+_SNAPSHOT_FILES = ("pytorch_model.bin", "model.safetensors", "model.pth")
+_TORCH_SUFFIXES = (".pth", ".pt", ".bin", ".ckpt", ".safetensors")
+# safetensors dtype names -> numpy dtypes (little-endian, as the format stores them)
+_ST_DTYPES = {"BOOL": "?", "U8": "u1", "I8": "i1", "U16": "<u2", "I16": "<i2", "F16": "<f2",
+              "U32": "<u4", "I32": "<i4", "F32": "<f4", "U64": "<u8", "I64": "<i8",
+              "F64": "<f8"}
+
+
+def read_safetensors(path: str) -> dict[str, torch.Tensor]:
+    """The tensors of a ``.safetensors`` file, read with numpy and ``json``:
+    an 8-byte little-endian header length, a JSON header naming each
+    tensor's dtype, shape and byte range, then the raw arrays.
+
+    BOOL, the integer types, F16, F32 and F64 come out as the arrays
+    ``safetensors.numpy.load_file`` gives (the JAX package's reader), as CPU
+    tensors. BF16 comes out as torch bf16. That reader gives it only where
+    ml_dtypes has registered bfloat16 with numpy (importing JAX does), and
+    raises ``TypeError`` elsewhere. Other dtypes (F8) raise ``ValueError``."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    if len(raw) < 8:
+        raise ValueError(f"{path!r} is not a safetensors file: {len(raw)} bytes")
+    n = int(np.frombuffer(raw[:8], "<u8")[0])
+    if 8 + n > len(raw):
+        raise ValueError(f"{path!r} is not a safetensors file: a header of {n} bytes "
+                         f"in {len(raw)}")
+    header = json.loads(raw[8:8 + n])
+    data = memoryview(raw)[8 + n:]
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype, shape = info["dtype"], tuple(info["shape"])
+        begin, end = info["data_offsets"]
+        buf = data[begin:end]
+        if dtype == "BF16":
+            bits = np.frombuffer(buf, "<i2").reshape(shape)
+            out[name] = torch.from_numpy(bits.copy()).view(torch.bfloat16)
+        elif dtype in _ST_DTYPES:
+            out[name] = torch.from_numpy(np.frombuffer(buf, _ST_DTYPES[dtype]).reshape(shape).copy())
+        else:
+            raise ValueError(f"{path!r}: tensor {name!r} has dtype {dtype}, which the port "
+                             f"does not read")
+    return out
 
 
 def load_model_weights(model: nn.Module, cfg) -> nn.Module:
     """Load ``cfg.model.weights`` into ``model`` (not yet folded) and return it.
 
-    - a torch ``.pth/.pt/.bin/.ckpt`` file, or a snapshot dir holding
-      ``pytorch_model.bin`` or ``model.pth``: the reference's ``state_dict``
-      (optionally under a ``state_dict`` key) loads straight into the port's
-      modules, which carry the reference's names (strict, less the unused
-      ``decoder.dummy_downscale`` weights, as the JAX package's converter
-      drops them);
+    - a torch ``.pth/.pt/.bin/.ckpt`` file, a ``.safetensors`` file, or a
+      snapshot dir holding ``pytorch_model.bin``, ``model.safetensors`` or
+      ``model.pth`` (searched in that order, as the JAX package does): the
+      reference's ``state_dict`` (optionally under a ``state_dict`` key)
+      loads straight into the port's modules, which carry the reference's
+      names (strict, less the unused ``decoder.dummy_downscale`` weights, as
+      the JAX package's converter drops them);
     - a ``.npz`` of the JAX package's variables (``save_variables_npz``) goes
       through ``convert_jax``;
     - an empty ``weights`` keeps the seeded init, with a warning.
 
-    Safetensors files, orbax dirs and hub ids raise ``FileNotFoundError``."""
+    Orbax dirs and hub ids raise ``FileNotFoundError`` naming the offline
+    route."""
     weights = cfg.model.weights
     if not weights:
         logger.warning("No weights specified; using the seeded random init")
         return model
     path = weights
     if os.path.isdir(weights):
-        found = [p for p in (os.path.join(weights, c) for c in ("pytorch_model.bin", "model.pth"))
+        found = [p for p in (os.path.join(weights, c) for c in _SNAPSHOT_FILES)
                  if os.path.isfile(p)]
         if not found:
-            raise FileNotFoundError(f"{weights!r}: a dir without pytorch_model.bin or "
-                                    f"model.pth (a safetensors or orbax checkpoint) {_NOT_PORTED}")
+            raise FileNotFoundError(f"{weights!r}: a dir without {' or '.join(_SNAPSHOT_FILES)} "
+                                    f"(an orbax checkpoint) {_NOT_PORTED}")
         path = found[0]
-    if path.endswith((".npz", ".pth", ".pt", ".bin", ".ckpt")) and not os.path.isfile(path):
+    if path.endswith((".npz",) + _TORCH_SUFFIXES) and not os.path.isfile(path):
         raise FileNotFoundError(f"Cannot load weights from {path!r}: no such file")
     if path.endswith(".npz"):
         from .convert_jax import convert_jax
         with np.load(path, allow_pickle=False) as data:
             flat = dict(data.items())
         sd = convert_jax(flat, model, n_block=int(cfg.model.decoder_args.get("atten_block", 2)))
-    elif path.endswith((".pth", ".pt", ".bin", ".ckpt")):
-        sd = torch.load(path, map_location="cpu", weights_only=True)
+    elif path.endswith(_TORCH_SUFFIXES):
+        if path.endswith(".safetensors"):
+            sd = read_safetensors(path)
+        else:
+            sd = torch.load(path, map_location="cpu", weights_only=True)
         if isinstance(sd, dict) and "state_dict" in sd:
             sd = sd["state_dict"]
         # the reference's index-book convs: their weights are never used, and
@@ -76,7 +128,7 @@ def load_model_weights(model: nn.Module, cfg) -> nn.Module:
         sd = {k: v for k, v in sd.items() if ".dummy_downscale." not in k}
     else:
         raise FileNotFoundError(f"Cannot load weights from {weights!r}: this kind of "
-                                f"checkpoint (safetensors, orbax dir or hub id) {_NOT_PORTED}")
+                                f"checkpoint (an orbax dir or a hub id) {_NOT_PORTED}")
     model.load_state_dict(sd, strict=True)
     logger.info(f"Loaded weights from {path}")
     return model

@@ -272,6 +272,7 @@ def _layout(names) -> tuple[str, bool]:
     a model, read from its ``state_dict`` names or any part of them (its
     parameters, running statistics or u/v alone). The kinds:
 
+    - ``"dummy"``: arch Dummy, its one parameter ``scale``;
     - ``"sparsemat"``: arch SparseMat (``lpn.``, ``shm.``);
     - ``"inst_dense"``: the dense InstMatt decoder ``res_shortcut_inst_matt_22``,
       told by ``decoder.conv1`` or ``decoder.bn1`` beside the instance
@@ -287,6 +288,8 @@ def _layout(names) -> tuple[str, bool]:
     every config pairs them (the MaGGIe decoders, the dense InstMatt one
     included, with the embedding; the MGM family without)."""
     names = list(names)
+    if "scale" in names:
+        return "dummy", False
     if any(k.startswith(("lpn.", "shm.")) for k in names):
         return "sparsemat", False
     dense = any(k.startswith(("decoder.conv1.", "decoder.bn1.")) for k in names)
@@ -302,7 +305,7 @@ def _layout(names) -> tuple[str, bool]:
 
 def key_map(n_block: int = 2, names=()) -> list[tuple[str, str, tuple | None]]:
     """The map of the model whose ``state_dict`` names are (or include)
-    ``names`` (``_layout``): SparseMat's LPN and SHM, or the encoder
+    ``names`` (``_layout``): Dummy's ``scale``, SparseMat's LPN and SHM, or the encoder
     res_shortcut_embed_29 or res_shortcut_29, ASPP, and the decoder:
     MaGGIe's res_shortcut_inst_matt_spconv_22 with ``n_block`` attention
     blocks and the video decoder's ConvGRU and diff module, the dense
@@ -310,6 +313,9 @@ def key_map(n_block: int = 2, names=()) -> list[tuple[str, str, tuple | None]]:
     with TCVOM's FAM (entries a model lacks are skipped by every reader)."""
     kind, embed = _layout(names)
     km = _KeyMap()
+    if kind == "dummy":
+        km.put("scale", "params/scale")
+        return km.entries
     if kind == "sparsemat":
         km.sparsemat()
         return km.entries

@@ -43,8 +43,8 @@ import test_torch_sparsemat as tsm
 import torch_ddp_worker as worker
 from maggie_tpu.models.sparsemat import SparseMat as JaxSparseMat
 from test_torch_baseline_remat import _widths, jax_step
-from test_torch_ddp import (FLAGS, NORM_ATOL, assert_ranks_equal, compare_to_single,
-                            run_ranks, summed_losses)
+from test_torch_ddp import (FLAGS, NORM_ATOL, TIMEOUT_S, assert_ranks_equal,
+                            compare_to_single, start_ranks, summed_losses)
 from test_torch_harness import one_torch_thread  # noqa: F401
 from test_torch_tcvom import CLIP
 
@@ -116,14 +116,17 @@ def atten_payload() -> dict:
 
 @pytest.fixture(scope="module")
 def world2(tmp_path_factory):
-    """Every case on one pair of ranks (one spawn), and its single-process
-    runs in this process: {name: (case, ranks' results, one process's)}."""
+    """Every case on one pair of ranks (one spawn), and, while the ranks
+    run, its single-process runs and JAX's step on the global batch
+    (``global_jax_step``) in this process: {name: (case, ranks' results,
+    one process's)}; each case's JAX step in ``case.jax``."""
     cases = {name: _case(name) for name in ("mgm_tcvom", "sparsemat_image", "dense")}
     atten = atten_payload()
     p = {"cases": {"atten": ("atten", atten),
                    **{name: ("step", c.payload) for name, c in cases.items()}}}
-    ranks = run_ranks("cases", p, tmp_path_factory.mktemp("ddp_baselines"))
-    out = {"atten": ([r["atten"] for r in ranks], worker.run_atten(atten))}
+    wait = start_ranks("cases", p, tmp_path_factory.mktemp("ddp_baselines"),
+                       timeout=TIMEOUT_S * len(p["cases"]))
+    singles = {"atten": worker.run_atten(atten)}
     for name, c in cases.items():
         if name == "sparsemat_image":
             with tsm.Margins() as rec:
@@ -135,7 +138,12 @@ def world2(tmp_path_factory):
             assert min(margins) >= tmgm.MARGIN, margins
         else:
             single = worker.run_step(c.payload)
-        out[name] = (c, [r[name] for r in ranks], single)
+        singles[name] = single
+        c.jax = global_jax_step(c)
+    ranks = wait()
+    out = {"atten": ([r["atten"] for r in ranks], singles["atten"])}
+    for name, c in cases.items():
+        out[name] = (c, [r[name] for r in ranks], singles[name])
     return out
 
 
@@ -235,7 +243,7 @@ def test_world2_step_matches_jax(world2, name):
     received, the state after) against JAX's single-device step on the
     global batch, at the family's train-step tolerances."""
     c, ranks, _ = world2[name]
-    jstate, jld = global_jax_step(c)
+    jstate, jld = c.jax
     got = ranks[0]["none"]
     state = SimpleNamespace(step=1, params=lambda: got["params"],
                             batch_stats=lambda: got["batch_stats"],

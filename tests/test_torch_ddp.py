@@ -90,6 +90,14 @@ def free_port() -> int:
 def run_ranks(case: str, payload: dict, tmp_path, world: int = WORLD,
               local_world: int | None = None) -> list:
     """``case`` of the worker in ``world`` processes; their results by rank."""
+    return start_ranks(case, payload, tmp_path, world, local_world)()
+
+
+def start_ranks(case: str, payload: dict, tmp_path, world: int = WORLD,
+                local_world: int | None = None, timeout: float = TIMEOUT_S):
+    """Start ``case`` of the worker in ``world`` processes and return a
+    function that waits for them (``timeout`` seconds) and returns their
+    results by rank, so that the caller's own work runs meanwhile."""
     tmp_path.mkdir(parents=True, exist_ok=True)
     in_path = tmp_path / f"{case}_in.pt"
     torch.save(payload, in_path)
@@ -103,18 +111,23 @@ def run_ranks(case: str, payload: dict, tmp_path, world: int = WORLD,
         procs.append(subprocess.Popen([sys.executable, WORKER, case, str(in_path), str(tmp_path)],
                                       env=env, cwd=REPO, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True))
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
-    return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    def wait() -> list:
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=timeout)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
+        out = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(world)]
+        for path in [in_path] + [tmp_path / f"rank{r}.pt" for r in range(world)]:
+            path.unlink()     # the results (GBs for the step cases) live on in memory
+        return out
+    return wait
 
 
 # ------------------------------------------------------------------ the model
@@ -210,15 +223,80 @@ def compare_to_single(ranks: list, single: dict, mode: str = "none") -> dict:
     return out
 
 
+def norms_payload() -> dict:
+    """``BatchNorm`` and ``MaskedBatchNorm`` inputs on 4 rows; the masked
+    layer with active sites in every row (``masked``), and with all of them
+    in rows 0-1, so that rank 1 holds none (``masked_empty_rank``)."""
+    rs = np.random.RandomState(3)
+    c = 6
+    x = torch.from_numpy((rs.randn(4, c, 9, 11) * 2 + 0.5).astype(np.float32))
+    mask = torch.from_numpy((rs.rand(4, 1, 9, 11) > 0.4).astype(np.float32))
+    stats = mask * torch.from_numpy((rs.rand(4, 1, 9, 11) > 0.3).astype(np.float32))
+    empty = torch.cat([torch.ones(2, 1, 1, 1), torch.zeros(2, 1, 1, 1)])
+    state = {"weight": torch.from_numpy(rs.uniform(0.5, 1.5, c).astype(np.float32)),
+             "bias": torch.from_numpy(rs.uniform(-.2, .2, c).astype(np.float32)),
+             "running_mean": torch.from_numpy(rs.uniform(-.3, .3, c).astype(np.float32)),
+             "running_var": torch.from_numpy(rs.uniform(.5, 1.5, c).astype(np.float32))}
+    return dict(c=c, x=x, masks={"masked": (mask, stats),
+                                 "masked_empty_rank": (mask * empty, stats * empty)},
+                state=state, ct=torch.from_numpy(rs.randn(4, c, 9, 11).astype(np.float32)))
+
+
+JAX_WIDTHS = [np.random.RandomState(k).randint(1, k, GLOBAL_BATCH * SLOTS) for k in (27, 15, 30, 15)]
+
+
 @pytest.fixture(scope="module")
-def image_steps(weights, tmp_path_factory):
-    """The image step with dropout and random dilation on (widths and
-    dropout drawn from the step generator): world 2 under each remat mode,
-    and one process on the global batch."""
-    p = step_payload(weights, modes=("none", "full", "selective"))
-    ranks = run_ranks("step", p, tmp_path_factory.mktemp("ddp_image"))
-    single = worker.run_step(dict(p, modes=["none"]))
-    return ranks, single
+def world2(weights, tmp_path_factory):
+    """One spawn of two ranks runs every world-2 case of (a)-(f) in turn,
+    while this process runs their single-process sides and JAX's step:
+    {case: (ranks' results, this process's)}.
+
+    - ``image``: the image step with dropout and random dilation on (widths
+      and dropout drawn from the step generator), under each remat mode;
+      one process on the global batch;
+    - ``norms``: (c)'s layers (``norms_payload``);
+    - ``jax``: dropout off and the four random-width dilations fed the same
+      widths on both sides (``tests/test_torch_train.py``'s scheme, at the
+      40 maps of the global batch; a rank takes its rows of each call's
+      widths); JAX's single-device step on the global batch;
+    - ``overflow``: a global batch that overflows the ladder's capacity;
+      one process selecting per half as the ranks do, and one selecting
+      the global top-cap blocks as the JAX package does;
+    - ``video``: ``video_payload``."""
+    import jax.numpy as jnp
+    import maggie_tpu.ops.morphology as jmorph
+    import test_torch_train as ttrain
+
+    jax_batch = global_batch(seed=1)
+    payloads = {
+        "image": ("step", step_payload(weights, modes=("none", "full", "selective"))),
+        "norms": ("norms", norms_payload()),
+        "jax": ("step", step_payload(weights, dropout=0.0, widths=JAX_WIDTHS, batch=jax_batch)),
+        "overflow": ("step", step_payload(weights, batch=full_batch())),
+        "video": ("step", video_payload()),
+    }
+    wait = start_ranks("cases", {"cases": payloads}, tmp_path_factory.mktemp("ddp_world2"),
+                       timeout=TIMEOUT_S * len(payloads))
+    single = {"image": worker.run_step(dict(payloads["image"][1], modes=["none"])),
+              "norms": worker.run_norms(payloads["norms"][1]),
+              "overflow": (worker.run_step(dict(payloads["overflow"][1], split_select=WORLD)),
+                           worker.run_step(payloads["overflow"][1])),
+              "video": worker.run_step(payloads["video"][1])}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ttrain, "_WIDTHS", JAX_WIDTHS)
+        mp.setattr(jmorph, "dilate_ellipse_random",
+                   ttrain._jax_dilate_with_widths(itertools.count()))
+        single["jax"] = jax_step(weights, {k: jnp.asarray(v.numpy())
+                                           for k, v in jax_batch.items()})
+    ranks = wait()
+    return {name: ([r[name] for r in ranks], single[name]) for name in payloads}
+
+
+@pytest.fixture(scope="module")
+def image_steps(world2):
+    """The image step with dropout and random dilation on: world 2 under
+    each remat mode, and one process on the global batch."""
+    return world2["image"]
 
 
 def test_world2_image_step_equals_one_process(image_steps):
@@ -251,25 +329,10 @@ NORM_ATOL = 1e-5
 
 
 @pytest.fixture(scope="module")
-def norms(tmp_path_factory):
-    """``BatchNorm`` and ``MaskedBatchNorm`` on 2 ranks and in one process, on
-    4 rows; the masked layer with active sites in every row (``masked``),
-    and with all of them in rows 0-1, so that rank 1 holds none
-    (``masked_empty_rank``)."""
-    rs = np.random.RandomState(3)
-    c = 6
-    x = torch.from_numpy((rs.randn(4, c, 9, 11) * 2 + 0.5).astype(np.float32))
-    mask = torch.from_numpy((rs.rand(4, 1, 9, 11) > 0.4).astype(np.float32))
-    stats = mask * torch.from_numpy((rs.rand(4, 1, 9, 11) > 0.3).astype(np.float32))
-    empty = torch.cat([torch.ones(2, 1, 1, 1), torch.zeros(2, 1, 1, 1)])
-    state = {"weight": torch.from_numpy(rs.uniform(0.5, 1.5, c).astype(np.float32)),
-             "bias": torch.from_numpy(rs.uniform(-.2, .2, c).astype(np.float32)),
-             "running_mean": torch.from_numpy(rs.uniform(-.3, .3, c).astype(np.float32)),
-             "running_var": torch.from_numpy(rs.uniform(.5, 1.5, c).astype(np.float32))}
-    p = dict(c=c, x=x, masks={"masked": (mask, stats),
-                              "masked_empty_rank": (mask * empty, stats * empty)}, state=state,
-             ct=torch.from_numpy(rs.randn(4, c, 9, 11).astype(np.float32)))
-    return run_ranks("norms", p, tmp_path_factory.mktemp("ddp_norms")), worker.run_norms(p)
+def norms(world2):
+    """``BatchNorm`` and ``MaskedBatchNorm`` on 2 ranks and in one process
+    (``norms_payload``)."""
+    return world2["norms"]
 
 
 @pytest.mark.parametrize("name", ["bn", "masked", "masked_empty_rank"])
@@ -344,26 +407,11 @@ def jax_step(weights, jbatch):
 
 
 @pytest.fixture(scope="module")
-def jax_vs_world2(weights, tmp_path_factory):
+def jax_vs_world2(world2):
     """The world-2 port step and JAX's single-device step on the global batch,
     dropout off and the four random-width dilations fed the same widths on
-    both sides (``tests/test_torch_train.py``'s scheme, at the 40 maps of
-    the global batch; a rank takes its rows of each call's widths)."""
-    import jax.numpy as jnp
-    import maggie_tpu.ops.morphology as jmorph
-    import test_torch_train as ttrain
-
-    widths = [np.random.RandomState(k).randint(1, k, GLOBAL_BATCH * SLOTS)
-              for k in (27, 15, 30, 15)]
-    batch = global_batch(seed=1)
-    ranks = run_ranks("step", step_payload(weights, dropout=0.0, widths=widths, batch=batch),
-                      tmp_path_factory.mktemp("ddp_jax"))
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(ttrain, "_WIDTHS", widths)
-        mp.setattr(jmorph, "dilate_ellipse_random",
-                   ttrain._jax_dilate_with_widths(itertools.count()))
-        jld, jgrads, jstate = jax_step(weights, {k: jnp.asarray(v.numpy())
-                                                 for k, v in batch.items()})
+    both sides."""
+    ranks, (jld, jgrads, jstate) = world2["jax"]
     return ranks, jld, jgrads, jstate
 
 
@@ -400,14 +448,13 @@ def full_batch(seed: int = 2) -> dict:
 
 
 @pytest.fixture(scope="module")
-def overflow_steps(weights, tmp_path_factory):
+def overflow_steps(world2):
     """A global batch that overflows the ladder's capacity: world 2 (each
     rank selects its own blocks at its own capacity), one process selecting
     per half as the ranks do, and one process selecting the global top-cap
     blocks as the JAX package does."""
-    p = step_payload(weights, batch=full_batch())
-    ranks = run_ranks("step", p, tmp_path_factory.mktemp("ddp_overflow"))
-    return ranks, worker.run_step(dict(p, split_select=WORLD)), worker.run_step(p)
+    ranks, (per_half, top_cap) = world2["overflow"]
+    return ranks, per_half, top_cap
 
 
 def test_capacity_rule_per_rank(image_steps, overflow_steps):
@@ -440,15 +487,14 @@ def test_capacity_rule_per_rank(image_steps, overflow_steps):
 
 
 # ------------------------------------------------------------ the video step
-@pytest.fixture(scope="module")
-def video_steps(tmp_path_factory):
+def video_payload() -> dict:
     """``tests/test_torch_video_train.py``'s reduced video model (3 slots,
     ``bi_fusion``) with dropout 0.1 and random dilation on, one step on two
-    clips of 3 frames at 64x64 (a 2-frame clip's dtSSD is 0/0): world 2 (a
-    clip a rank) and one process. The ladder has room for every block
-    (``block_cap_frac`` 1): at 0.5 a rank's 9 maps of one block each get
-    round(4.5) = 4 entries where the global 18 get 9, and 6 of them are
-    active, so both sides would overflow (test (d) covers that rule)."""
+    clips of 3 frames at 64x64 (a 2-frame clip's dtSSD is 0/0), a clip a
+    rank. The ladder has room for every block (``block_cap_frac`` 1): at
+    0.5 a rank's 9 maps of one block each get round(4.5) = 4 entries where
+    the global 18 get 9, and 6 of them are active, so both sides would
+    overflow (test (d) covers that rule)."""
     from test_torch_video_train import clip_batch, train_video_cfg
     from maggie_tpu_torch.utils.convert_jax import to_jax
     cfg = train_video_cfg()
@@ -459,8 +505,13 @@ def video_steps(tmp_path_factory):
     state = convert_jax(random_flat(dict(sorted(shapes.items())), seed=10), model)
     clips = [clip_batch(seed)[1] for seed in (0, 1)]
     batch = {k: torch.cat([c[k] for c in clips]) for k in clips[0]}
-    p = step_payload({"state": state}, batch=batch, cfg=cfg.to_dict())
-    return run_ranks("step", p, tmp_path_factory.mktemp("ddp_video")), worker.run_step(p)
+    return step_payload({"state": state}, batch=batch, cfg=cfg.to_dict())
+
+
+@pytest.fixture(scope="module")
+def video_steps(world2):
+    """The video step: world 2 (a clip a rank) and one process."""
+    return world2["video"]
 
 
 def test_world2_video_step_equals_one_process(video_steps):

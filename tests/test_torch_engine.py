@@ -18,6 +18,7 @@ process; the log prints each value's repr).
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -195,13 +196,17 @@ def test_from_pretrained_loads_and_folds(runs, tmp_path):
         assert torch.equal(got[k], want[k]), k
 
 
-@pytest.mark.parametrize("kind,match", [("safetensors", "not ported"), ("orbax_dir", "not ported"),
-                                        ("hub_id", "not ported"), ("missing_pth", "no such file")])
+@pytest.mark.parametrize("kind,match", [("safetensors", "not a safetensors file"),
+                                        ("orbax_dir", "not ported"), ("hub_id", "not ported"),
+                                        ("missing_pth", "no such file")])
 def test_weights_that_cannot_load_raise(runs, tmp_path, kind, match):
+    """An empty ``.safetensors`` file, an orbax dir, a hub id, a missing file."""
     from maggie_tpu_torch.utils.checkpoint import load_model_weights
+    exc = FileNotFoundError
     if kind == "safetensors":
         weights = str(tmp_path / "model.safetensors")
         open(weights, "wb").close()
+        exc = ValueError
     elif kind == "orbax_dir":
         weights = str(tmp_path)
     elif kind == "hub_id":
@@ -210,7 +215,7 @@ def test_weights_that_cannot_load_raise(runs, tmp_path, kind, match):
         weights = str(tmp_path / "absent.pth")
     cfg = runs["pcfg"].clone()
     cfg.model.weights = weights
-    with pytest.raises(FileNotFoundError, match=match):
+    with pytest.raises(exc, match=match):
         load_model_weights(build_model(cfg.model, device="cpu"), cfg)
 
 
@@ -229,3 +234,95 @@ def test_entry_points_run_on_cuda_unless_asked(him_root):
         main(["--config", CONFIG])
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--config", os.path.join(REPO, "configs", "maggie_video.yaml"), "--eval-only"])
+
+
+def test_dummy_forward_matches_jax():
+    """Arch ``Dummy``: the masks resized nearest to the frame, as
+    ``refined_masks`` and ``alpha_os8``, and a zero train loss, equal to the
+    JAX package's bit for bit."""
+    import jax
+    import jax.numpy as jnp
+    from maggie_tpu.models import build_model as jax_build_model
+    jcfg = jax_load_config(None)
+    jcfg.model.arch = "Dummy"
+    rs = np.random.RandomState(0)
+    batch = {"image": rs.rand(2, 2, 40, 56, 3).astype(np.float32),
+             "mask": (rs.rand(2, 2, 3, 5, 7) > 0.5).astype(np.float32)}
+    jm = jax_build_model(jcfg.model)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jv = jm.init({"params": jax.random.PRNGKey(0)}, jb)
+    model = build_model(load_config(None, ["model.arch", "Dummy"]).model, device="cpu")
+    assert list(model.state_dict()) == ["scale"] and float(model.scale.detach()) == 0.0
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    want = jm.apply(jv, jb)
+    got = model(tb)
+    assert set(got) == set(want) == {"refined_masks", "alpha_os8"}
+    for k in want:
+        assert got[k].dtype == torch.float32 and np.array_equal(got[k].numpy(), np.asarray(want[k]))
+    jout, jloss = jm.apply(jv, jb, train=True)
+    model.train()
+    out, loss = model(tb)
+    assert list(loss) == list(jloss) == ["total"] and float(loss["total"]) == 0.0
+    loss["total"].backward()
+    assert float(model.scale.grad) == 0.0
+    assert np.array_equal(out["refined_masks"].detach().numpy(), np.asarray(jout["refined_masks"]))
+
+
+@pytest.fixture(scope="module")
+def dummy_root(him_root):
+    """``him_root`` with a train split ``tr`` (``tr/images``, ``tr/alphas``) of
+    3 frames, one or two instances each."""
+    root = os.path.join(him_root, "tr")
+    rs = np.random.RandomState(1)
+    for i in range(3):
+        os.makedirs(os.path.join(root, "images"), exist_ok=True)
+        Image.fromarray(rs.randint(0, 255, (72, 96, 3), np.uint8)).save(
+            os.path.join(root, "images", f"t{i}.jpg"))
+        os.makedirs(os.path.join(root, "alphas", f"t{i}"))
+        for j in range(1 + i % 2):
+            Image.fromarray(_blob(72, 96, 30 + 30 * j, 36, 20)).save(
+                os.path.join(root, "alphas", f"t{i}", f"{j:02d}.png"))
+    return him_root
+
+
+def test_dummy_through_the_cli(dummy_root, tmp_path):
+    """``main --eval-only --device cpu`` with ``model.arch Dummy``: the JAX
+    package's ``test()`` metrics (its engine smoke test's arch); then two
+    training iterations with a validation through the CLI: zero losses,
+    ``scale`` left at 0, and ``best_model.npz`` carrying it across to both
+    packages (``utils/convert_jax.py``)."""
+    import jax
+    from maggie_tpu.models import build_model as jax_build_model
+    from maggie_tpu.utils.checkpoint import load_model_weights as jax_load_weights
+    from maggie_tpu_torch.main import main
+    from maggie_tpu_torch.utils.checkpoint import load_model_weights
+    opts = _opts(dummy_root) + ["model.arch", "Dummy"]
+    jcfg = jax_load_config(CONFIG, opts)
+    want = jax_engine.test(jcfg)
+    got = main(["--config", CONFIG, "--eval-only", "--device", "cpu", "name", "dummy_eval",
+                "output_dir", str(tmp_path)] + opts)
+    assert list(got) == list(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, err_msg=k)
+    assert (tmp_path / "dummy_eval" / "results.csv").is_file()
+
+    state = main(["--config", CONFIG, "--device", "cpu", "name", "dummy_train",
+                  "output_dir", str(tmp_path)] + opts + [
+                  "dataset.train.root_dir", dummy_root, "dataset.train.split", "tr",
+                  "dataset.train.short_size", "64", "dataset.train.crop", "[64, 64]",
+                  "train.batch_size", "2", "train.max_iter", "2", "train.val_iter", "2",
+                  "train.log_iter", "1"])
+    run = tmp_path / "dummy_train"
+    assert state.step == 2 and float(state.model.scale.detach()) == 0.0
+    log = (run / "log_rank0.log").read_text()
+    assert "Validation:MAD" in log
+    assert [float(v) for v in re.findall(r"total: ([-\w.]+)", log)] == [0.0, 0.0]
+    npz = str(run / "best_model.npz")
+    with np.load(npz) as data:
+        assert sorted(data) == ["params/scale"] and float(data["params/scale"]) == 0.0
+    cfg = load_config(None, ["model.arch", "Dummy", "model.weights", npz])
+    model = load_model_weights(build_model(cfg.model, device="cpu"), cfg)
+    assert float(model.scale.detach()) == 0.0
+    jcfg.model.weights = npz
+    jv = jax_load_weights(jax_build_model(jcfg.model), jcfg)
+    assert float(jax.device_get(jv["params"]["scale"])) == 0.0

@@ -50,11 +50,29 @@ def port_cfg(jcfg):
     return ConfigNode(jcfg.model.to_dict())
 
 
+def memo(key: str, build):
+    """``build()`` (a dict) once a process for ``key``: the seeded weights
+    and the variable shapes that the test files build again and again (the
+    same arrays, for the same arguments). Each caller gets its own dict and
+    its own copy of each array, so that a change it makes stays its own."""
+    if key not in _MEMO:
+        _MEMO[key] = build()
+    value = _MEMO[key]
+    return {k: v.copy() if isinstance(v, np.ndarray) else v for k, v in value.items()}
+
+
+_MEMO: dict = {}
+
+
+def shapes_of(init) -> dict:
+    """The flat variable shapes of ``jax.eval_shape(init)``."""
+    return {"/".join(k): v.shape for k, v in flatten_dict(jax.eval_shape(init)).items()}
+
+
 def jax_shapes(model, n_i: int = 2) -> dict:
     small = graft._make_batch(1, 1, n_i, 64, 64)
-    tree = jax.eval_shape(lambda: model.init({"params": jax.random.PRNGKey(0)}, small,
-                                             train=False))
-    return {"/".join(k): v.shape for k, v in flatten_dict(tree).items()}
+    return memo(f"jax_shapes {model!r} {n_i}", lambda: shapes_of(
+        lambda: model.init({"params": jax.random.PRNGKey(0)}, small, train=False)))
 
 
 def _is_transposed_sn(key: str) -> bool:
@@ -72,7 +90,13 @@ def sn_matrix(key: str, w: np.ndarray) -> np.ndarray:
 
 
 def random_flat(shapes: dict, seed: int = 0) -> dict:
-    """Seeded values for a flat JAX variable tree."""
+    """Seeded values for a flat JAX variable tree (built once a process for
+    each tree and seed, ``memo``)."""
+    key = f"random_flat {sorted((k, tuple(v)) for k, v in shapes.items())} {seed}"
+    return memo(key, lambda: _random_flat(shapes, seed))
+
+
+def _random_flat(shapes: dict, seed: int) -> dict:
     rs = np.random.RandomState(seed)
     flat = {}
     for k, shape in sorted(shapes.items()):

@@ -28,7 +28,6 @@ no value K2 reads in the true instances' slots lies within
 ``test_torch_mgm.MARGIN`` of a threshold.
 """
 
-import copy
 import re
 
 import numpy as np
@@ -49,16 +48,16 @@ from maggie_tpu.ops.morphology import compute_unknown as jax_compute_unknown
 from maggie_tpu.ops.pallas.unknown import compute_unknown_pallas
 from maggie_tpu_torch.config import ConfigNode
 from maggie_tpu_torch.engine.optim import build_optimizer
-from maggie_tpu_torch.engine.train_step import TrainState, compute_grads, make_train_step
+from maggie_tpu_torch.engine.train_step import TrainState, make_train_step
 from maggie_tpu_torch.models import build_model
 from maggie_tpu_torch.models.encoder import ResNetD
 from maggie_tpu_torch.ops.kernels import unknown as ku
 from maggie_tpu_torch.utils.convert_jax import _KeyMap, _layout, to_jax
-from test_torch_harness import (jax_cfg, jax_variables, one_torch_thread,  # noqa: F401
-                                port_cfg, port_from_flat, random_flat)
+from test_torch_harness import (jax_cfg, jax_variables, memo, one_torch_thread,  # noqa: F401
+                                port_cfg, port_from_flat, random_flat, shapes_of)
 from test_torch_mgm import MARGIN, blob, k2_margins, same_widths, train_batch
 from test_torch_train import (FLAGS, PARAM_ATOL, PARAM_FAR_SHARE, SN_ATOL, STATS_ATOL,
-                              _check_grads, _flat)
+                              _check_grads, _flat, port_step_keeping_grads)
 from test_torch_video_train import _keeping_grads
 
 HW = 128
@@ -83,8 +82,9 @@ def build_pair(seed: int = 0, head_scale: float = HEAD_SCALE):
     jcfg = dense_cfg()
     jm = jax_build_model(jcfg.model)
     batch = {"image": jnp.zeros((1, 1, 64, 64, 3)), "mask": jnp.zeros((1, 1, 2, 64, 64))}
-    tree = jax.eval_shape(lambda: jm.init({"params": jax.random.PRNGKey(0)}, batch, train=False))
-    flat = random_flat({"/".join(k): v.shape for k, v in flatten_dict(tree).items()}, seed)
+    shapes = memo(f"inst_dense jax_shapes {jm!r}", lambda: shapes_of(
+        lambda: jm.init({"params": jax.random.PRNGKey(0)}, batch, train=False)))
+    flat = random_flat(shapes, seed)
     for k in flat:
         if any(re.fullmatch(p, k) for p in SCALED):
             flat[k] = flat[k] * np.float32(head_scale)
@@ -226,16 +226,13 @@ def test_train_step_matches_jax():
     with same_widths(widths):
         jstate, jld = jax_make_train_step(jm, tx)(jstate, jb, jax.random.PRNGKey(1), **FLAGS)
     tm.train()
-    grads_model = copy.deepcopy(tm)
-    with same_widths(widths), k2_margins(3, module=tdense) as margins:
-        compute_grads(grads_model, tb, torch.Generator(), **FLAGS)
-    assert len(margins) == 1 and margins[0] >= MARGIN, margins
     opt, schedule = build_optimizer(ConfigNode(jcfg.to_dict()), tm.parameters())
     state = TrainState(tm, opt)
-    with same_widths(widths):
-        tld = make_train_step(tm, opt, schedule)(state, tb, torch.Generator(), **FLAGS)
-    check_train_step(jstate, jld, state, tld,
-                     {k: p.grad for k, p in grads_model.named_parameters()})
+    with same_widths(widths), k2_margins(3, module=tdense) as margins:
+        tld, grads = port_step_keeping_grads(make_train_step(tm, opt, schedule), state, tb,
+                                             torch.Generator(), **FLAGS)
+    assert len(margins) == 1 and margins[0] >= MARGIN, margins
+    check_train_step(jstate, jld, state, tld, grads)
 
 
 def check_train_step(jstate, jld, state, tld, grads: dict) -> None:

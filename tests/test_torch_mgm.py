@@ -55,7 +55,6 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
-from flax.traverse_util import flatten_dict
 from PIL import Image
 
 import maggie_tpu.ops.morphology as jmorph
@@ -68,13 +67,15 @@ from maggie_tpu.engine.train_step import make_train_step as jax_make_train_step
 from maggie_tpu.models import build_model as jax_build_model
 from maggie_tpu_torch.config import ConfigNode
 from maggie_tpu_torch.engine.optim import build_optimizer
-from maggie_tpu_torch.engine.train_step import TrainState, compute_grads, make_train_step
+from maggie_tpu_torch.engine.train_step import TrainState, make_train_step
 from maggie_tpu_torch.main import main
 from maggie_tpu_torch.models import build_model
 from maggie_tpu_torch.ops.kernels import unknown as ku
 from maggie_tpu_torch.utils.convert_jax import to_jax
-from test_torch_harness import jax_variables, one_torch_thread, port_from_flat, random_flat  # noqa: F401
-from test_torch_train import FLAGS, LOSS_RTOL, _check_grads, _check_state, _flat
+from test_torch_harness import (jax_variables, memo, one_torch_thread,  # noqa: F401
+                                port_from_flat, random_flat, shapes_of)
+from test_torch_train import (FLAGS, LOSS_RTOL, _check_grads, _check_state, _flat,
+                              port_step_keeping_grads)
 from test_torch_video_train import _keeping_grads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -94,10 +95,11 @@ def yaml_path(name: str) -> str:
 
 
 def jax_shapes(jm, n_f: int) -> dict:
-    """The JAX model's flat variable shapes, from ``eval_shape`` of its init."""
+    """The JAX model's flat variable shapes, from ``eval_shape`` of its init
+    (once a process for each model and clip length)."""
     batch = {"image": jnp.zeros((1, n_f, HW, HW, 3)), "mask": jnp.zeros((1, n_f, 1, HW, HW))}
-    tree = jax.eval_shape(lambda: jm.init({"params": jax.random.PRNGKey(0)}, batch, train=False))
-    return {"/".join(k): v.shape for k, v in flatten_dict(tree).items()}
+    return memo(f"mgm jax_shapes {jm!r} {n_f}", lambda: shapes_of(
+        lambda: jm.init({"params": jax.random.PRNGKey(0)}, batch, train=False)))
 
 
 def build_pair(name: str, seed: int = EVAL_SEED, opts=(), head_scale: float = HEAD_SCALE):
@@ -357,14 +359,12 @@ def step_pair(name: str, jb, tb, widths):
     with same_widths(widths):
         jstate, jld = jax_make_train_step(jm, tx)(jstate, jb, jax.random.PRNGKey(1), **FLAGS)
     tm.train()
-    grads_model = copy.deepcopy(tm)
-    with same_widths(widths):
-        compute_grads(grads_model, tb, torch.Generator(), **FLAGS)
     opt, schedule = build_optimizer(ConfigNode(jcfg.to_dict()), tm.parameters())
     state = TrainState(tm, opt)
     with same_widths(widths):
-        tld = make_train_step(tm, opt, schedule)(state, tb, torch.Generator(), **FLAGS)
-    return jstate, jld, state, tld, {k: p.grad for k, p in grads_model.named_parameters()}
+        tld, grads = port_step_keeping_grads(make_train_step(tm, opt, schedule), state, tb,
+                                             torch.Generator(), **FLAGS)
+    return jstate, jld, state, tld, grads
 
 
 def check_step(jstate, jld, state, tld, grads: dict, keys):

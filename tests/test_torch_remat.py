@@ -14,13 +14,19 @@ recompute that calls them again gets them again.
   state afterwards are bit-equal. Once as above (``inst_spec_dropout`` 0),
   once with dropout 0.1 and the dilation widths drawn from the generator,
   so that a redrawn mask would show.
-- A remat step against the JAX package's ``make_train_step(remat=<same
-  mode>)``, with the JAX optimizer wrapped to hand back the gradients it
-  receives: ``tests/test_torch_train.py``'s tolerances (loss terms rtol
+- A remat step against the JAX package's plain ``make_train_step``, with
+  the JAX optimizer wrapped to hand back the gradients it receives: the
+  remat step bit-equal to the port's plain step on the same inputs, and at
+  ``tests/test_torch_train.py``'s tolerances from JAX's (loss terms rtol
   1e-5, the video os8 terms 5e-4 as ``tests/test_torch_video_train.py``
   explains, gradients 5e-2 relative L2, parameters within 2 lr + 1e-6 and
   at most 2% beyond 1e-6, BatchNorm statistics 2e-5, u/v 1e-6, the video
-  diff module's 1e-5).
+  diff module's 1e-5). JAX's remat modes differ from its plain step only in
+  what they keep for the backward, so one JAX step a kind, compiled once
+  for the module, serves both modes (as ``test_torch_baseline_remat.py``
+  does), and it is the step ``tests/test_torch_train.py`` and
+  ``tests/test_torch_video_train.py`` compile (the same weights, batch,
+  widths and optimizer), which the persistent compile cache may share.
 - The recompute takes the blocks the first pass took (``remat.check_replay``),
   and that check raises when the recompute's blocks differ.
 - Each replay is needed: with the spectral-norm replay, the BatchNorm skip or
@@ -38,13 +44,13 @@ recompute that calls them again gets them again.
 import copy
 
 import numpy as np
-import optax
 import pytest
 import jax
 import jax.numpy as jnp
 import torch
 
 import maggie_tpu.ops.morphology as jmorph
+import maggie_tpu_torch.engine.train_step as ts
 import maggie_tpu_torch.models.layers as tlayers
 import maggie_tpu_torch.models.decoder_sparse as tdecoder
 import maggie_tpu_torch.ops.morphology as tmorph
@@ -54,7 +60,7 @@ from maggie_tpu.engine.train_step import make_train_step as jax_make_train_step
 from maggie_tpu.models import build_model as jax_build_model
 from maggie_tpu_torch.config import ConfigNode
 from maggie_tpu_torch.engine.optim import build_optimizer
-from maggie_tpu_torch.engine.train_step import TrainState, compute_grads, make_train_step
+from maggie_tpu_torch.engine.train_step import TrainState, make_train_step
 from maggie_tpu_torch.main import main
 from maggie_tpu_torch.models import build_model, remat
 from maggie_tpu_torch.utils.convert_jax import convert_jax, to_jax
@@ -106,7 +112,8 @@ def _cfg(kind):
 def setup():
     """Per kind: the JAX model, its optimizer (handing back its gradients),
     the JAX train state, the port config and the port model's state dict on
-    the same variables; the dilation widths patched on both sides."""
+    the same variables, and the memos of its port steps and its JAX step;
+    the dilation widths patched on both sides."""
     out = {}
     for kind in KINDS:
         cfg = _cfg(kind)
@@ -123,7 +130,7 @@ def setup():
                                batch_stats=variables["batch_stats"],
                                spectral=variables["spectral"])
         out[kind] = dict(jm=jm, tx=tx, jstate=jstate, pcfg=pcfg,
-                         sd=copy.deepcopy(model.state_dict()))
+                         sd=copy.deepcopy(model.state_dict()), steps={}, jax=None)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jmorph, "dilate_ellipse_random", _jax_dilate)
         mp.setattr(tmorph, "dilate_ellipse_random", _port_dilate)
@@ -134,25 +141,40 @@ def _batch(kind):
     return clip_batch() if kind == "video" else train_batch()
 
 
-def _port_step(setup, kind, mode, dropout=None, seed=5):
+def _port_step(setup, kind, mode, dropout=None, seed=5, draws=False, memo=True):
     """One port step of ``mode`` from the kind's variables: the loss dict,
-    the gradients (``compute_grads`` on a copy), the state dict after the
-    step, the generator's state after it, and the train state."""
+    the gradients before the clip, the state dict after the step, the
+    generator's state after it, and the train state. ``draws``: the
+    dilation widths drawn from the step generator (else fed by size).
+    Memoised a kind by (mode, dropout, seed, draws); ``memo=False`` for a
+    test that patches the step's internals."""
     s = setup[kind]
+    key = (mode, dropout, seed, draws)
+    if memo and key in s["steps"]:
+        return s["steps"][key]
     model = build_model(s["pcfg"].model, device="cpu")
     model.load_state_dict(s["sd"])
     model.train()
     if dropout is not None:
         model.decoder.inst_spec_layer.dropout = dropout
     tb = _batch(kind)[1]
-    grads_model = copy.deepcopy(model)
-    compute_grads(grads_model, tb, torch.Generator().manual_seed(seed), mode, **FLAGS)
-    grads = {k: p.grad for k, p in grads_model.named_parameters()}
+    grads, clip = {}, ts.clip_by_global_norm_
+
+    def before_clip(gs):
+        grads.update({k: p.grad.clone() for k, p in model.named_parameters()})
+        return clip(gs)
     opt, schedule = build_optimizer(s["pcfg"], model.parameters())
     state = TrainState(model, opt)
     g = torch.Generator().manual_seed(seed)
-    ld = make_train_step(model, opt, schedule, remat=mode)(state, tb, g, **FLAGS)
-    return dict(ld=ld, grads=grads, sd=model.state_dict(), generator=g.get_state(), state=state)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ts, "clip_by_global_norm_", before_clip)
+        if draws:
+            mp.setattr(tmorph, "dilate_ellipse_random", _PORT_DILATE)
+        ld = make_train_step(model, opt, schedule, remat=mode)(state, tb, g, **FLAGS)
+    out = dict(ld=ld, grads=grads, sd=model.state_dict(), generator=g.get_state(), state=state)
+    if memo:
+        s["steps"][key] = out
+    return out
 
 
 def _assert_bit_equal(want, got):
@@ -171,30 +193,37 @@ def _assert_bit_equal(want, got):
 @pytest.mark.parametrize("draws", [False, True], ids=["fixed_draws", "generator_draws"])
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("kind", ["image", "video"])
-def test_remat_step_bit_equals_plain(setup, monkeypatch, kind, mode, draws):
-    dropout = None
-    if draws:
-        monkeypatch.setattr(tmorph, "dilate_ellipse_random", _PORT_DILATE)
-        dropout = 0.1
-    want = _port_step(setup, kind, "none", dropout)
-    got = _port_step(setup, kind, mode, dropout)
+def test_remat_step_bit_equals_plain(setup, kind, mode, draws):
+    dropout = 0.1 if draws else None
+    want = _port_step(setup, kind, "none", dropout, draws=draws)
+    got = _port_step(setup, kind, mode, dropout, draws=draws)
     _assert_bit_equal(want, got)
     if draws:   # the draws reach the result: another seed moves it
-        other = _port_step(setup, kind, "none", dropout, seed=6)
+        other = _port_step(setup, kind, "none", dropout, seed=6, draws=True)
         assert not torch.equal(other["ld"]["total"], want["ld"]["total"])
 
 
-def _jax_step(setup, kind, mode):
+def _jax_step(setup, kind):
+    """The kind's JAX plain step (state after, loss dict), compiled and run
+    once for the module."""
     s = setup[kind]
-    step = jax_make_train_step(s["jm"], s["tx"], remat=mode)
-    return step(s["jstate"], _batch(kind)[0], jax.random.PRNGKey(1), **FLAGS)
+    if s["jax"] is None:
+        step = jax_make_train_step(s["jm"], s["tx"])
+        s["jax"] = step(s["jstate"], _batch(kind)[0], jax.random.PRNGKey(1), **FLAGS)
+    return s["jax"]
 
 
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("kind", ["image", "video"])
 def test_remat_step_matches_jax(setup, kind, mode):
-    jstate, jld = _jax_step(setup, kind, mode)
-    got = _port_step(setup, kind, mode, seed=1)
+    """The remat step bit-equal to the plain one (fed widths, no dropout)
+    and both against JAX's step at the tolerances above. The steps draw
+    nothing from their generator (asserted), so its seed is immaterial and
+    they are the fixed-draws steps of ``test_remat_step_bit_equals_plain``."""
+    jstate, jld = _jax_step(setup, kind)
+    got = _port_step(setup, kind, mode)
+    _assert_bit_equal(_port_step(setup, kind, "none"), got)
+    assert torch.equal(got["generator"], torch.Generator().manual_seed(5).get_state())
     assert set(got["ld"]) == set(jld), sorted(set(got["ld"]) ^ set(jld))
     for k, v in jld.items():
         tol = OS8_LOSS_RTOL if kind == "video" and _os8_term(k) else LOSS_RTOL
@@ -219,8 +248,8 @@ def test_recompute_takes_the_first_pass_blocks(setup, monkeypatch, kind, mode):
     whose blocks differ (the valid flags turned off) raises."""
     monkeypatch.setattr(remat, "check_replay", True)
     monkeypatch.setattr(remat, "replay_checks", 0)
-    _port_step(setup, kind, mode)
-    assert remat.replay_checks == 2        # compute_grads' forward and the step's
+    _port_step(setup, kind, mode, memo=False)
+    assert remat.replay_checks == 1        # the step's one forward
 
     select, calls = tdecoder.select_blocks, []
 
@@ -230,7 +259,7 @@ def test_recompute_takes_the_first_pass_blocks(setup, monkeypatch, kind, mode):
         return idx_n, idx_by, idx_bx, valid & (len(calls) == 1)
     monkeypatch.setattr(tdecoder, "select_blocks", second_differs)
     with pytest.raises(RuntimeError, match="recompute's blocks differ"):
-        _port_step(setup, kind, mode)
+        _port_step(setup, kind, mode, memo=False)
 
 
 def _naive_recompute(self):
@@ -254,15 +283,14 @@ def test_each_replay_is_needed(setup, monkeypatch, hazard):
     gradients move), BatchNorm steps its statistics twice, or the recompute
     draws anew from the generator (the gradients and the generator's state
     move). The test sees each hazard."""
-    monkeypatch.setattr(tmorph, "dilate_ellipse_random", _PORT_DILATE)
-    want = _port_step(setup, "video", "none", dropout=0.1)
+    want = _port_step(setup, "video", "none", dropout=0.1, draws=True)
     if hazard == "spectral_norm":
         monkeypatch.setattr(tlayers.remat, "sn_replay", lambda: None)
     elif hazard == "batchnorm":
         monkeypatch.setattr(remat, "replaying", lambda: False)
     else:
         monkeypatch.setattr(remat._Record, "recompute", _naive_recompute)
-    got = _port_step(setup, "video", "selective", dropout=0.1)
+    got = _port_step(setup, "video", "selective", dropout=0.1, draws=True, memo=False)
     moved = {k for k, v in want["sd"].items() if not torch.equal(got["sd"][k], v)}
     grads_moved = any(not torch.equal(got["grads"][k], v) for k, v in want["grads"].items())
     if hazard == "spectral_norm":
@@ -309,7 +337,7 @@ def test_oracle_train_step_matches_jax(setup):
     """The oracle ladder's train branch (``predict_details``, masked
     BatchNorm statistics over ``mask``): one step against the JAX package's,
     plain on both sides, at ``tests/test_torch_train.py``'s tolerances."""
-    jstate, jld = _jax_step(setup, "oracle", "none")
+    jstate, jld = _jax_step(setup, "oracle")
     got = _port_step(setup, "oracle", "none", seed=1)
     assert set(got["ld"]) == set(jld)
     for k, v in jld.items():
@@ -319,7 +347,6 @@ def test_oracle_train_step_matches_jax(setup):
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_oracle_remat_step_bit_equals_plain(setup, monkeypatch, mode):
-    monkeypatch.setattr(tmorph, "dilate_ellipse_random", _PORT_DILATE)
-    _assert_bit_equal(_port_step(setup, "oracle", "none", dropout=0.1),
-                      _port_step(setup, "oracle", mode, dropout=0.1))
+def test_oracle_remat_step_bit_equals_plain(setup, mode):
+    _assert_bit_equal(_port_step(setup, "oracle", "none", dropout=0.1, draws=True),
+                      _port_step(setup, "oracle", mode, dropout=0.1, draws=True))

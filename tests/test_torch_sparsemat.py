@@ -67,7 +67,8 @@ from maggie_tpu_torch.engine.train_step import TrainState, make_train_step
 from maggie_tpu_torch.models import build_model
 from maggie_tpu_torch.models.lpn import IBNorm
 from maggie_tpu_torch.utils.convert_jax import to_jax
-from test_torch_harness import jax_variables, one_torch_thread, port_from_flat, random_flat  # noqa: F401
+from test_torch_harness import (jax_variables, memo, one_torch_thread,  # noqa: F401
+                                port_from_flat, random_flat, shapes_of)
 from test_torch_mgm import LR, _cli, _data_opts, blob, him_root, yaml_path  # noqa: F401
 from test_torch_train import (FLAGS, GRAD_REL_L2, LOSS_RTOL, PARAM_ATOL, PARAM_FAR_SHARE,
                               STATS_ATOL, _flat, _l2)
@@ -87,8 +88,8 @@ LPN_STATS_ATOL = 1e-4
 
 def jax_shapes(jm) -> dict:
     batch = {"image": jnp.zeros((1, 1, 64, 64, 3)), "mask": jnp.zeros((1, 1, 1, 64, 64))}
-    tree = jax.eval_shape(lambda: jm.init({"params": jax.random.PRNGKey(0)}, batch, train=False))
-    return {"/".join(k): v.shape for k, v in flatten_dict(tree).items()}
+    return memo(f"sparsemat jax_shapes {jm!r}", lambda: shapes_of(
+        lambda: jm.init({"params": jax.random.PRNGKey(0)}, batch, train=False)))
 
 
 def build_pair(name: str = "sparsemat_image", seed: int = 0, head_scale: float = HEAD_SCALE):

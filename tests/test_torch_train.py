@@ -7,7 +7,9 @@ four random-width dilations of a step (fusion k=27 and k=15, the GT weights
 k=30 and k=15) are fed the same widths on both sides by monkeypatching
 ``dilate_ellipse_random`` in this file only, and ``inst_spec_dropout`` is 0, so
 that the two steps compute the same function. The JAX step is compiled once
-per flag combination for the whole module.
+per flag combination for the whole module, its optimizer wrapped to hand
+back the gradients it receives, so that one compile gives the loss terms,
+the gradients and the state after the step.
 
 Why the whole-step tolerances are looser than the modules': XLA:CPU sums an
 f32 reduction in one running accumulator, the port (oneDNN, ATen) in
@@ -56,7 +58,8 @@ from maggie_tpu.models import sparse_layers as jsparse
 from maggie_tpu.ops.resize import resize_any_shape as jax_resize_any_shape
 from maggie_tpu_torch.config import ConfigNode
 from maggie_tpu_torch.engine.optim import build_optimizer, clip_by_global_norm_
-from maggie_tpu_torch.engine.train_step import TrainState, compute_grads, make_train_step
+import maggie_tpu_torch.engine.train_step as ts
+from maggie_tpu_torch.engine.train_step import TrainState, make_train_step
 from maggie_tpu_torch.models import layers as tlayers
 from maggie_tpu_torch.models import sparse_layers as tsparse
 from maggie_tpu_torch.ops.resize import resize_any_shape
@@ -144,7 +147,7 @@ def setup():
     jm = jax_build_model(jcfg.model)
     flat = random_flat(jax_shapes(jm), seed=8)
     variables = jax_variables(flat)
-    tx, _ = jax_build_optimizer(jcfg)
+    tx = _keeping_grads(jax_build_optimizer(jcfg)[0])
     jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
                            opt_state=tx.init(variables["params"]),
                            batch_stats=variables["batch_stats"], spectral=variables["spectral"])
@@ -208,40 +211,40 @@ def _check_state(jstate, tstate, lr):
         assert worst[0] <= tol, (name, worst)
 
 
-def _jax_grads(setup, batch):
-    """The JAX step's loss and gradients (``train_step.py:82-103``), jitted."""
-    jm, state = setup["jm"], setup["jstate"]
+def _keeping_grads(tx):
+    """``tx`` whose state also holds the last gradients it was given."""
+    def init(params):
+        return tx.init(params), jax.tree_util.tree_map(jnp.zeros_like, params)
 
-    @jax.jit
-    def grads(state, batch, rng):
-        k_unknown, k_dropout = jax.random.split(jax.random.fold_in(rng, state.step))
+    def update(grads, state, params=None):
+        updates, inner = tx.update(grads, state[0], params)
+        return updates, (inner, grads)
+    return optax.GradientTransformation(init, update)
 
-        def loss_fn(params):
-            (_, ld), _ = jm.apply(
-                {"params": params, "batch_stats": state.batch_stats, "spectral": state.spectral},
-                batch, train=True, update_sn=True, **FLAGS,
-                rngs={"unknown": k_unknown, "dropout": k_dropout},
-                mutable=["batch_stats", "spectral"])
-            return ld["total"], ld
-        (_, ld), g = jax.value_and_grad(loss_fn, has_aux=True)(state.params)
-        return ld, g
-    return grads(state, batch, jax.random.PRNGKey(1))
+
+def port_step_keeping_grads(step, state, batch, generator, **flags):
+    """``step(state, batch, generator, **flags)`` with the gradients the clip
+    receives kept: (loss dict, {name: gradient})."""
+    grads, clip = {}, ts.clip_by_global_norm_
+
+    def before_clip(gs):
+        grads.update({k: p.grad.clone() for k, p in state.model.named_parameters()})
+        return clip(gs)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ts, "clip_by_global_norm_", before_clip)
+        return step(state, batch, generator, **flags), grads
 
 
 def test_train_step_matches_jax(setup):
-    """Default flags (bench_train's): loss terms, gradients before clipping,
-    and the state after one step."""
+    """Default flags (bench_train's): loss terms, gradients before clipping
+    (the JAX optimizer hands back those it receives), and the state after
+    one step."""
     jb, tb = train_batch()
-    jld, jgrads = _jax_grads(setup, jb)
+    jstate, jld = setup["step"](setup["jstate"], jb, jax.random.PRNGKey(1), **FLAGS)
     tstate, step = _port_state(setup)
-    grads_model = copy.deepcopy(tstate.model)
-    _check_losses(jld, compute_grads(grads_model, tb, torch.Generator(), **FLAGS))
-    _check_grads(_flat("params", jgrads),
-                 to_jax({k: p.grad for k, p in grads_model.named_parameters()}))
-
-    jstate, jld2 = setup["step"](setup["jstate"], jb, jax.random.PRNGKey(1), **FLAGS)
-    tld2 = step(tstate, tb, torch.Generator())
-    _check_losses(jld2, tld2)
+    tld, grads = port_step_keeping_grads(step, tstate, tb, torch.Generator(), **FLAGS)
+    _check_losses(jld, tld)
+    _check_grads(_flat("params", jstate.opt_state[1]), to_jax(grads))
     assert tstate.step == int(jstate.step) == 1
     _check_state(jstate, tstate, lr=1.5e-4 / 25)
 
@@ -330,12 +333,16 @@ def test_module_vjp_matches_jax(setup, name):
             rngs={"dropout": jax.random.PRNGKey(1)})
         return out
     args = [jnp.asarray(a) for a in ins.values()]
-    y = jax.jit(f)(v["params"], *args)
-    ct = np.asarray(rs.randn(*np.shape(y)), np.float32)
+    ct = np.asarray(rs.randn(*jax.eval_shape(f, v["params"], *args).shape), np.float32)
+
+    def out_and_vjp(p, c, *a):       # one compile: the output and its VJP
+        y, vjp = jax.vjp(f, p, *a)
+        if name.startswith("ladder"):
+            c = c * (y > -90)        # no cotangent on the -99 sentinel
+        return y, vjp(c)
+    y, (jgp, *jgx) = jax.jit(out_and_vjp)(v["params"], jnp.asarray(ct), *args)
     if name.startswith("ladder"):
-        ct = ct * (np.asarray(y) > -90)          # no cotangent on the -99 sentinel
-    jgp, *jgx = jax.jit(lambda p, c, *a: jax.vjp(f, p, *a)[1](c))(v["params"], jnp.asarray(ct),
-                                                                  *args)
+        ct = ct * (np.asarray(y) > -90)
 
     _, step = _port_state(setup)
     model = setup["model"]

@@ -38,7 +38,6 @@ import copy
 import itertools
 
 import numpy as np
-import optax
 import pytest
 import jax
 import jax.numpy as jnp
@@ -57,7 +56,7 @@ from maggie_tpu.models.instance_decoder import InstanceMatteDecoder as JaxIMD
 from maggie_tpu.models.position_encoding import temporal_position_embedding_sine as jax_pe
 from maggie_tpu_torch.config import ConfigNode
 from maggie_tpu_torch.engine.optim import build_optimizer
-from maggie_tpu_torch.engine.train_step import TrainState, compute_grads, make_train_step
+from maggie_tpu_torch.engine.train_step import TrainState, make_train_step
 from maggie_tpu_torch.models import build_model, layers as tlayers
 from maggie_tpu_torch.models.decoder_video import ResShortCutInstMattSpconvTempDec
 from maggie_tpu_torch.models.instance_decoder import InstanceMatteDecoder
@@ -65,7 +64,8 @@ from maggie_tpu_torch.models.layers import end_sn_chains
 from maggie_tpu_torch.models.position_encoding import temporal_position_embedding_sine
 from maggie_tpu_torch.utils.convert_jax import _KeyMap, convert_jax, to_jax
 from test_torch_harness import jax_variables, one_torch_thread, random_flat  # noqa: F401
-from test_torch_train import FLAGS, _check_grads, _check_state, _flat
+from test_torch_train import (FLAGS, _check_grads, _check_state, _flat,  # noqa: F401
+                              _keeping_grads, port_step_keeping_grads)
 from test_torch_video import video_cfg
 
 LOSS_RTOL = 1e-5
@@ -132,17 +132,6 @@ def _port_dilate(calls):
     return dilate
 
 
-def _keeping_grads(tx):
-    """``tx`` whose state also holds the last gradients it was given."""
-    def init(params):
-        return tx.init(params), jax.tree_util.tree_map(jnp.zeros_like, params)
-
-    def update(grads, state, params=None):
-        updates, inner = tx.update(grads, state[0], params)
-        return updates, (inner, grads)
-    return optax.GradientTransformation(init, update)
-
-
 @pytest.fixture(scope="module")
 def setup():
     cfg = train_video_cfg()
@@ -179,19 +168,17 @@ def test_video_train_step_matches_jax(setup):
     model = setup["model"]
     model.load_state_dict(setup["sd"])
     model.train()
-    grads_model = copy.deepcopy(model)
-    compute_grads(grads_model, tb, torch.Generator(), **FLAGS)
     opt, schedule = build_optimizer(setup["pcfg"], model.parameters())
     state = TrainState(model, opt)
-    tld = make_train_step(model, opt, schedule)(state, tb, torch.Generator(), **FLAGS)
+    tld, grads = port_step_keeping_grads(make_train_step(model, opt, schedule), state, tb,
+                                         torch.Generator(), **FLAGS)
 
     temporal = {"loss_temp", "loss_temp_bce", "loss_temp_dtssd"}
     assert set(tld) == set(jld) and temporal <= set(tld), sorted(set(tld) ^ set(jld))
     for k, v in jld.items():
         tol = OS8_LOSS_RTOL if _os8_term(k) else LOSS_RTOL
         np.testing.assert_allclose(float(tld[k]), float(v), rtol=tol, err_msg=k)
-    _check_grads(_flat("params", jstate.opt_state[1]),
-                 to_jax({k: p.grad for k, p in grads_model.named_parameters()}))
+    _check_grads(_flat("params", jstate.opt_state[1]), to_jax(grads))
     assert state.step == int(jstate.step) == 1
     _check_state(jstate, state, lr=LR)
     # the diff module's chained BatchNorm statistics and spectral norms
