@@ -11,6 +11,7 @@
     python3 chip_smoke.py --sparsemat
     python3 chip_smoke.py --baselines-train
     python3 chip_smoke.py --demo
+    python3 chip_smoke.py --tools
 
 The second form only answers requests 0 and 1 in f32 and bf16 and saves the
 outputs to PATH; with REF, saved by the same form from another version, it
@@ -21,7 +22,7 @@ video path only: phase 2's video shapes and phase 8. The fifth runs video
 training only: phase 2's video train shapes and phase 9. The sixth runs
 phase 10 alone, the seventh phase 11 alone, the eighth phase 12 alone, the
 ninth phase 13 alone, the tenth phase 14 alone, the eleventh phase 15
-alone.
+alone, the twelfth phase 16 alone.
 
 Phases (any failure exits non-zero):
 1. print the card's name and power limit; build the CUDA kernels from the
@@ -113,8 +114,8 @@ Phases (any failure exits non-zero):
    (torch.profiler) and any cuDNN FFT time; K1's backward per call at the
    video train shapes (cap 2560); then ``main.main`` training the yaml at
    full width (batch 1) on a synthetic V-HIM-style train split written with
-   PIL (2 videos of 16 frames at 720x1280, 3 moving instances) for 4
-   iterations, validating at 4 through ``eval_video`` on a 4-frame VIM
+   PIL (2 videos of 16 frames at 720x1280, 3 moving instances) for 3
+   iterations, validating at 3 through ``eval_video`` on a 4-frame VIM
    video from phase 8's writer, in f32: launches per iteration and per val
    window, finite losses, clips/s, ms per iteration against 9.2's
    step, ``data_time``, the stall share, peak memory and the host cost of a
@@ -138,7 +139,8 @@ Phases (any failure exits non-zero):
 
 11. data parallel (``maggie_tpu_torch/parallel/``): 11.1 phase 6's image
    step (batch 2 x 512x512, 10 slots, f32) on two gloo ranks on the one card
-   (``--ddp-rank`` processes on cuda:0, a row each; NCCL refuses two ranks
+   (``--ddp-rank`` processes on cuda:0, a row each, which then run 11.2's
+   steps too; NCCL refuses two ranks
    on one device), plain and under ``model.remat selective``, against one
    process on the card on the same global batch within phase 6's STEP_*
    limits, the ranks' models equal bit for bit after the update, K1, its
@@ -161,10 +163,10 @@ Phases (any failure exits non-zero):
    on every window), the same launch rule, window 0 against the CPU port,
    ms/window (beside the window's frames encoded in one batch, as the JAX
    package does), peak memory; K2 against its twin at each config's shapes;
-   12.3 one f32 train step of ``mgm_stacked`` (batch 2) and of
-   ``mgm_tcvom`` (batch 1 x clip 8) at 256x256 on the card against the CPU
+   12.3 one f32 train step of ``mgm_stacked`` (batch 1) and of
+   ``mgm_tcvom`` (batch 1 x clip 3) at 512x512 on the card against the CPU
    port within phase 6's STEP_* limits, then ms/step and peak memory at
-   512x512.
+   ``mgm_stacked``'s batch 2 and ``mgm_tcvom``'s clip of 8.
    ``--baselines`` runs phase 12 alone.
 13. SparseMat (``configs/sparsemat_*.yaml``, arch SparseMat_SingInst) and
    the dense InstMatt ablation decoder, from seed 0: 13.1 the image yaml,
@@ -220,19 +222,34 @@ Phases (any failure exits non-zero):
    2-4) split into model (CUDA events) and host, ms per window, the
    propagator's host seconds per frame, peak memory. ``--demo`` runs phase
    15 alone.
+16. the tools (``maggie_tpu_torch/tools/``): 16.1 an HIM-style eval set of
+   2 frames at 720x1280 with 3 blob alphas each written with PIL,
+   ``tools.gen_mask --variant full`` on it (host seconds per mask), then
+   ``main.main --eval-only`` on the card at full width with
+   ``dataset.test.mask_dir_name masks_gen_full``: K1 5 and K2 3 launches a
+   frame, the masks the dataset decoded equal to the arrays the tool wrote,
+   one results.csv row of finite metrics; 16.2 ``python -m
+   maggie_tpu_torch.tools.train_supervisor`` around ``python -m
+   maggie_tpu_torch.main`` on phase 7's set at phase 7's batch for 4
+   iterations, a checkpoint every iteration, ``MAGGIE_FAULT_INJECT_ITER`` 3:
+   exit 0 after exactly one restart, which carried ``train.resume_last
+   True``, the first child logging iterations 1-2 and the second 3-4 with
+   finite losses, ``last_step.txt`` and ``last_state.pt`` at step 4; the
+   seconds of each child and of each probe. ``--tools`` runs phase 16 alone.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's ``ddp_launches``: its
 launches over the ranks' checked steps of 11.1 and 11.2; ``baseline_launches``:
 phase 12.1's and 12.2's; ``sparsemat_launches``: phase 13.4's;
 ``baseline_train_launches``: phase 14.1's; ``demo_launches``: phase 15's
-requests) and the card line, and last
+requests; ``tools_launches``: phase 16.1's eval) and the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to output/torch_port/chip_smoke.json
 (``chip_smoke_video.json``, ``chip_smoke_video_train.json``,
 ``chip_smoke_remat.json``, ``chip_smoke_ddp.json``,
 ``chip_smoke_baselines.json``, ``chip_smoke_sparsemat.json``,
-``chip_smoke_baselines_train.json`` and ``chip_smoke_demo.json`` for
-``--video``, ``--video-train``, ``--remat``, ``--ddp``, ``--baselines``,
-``--sparsemat``, ``--baselines-train`` and ``--demo``).
+``chip_smoke_baselines_train.json``, ``chip_smoke_demo.json`` and
+``chip_smoke_tools.json`` for ``--video``, ``--video-train``, ``--remat``,
+``--ddp``, ``--baselines``, ``--sparsemat``, ``--baselines-train``,
+``--demo`` and ``--tools``).
 """
 
 from __future__ import annotations
@@ -777,6 +794,8 @@ def main() -> int:
         return baselines_train_only(torch.device("cuda"))
     if "--demo" in sys.argv:
         return demo_only(torch.device("cuda"))
+    if "--tools" in sys.argv:
+        return tools_only()
     if "--gather-bwd" in sys.argv:
         print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                          "--format=csv,noheader"], capture_output=True,
@@ -990,9 +1009,16 @@ def main() -> int:
         kern["demo_launches"] = demo["launches"][kern["name"]]
 
     lap("15")
+    # ---- phase 16: the tools ----
+    torch.cuda.empty_cache()
+    tools = phase_tools(detail)
+    for kern in kernels:
+        kern["tools_launches"] = tools["launches"][kern["name"]]
+
+    lap("16")
     detail["phases_s"] = time.perf_counter() - t_start
     detail["phase_s"] = laps
-    print(f"phases 1-15 done in {detail['phases_s']:.1f} s (from main(), imports not counted); "
+    print(f"phases 1-16 done in {detail['phases_s']:.1f} s (from main(), imports not counted); "
           f"by phase {json.dumps({k: round(v, 1) for k, v in laps.items()})}", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -2461,7 +2487,7 @@ def phase_video_engine(detail) -> dict:
 # through eval_video
 VIDEO_REDUCED = (3, 256)      # 9.1: batch 1 x clip 3 x 256x256, 10 slots
 VIDEO_TRAIN_SET = (("v0", 16), ("v1", 16))   # 9.3's train videos at VIDEO_SRC
-VIDEO_TRAINER_ITERS, VIDEO_TRAINER_VAL_ITER = 4, 4
+VIDEO_TRAINER_ITERS, VIDEO_TRAINER_VAL_ITER = 3, 3
 VIDEO_TRAINER_VAL_SET = (("vid0", 4),)      # phase 8's writer: 2 windows a validation
 PER_VAL_WINDOW = {"gather_patches": 5, "gather_patches_bwd": 0, "compute_unknown": 3}
 
@@ -2596,7 +2622,7 @@ def video_trainer(detail) -> dict:
                 "train.batch_size", "1", "train.max_iter", str(VIDEO_TRAINER_ITERS),
                 "train.val_iter", str(VIDEO_TRAINER_VAL_ITER), "train.log_iter", "1",
                 "test.log_iter", "100"]
-        out["host_ms_per_clip"] = host_cost_by_transform(load_config(VIDEO_CONFIG, opts), 4)
+        out["host_ms_per_clip"] = host_cost_by_transform(load_config(VIDEO_CONFIG, opts), 2)
         run = trainer_run(["--config", VIDEO_CONFIG] + opts, {})
         n_windows = sum(n - VIDEO_FRAMES + 1 for _, n in VIDEO_TRAINER_VAL_SET)
         out.update(check_trainer_run(
@@ -2661,7 +2687,7 @@ def phase_video_train(dev, detail) -> dict:
           f"{m['data_time_avg_s'] * 1e3:.1f} ms, stall share {m['infeed_stall_frac']:.3f}, peak "
           f"device memory {m['peak_mem_mb']:.0f} MB; launches {trainer['launches']}; losses "
           f"finite {trainer['logged_losses']}", flush=True)
-    print("phase 9: host ms per train clip by transform (one thread, mean over about 4 clips "
+    print("phase 9: host ms per train clip by transform (one thread, mean over about 2 clips "
           "spread over the set): " + ", ".join(f"{k} {v:.1f}" for k, v in h.items()), flush=True)
     print(f"phase 9: done in {time.perf_counter() - t0:.1f} s", flush=True)
     return {"steps": runs["fp32"]["launches"], "trainer": trainer["launches"]}
@@ -3090,7 +3116,7 @@ def ddp_steps(model, cfg, batch, dev, modes, split: int = 1, timed: bool = True)
 
 
 def ddp_rank_main(case: str, in_path: str, out_path: str) -> int:
-    """One rank of 11.1 / 11.2 / 14.3 (``--ddp-rank``): joins the gloo group
+    """One rank of 11.1-11.2 / 14.3 (``--ddp-rank``): joins the gloo group
     on cuda:0, takes its rows of the global batch and runs ``ddp_steps``
     (for each run of ``runs``, where the payload has several)."""
     from datetime import timedelta
@@ -3104,7 +3130,7 @@ def ddp_rank_main(case: str, in_path: str, out_path: str) -> int:
                                  timeout=timedelta(seconds=DDP_GROUP_TIMEOUT_S))
     try:
         res = []
-        for run in p.get("runs", [p]):   # phase 14.3 runs several configs in one pair
+        for run in p.get("runs", [p]):   # 11.1-11.2 and 14.3 run several configs in one pair
             cfg = ConfigNode(run["cfg"])
             model = build_model(cfg.model, device=dev)
             model.load_state_dict(run["state"])
@@ -3306,24 +3332,30 @@ def ddp_add_launches(launches: dict, ranks: list, modes) -> None:
                 launches[k] += r[mode]["launches"][k]
 
 
-def ddp_image(dev, root: str, modes=("none", "selective")) -> tuple[dict, dict]:
-    """11.1: phase 6's image step (batch 2 x 512x512, 10 slots, f32), a row
-    a rank, on two gloo ranks on the card under each remat mode of
-    ``modes``, against one process on the card on the global batch; phase
-    6's batch overflows the ladder (every slot uncertain), so that process
-    selects blocks per rank as the ranks do, and once more globally for the
-    rule's gap. Returns the checks by mode and the ranks' launches."""
+def ddp_image_run(modes=("none", "selective")) -> dict:
+    """11.1's run for the ranks: phase 6's image step (batch 2 x 512x512, 10
+    slots, f32), a row a rank, under each remat mode of ``modes``."""
     from maggie_tpu_torch.flagship import flagship_cfg, train_batch
     from maggie_tpu_torch.models import build_model
     cfg = flagship_cfg()
     state = build_model(cfg.model, device="cpu",
                         generator=torch.Generator().manual_seed(0)).state_dict()
     batch = train_batch(TRAIN_BATCH, TRAIN_HW, TRAIN_HW, TRAIN_SLOTS, seed=0)
-    ranks = ddp_spawn("image", {"cfg": cfg.to_dict(), "state": state, "batch": batch,
-                                "modes": modes}, root)
+    return {"cfg": cfg.to_dict(), "state": state, "batch": batch, "modes": modes}
+
+
+def ddp_image_check(dev, run: dict, ranks: list) -> tuple[dict, dict]:
+    """11.1: the ranks' results of ``run`` against one process on the card on
+    the global batch; phase 6's batch overflows the ladder (every slot
+    uncertain), so that process selects blocks per rank as the ranks do,
+    and once more globally for the rule's gap. Returns the checks by mode
+    and the ranks' launches."""
+    from maggie_tpu_torch.config import ConfigNode
+    from maggie_tpu_torch.models import build_model
+    cfg, modes = ConfigNode(run["cfg"]), run["modes"]
     model = build_model(cfg.model, device=dev)
-    model.load_state_dict(state)
-    on_dev = {k: v.to(dev) for k, v in batch.items()}
+    model.load_state_dict(run["state"])
+    on_dev = {k: v.to(dev) for k, v in run["batch"].items()}
     single = ddp_steps(model, cfg, on_dev, dev, modes, split=DDP_WORLD)
     top_cap = ddp_steps(model, cfg, on_dev, dev, ("none",), timed=False)["none"]
     del model, on_dev
@@ -3336,21 +3368,35 @@ def ddp_image(dev, root: str, modes=("none", "selective")) -> tuple[dict, dict]:
     return out, launches
 
 
-def ddp_video(dev, root: str) -> tuple[dict, dict]:
-    """11.2: the video step (``configs/maggie_video.yaml``, f32) on two clips
-    of DDP_VIDEO frames at 512x512, a clip a rank, against one process; the
-    ladder must fit (3 instances in 10 slots)."""
+def ddp_image(dev, root: str, modes=("none", "selective")) -> tuple[dict, dict]:
+    """11.1 alone: ``ddp_image_run`` on two gloo ranks on the card, then
+    ``ddp_image_check``."""
+    run = ddp_image_run(modes)
+    return ddp_image_check(dev, run, ddp_spawn("image", run, root))
+
+
+def ddp_video_run() -> dict:
+    """11.2's run for the ranks: the video step (``configs/maggie_video.yaml``,
+    f32) on two clips of DDP_VIDEO frames at 512x512, a clip a rank."""
     from maggie_tpu_torch.models import build_model
     cfg = video_train_cfg()
     state = build_model(cfg.model, device="cpu",
                         generator=torch.Generator().manual_seed(0)).state_dict()
     clips = [video_train_batch(*DDP_VIDEO, seed=s) for s in (0, 1)]
     batch = {k: torch.cat([c[k] for c in clips]) for k in clips[0]}
-    ranks = ddp_spawn("video", {"cfg": cfg.to_dict(), "state": state, "batch": batch,
-                                "modes": ("none",)}, root)
+    return {"cfg": cfg.to_dict(), "state": state, "batch": batch, "modes": ("none",)}
+
+
+def ddp_video_check(dev, run: dict, ranks: list) -> tuple[dict, dict]:
+    """11.2: the ranks' results of ``run`` against one process; the ladder
+    must fit (3 instances in 10 slots)."""
+    from maggie_tpu_torch.config import ConfigNode
+    from maggie_tpu_torch.models import build_model
+    cfg = ConfigNode(run["cfg"])
     model = build_model(cfg.model, device=dev)
-    model.load_state_dict(state)
-    single = ddp_steps(model, cfg, {k: v.to(dev) for k, v in batch.items()}, dev, ("none",))
+    model.load_state_dict(run["state"])
+    single = ddp_steps(model, cfg, {k: v.to(dev) for k, v in run["batch"].items()}, dev,
+                       ("none",))
     del model
     out = ddp_check("11.2 video", [r["none"] for r in ranks], single["none"], PER_ITER)
     if any(sel["active"] > sel["cap"] for r in out["selections_per_rank"] for sel in r):
@@ -3361,16 +3407,21 @@ def ddp_video(dev, root: str) -> tuple[dict, dict]:
 
 
 def phase_ddp(dev, detail) -> dict:
-    """Phase 11: 11.1 ``ddp_image``, 11.2 ``ddp_video``, 11.3 ``ddp_cli``.
+    """Phase 11: 11.1 and 11.2 in one pair of rank processes
+    (``ddp_image_run``, ``ddp_video_run``, then each one's check against one
+    process), 11.3 ``ddp_cli``.
     Returns each kernel's launches over the ranks' checked steps."""
     import tempfile
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     out = {}
     with tempfile.TemporaryDirectory() as root:
-        out["image"], image = ddp_image(dev, root)
+        # one pair of rank processes runs 11.1's steps, then 11.2's
+        runs = [ddp_image_run(), ddp_video_run()]
+        ranks = ddp_spawn("train", {"runs": runs}, root)
+        out["image"], image = ddp_image_check(dev, runs[0], [r[0] for r in ranks])
         torch.cuda.empty_cache()
-        out["video"], video = ddp_video(dev, root)
+        out["video"], video = ddp_video_check(dev, runs[1], [r[1] for r in ranks])
         torch.cuda.empty_cache()
         out["cli"] = ddp_cli(root)
     launches = {k: image[k] + video[k] for k in image}
@@ -3420,9 +3471,10 @@ BASE_VIDEO_FRAMES = 4                         # 2 windows of 3 frames
 BASE_TIMING_REPS = 2
 # (config, batch, clip, size): the yamls' crops and clip, a smaller batch
 BASE_TRAIN = (("mgm_stacked", 2, 1, 512), ("mgm_tcvom", 1, 8, 512))
-# 12.3's card-vs-CPU step at the timed size, mgm_tcvom's clip cut to 3 for it
-# (the CPU step of its clip of 8 took 42.1 s at 512x512 on the H100's host)
-BASE_CHECK_CLIP = {"mgm_tcvom": 3}
+# 12.3's card-vs-CPU step at the timed size, as (batch, clip) at most:
+# mgm_tcvom's clip cut to 3 (the CPU step of its clip of 8 took 42.1 s at
+# 512x512 on the H100's host), mgm_stacked's batch to 1 (17.2 s at batch 2)
+BASE_CHECK = {"mgm_stacked": (1, 1), "mgm_tcvom": (1, 3)}
 BASE_TRAIN_STEPS = 3
 # the card-vs-CPU rule of phase 3 on the family's outputs: the alphas within
 # REFINED_ATOL, except where a discrete threshold may have flipped between the
@@ -3800,9 +3852,9 @@ def card_steps(cfg, batch: dict, dev, label: str, steps: int = BASE_TRAIN_STEPS,
             "launches": {k: sum(c[k] for c in launches) for k in launches[0]}}
 
 
-def base_train(name: str, b: int, n_f: int, hw: int, dev, check_clip: int | None = None) -> dict:
+def base_train(name: str, b: int, n_f: int, hw: int, dev, check: tuple | None = None) -> dict:
     """12.3: one f32 step of ``name`` on the card against the CPU port at
-    ``hw`` with a clip of at most ``check_clip`` frames (the random widths
+    ``hw`` with at most ``check`` = (batch, clip) (the random widths
     from CPU generators of one seed on both sides) within phase 6's STEP_*
     limits, then BASE_TRAIN_STEPS steps on the card at the whole clip
     (``card_steps``): ms/step, peak memory, launches."""
@@ -3810,8 +3862,9 @@ def base_train(name: str, b: int, n_f: int, hw: int, dev, check_clip: int | None
     cfg = base_cfg(name)
     slots = int(cfg.model.encoder_args.num_mask)
     batch = base_train_batch(b, n_f, hw, slots)
-    check_f = min(n_f, check_clip or n_f)
-    check_batch = batch if check_f == n_f else base_train_batch(b, check_f, hw, slots)
+    check_b, check_f = min(b, (check or (b, n_f))[0]), min(n_f, (check or (b, n_f))[1])
+    check_batch = batch if (check_b, check_f) == (b, n_f) else \
+        base_train_batch(check_b, check_f, hw, slots)
     cpu_model = build_model(cfg.model, device="cpu", generator=torch.Generator().manual_seed(0))
     card_model = copy.deepcopy(cpu_model).to(dev)
     t0 = time.perf_counter()
@@ -3831,7 +3884,7 @@ def base_train(name: str, b: int, n_f: int, hw: int, dev, check_clip: int | None
              f"fusion dilates with random widths in plain torch")
     out.update(size=f"batch {b} x clip {n_f} x {hw}x{hw}, {slots} slots", check=check,
                cpu_step_s=cpu_s, losses_card=card["losses"])
-    out["check_size"] = f"batch {b} x clip {check_f} x {hw}x{hw}"
+    out["check_size"] = f"batch {check_b} x clip {check_f} x {hw}x{hw}"
     print(f"phase 12 {name} train ({out['size']}, f32): card vs CPU (at "
           f"{out['check_size']}) loss terms max rel "
           f"{check['loss_max_rel']:.3g}, gradients rel L2 {check['grad_rel_l2']:.3g}, params max "
@@ -3860,7 +3913,7 @@ def phase_baselines(dev, detail) -> dict:
             torch.cuda.empty_cache()
     out["train"] = {}
     for name, b, n_f, hw in BASE_TRAIN:
-        out["train"][name] = base_train(name, b, n_f, hw, dev, BASE_CHECK_CLIP.get(name))
+        out["train"][name] = base_train(name, b, n_f, hw, dev, BASE_CHECK.get(name))
         torch.cuda.empty_cache()
     launches = {k: sum(out[n]["launches"][k] for n in BASE_IMAGE + BASE_VIDEO)
                 for k in ("gather_patches", "compute_unknown")}
@@ -4857,6 +4910,271 @@ def demo_only(dev) -> int:
     phase_demo(dev, detail)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_demo.json"), "w") as f:
+        json.dump(detail, f, indent=1, default=str)
+    return 0
+
+
+
+# phase 16: the tools
+TOOLS_MASKS = "gen_full"       # gen_mask --variant full writes masks_gen_full/
+TOOLS_SPLIT = "val"
+TOOLS_TRAIN_ITERS, TOOLS_FAULT_ITER = 4, 3
+TOOLS_CHILD_TIMEOUT_S = 400
+PER_TOOLS_FRAME = {"gather_patches": 5, "gather_patches_bwd": 0, "compute_unknown": 3}
+# trainer flags and overrides the supervised run and the eval take besides
+# the yaml's (none on the card; a CPU rehearsal sets --device cpu and
+# narrower widths)
+TOOLS_FLAGS: list = []
+TOOLS_OPTS: list = []
+
+
+def tools_eval_set(root: str) -> None:
+    """``root/images/val/*.jpg`` and ``root/alphas/val/<image>/*.png`` written
+    with PIL: ENGINE_FRAMES frames at ENGINE_SRC with N_INST blob alphas,
+    from seeds; the guidance masks are left to ``gen_mask``."""
+    from PIL import Image
+    from maggie_tpu_torch.flagship import blob_alpha
+    h, w = ENGINE_SRC
+    for i in range(ENGINE_FRAMES):
+        rs = np.random.RandomState(400 + i)
+        img_dir = os.path.join(root, "images", TOOLS_SPLIT)
+        os.makedirs(img_dir, exist_ok=True)
+        Image.fromarray(rs.randint(0, 256, (h, w, 3)).astype(np.uint8)).save(
+            os.path.join(img_dir, f"t{i}.jpg"), quality=90)
+        adir = os.path.join(root, "alphas", TOOLS_SPLIT, f"t{i}")
+        os.makedirs(adir, exist_ok=True)
+        for j, a in enumerate(blob_alpha(h, w, N_INST, rs)):
+            Image.fromarray(np.round(a * 255).astype(np.uint8)).save(
+                os.path.join(adir, f"{j:02d}.png"))
+
+
+def tools_eval(root: str) -> dict:
+    """16.1: ``gen_mask --variant full`` on the set, then ``main.main
+    --eval-only`` on the card with the generated masks; the masks the
+    dataset decoded must be the tool's, the launches 5 K1 and 3 K2 a frame,
+    and results.csv one row of finite metrics."""
+    import maggie_tpu_torch.data.transforms as tf
+    from maggie_tpu_torch import main as cli
+    from maggie_tpu_torch.tools import gen_mask
+    written, decoded = {}, {}
+    save_png, decode = gen_mask._save_png, tf.pil_decode
+
+    def keep_written(mask, path):
+        written[os.path.abspath(path)] = mask.copy()
+        save_png(mask, path)
+
+    def keep_decoded(path, mode):
+        arr = decode(path, mode)
+        if f"masks_{TOOLS_MASKS}" in path:
+            decoded[os.path.abspath(path)] = arr.copy()
+        return arr
+
+    gen_mask._save_png = keep_written
+    try:
+        t0 = time.perf_counter()
+        n = gen_mask.main(["--root", root, "--subsets", TOOLS_SPLIT, "--name", TOOLS_MASKS,
+                           "--variant", "full", "--seed", "0"])
+        gen_s = time.perf_counter() - t0
+    finally:
+        gen_mask._save_png = save_png
+    if n != ENGINE_FRAMES * N_INST or len(written) != n:
+        fail(f"gen_mask wrote {n} masks ({len(written)} recorded), not {ENGINE_FRAMES * N_INST}")
+    out_dir = os.path.join(root, "out")
+    args = ["--config", "configs/maggie_image.yaml", "--eval-only", *TOOLS_FLAGS,
+            "output_dir", out_dir, "name", "tools_eval", "dataset.test.root_dir", root,
+            "dataset.test.split", TOOLS_SPLIT, "dataset.test.mask_dir_name",
+            f"masks_{TOOLS_MASKS}", "test.log_iter", "1", *TOOLS_OPTS]
+    tf.pil_decode = keep_decoded
+    try:
+        torch.cuda.synchronize()
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        results = cli.main(args)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        launches = {k: v - before[k] for k, v in kernel_counts().items()}
+    finally:
+        tf.pil_decode = decode
+    want = {k: v * ENGINE_FRAMES for k, v in PER_TOOLS_FRAME.items()}
+    if launches != want:
+        fail(f"tools eval: launches {launches} != {want} ({PER_TOOLS_FRAME} a frame)")
+    if decoded.keys() != written.keys() or any(
+            not np.array_equal(decoded[p], m) for p, m in written.items()):
+        fail(f"tools eval: the dataset decoded {len(decoded)} masks that are not the "
+             f"{len(written)} the tool wrote")
+    with open(os.path.join(out_dir, "tools_eval", "results.csv")) as f:
+        rows = f.read().strip().splitlines()
+    header, values = rows[0].split(","), rows[1:]
+    metrics = dict(zip(header[2:], (float(v) for v in values[0].split(",")[2:]))) if values else {}
+    if len(values) != 1 or not metrics or not all(np.isfinite(v) for v in metrics.values()) \
+            or set(metrics) != set(results):
+        fail(f"tools eval: results.csv holds {rows}")
+    return {"masks": n, "gen_mask_s": gen_s, "gen_mask_s_per_mask": gen_s / n,
+            "eval_s": eval_s, "launches": launches, "results_csv": metrics,
+            "masks_checked": len(decoded)}
+
+
+def supervisor_times(stdout: str) -> dict:
+    """The seconds the supervisor printed: each probe's and each child's."""
+    return {"probe_s": [float(x) for x in re.findall(r"backend probe ok in ([\d.]+) s", stdout)],
+            "child_s": [float(x) for x in re.findall(
+                r"(?:after|child) ([\d.]+) s", stdout)]}
+
+
+CHILD_MARKS = ("Creating train dataset", "Creating val dataset", "Building model",
+               "Number of trainable parameters", "Resuming from", "Start training")
+
+
+def child_splits(log: str, child_s: list) -> list:
+    """Where each child's seconds went, from its log's timestamps: before its
+    first line (the interpreter, imports, CUDA), from there to "Start
+    training..." (data, model, resume), the iterations, and after its last
+    iteration (saves, exit)."""
+    stamp = re.compile(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d),(\d{3}) \w+ [\w.]+: (.*)$")
+    children = []
+    for line in log.splitlines():
+        m = stamp.match(line)
+        if not m:
+            continue
+        t = time.mktime(time.strptime(m[1], "%Y-%m-%d %H:%M:%S")) + int(m[2]) / 1e3
+        if m[3].startswith("Config:"):
+            children.append({"first": t, "train": None, "iters": [], "last": t, "marks": {}})
+        elif children:
+            c = children[-1]
+            c["last"] = t
+            if m[3].startswith("Start training"):
+                c["train"] = t
+            elif m[3].startswith("Iter: "):
+                c["iters"].append(t)
+            for mark in CHILD_MARKS:
+                if m[3].startswith(mark):
+                    c["marks"][mark] = round(t - c["first"], 3)
+    out = []
+    for c, total in zip(children, child_s):
+        if c["train"] is None or not c["iters"]:
+            fail(f"supervisor: a child's log has no training lines: {c}")
+        out.append({"before_log_s": total - (c["last"] - c["first"]),
+                    "setup_s": c["train"] - c["first"],
+                    "iterations_s": c["iters"][-1] - c["train"],
+                    "after_iterations_s": c["last"] - c["iters"][-1],
+                    "setup_marks_s": c["marks"]})
+    return out
+
+
+def tools_supervised_start(root: str) -> tuple:
+    """16.2 started in the background: ``python -m
+    maggie_tpu_torch.tools.train_supervisor`` training phase 7's set at phase
+    7's batch for TOOLS_TRAIN_ITERS iterations with a fault injected at
+    TOOLS_FAULT_ITER."""
+    trainer_set(root)
+    cmd = [sys.executable, "-m", "maggie_tpu_torch.tools.train_supervisor",
+           "--config", "configs/maggie_image.yaml", "--backoff", "0.1", "--", *TOOLS_FLAGS,
+           "output_dir", os.path.join(root, "out"), "name", "supervised",
+           "dataset.train.root_dir", root, "dataset.train.split", "train",
+           "dataset.test.root_dir", root, "dataset.test.split", "val",
+           "train.batch_size", str(TRAIN_BATCH), "train.max_iter", str(TOOLS_TRAIN_ITERS),
+           "train.ckpt_iter", "1", "train.val_iter", "1000", "train.log_iter", "1",
+           *TOOLS_OPTS]
+    env = dict(os.environ, MAGGIE_FAULT_INJECT_ITER=str(TOOLS_FAULT_ITER))
+    t0 = time.perf_counter()
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env), t0
+
+
+def tools_supervised_check(proc, t0: float, root: str) -> dict:
+    """16.2's checks: one restart that resumes, each child's iterations logged
+    with finite losses, the checkpoint at the last step."""
+    try:
+        stdout, stderr = proc.communicate(timeout=2 * TOOLS_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"supervisor: no exit within {2 * TOOLS_CHILD_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    tail = f"\n{stdout[-3000:]}\n{stderr[-3000:]}"
+    launches = [line for line in stdout.splitlines() if "] launch #" in line]
+    if proc.returncode != 0 or len(launches) != 2:
+        fail(f"supervisor: rc {proc.returncode}, {len(launches)} launches (want 0 and 2){tail}")
+    if "train.resume_last" in launches[0] or not launches[1].endswith("train.resume_last True") \
+            or f"fault injection at iter {TOOLS_FAULT_ITER}" not in stderr:
+        fail(f"supervisor: the relaunch did not resume after the injected fault{tail}")
+    run_dir = os.path.join(root, "out", "supervised")
+    with open(os.path.join(run_dir, "log_rank0.log")) as f:
+        log = f.read()
+    first, _, second = log.partition(f"Resuming from iter {TOOLS_FAULT_ITER - 1}")
+    logged = []
+    for part in (first, second):
+        logged.append([(int(m[1]), float(m[2])) for m in re.finditer(
+            r"Iter: (\d+)/\d+, .*?total: ([-\w.]+)", part)])
+    want = [list(range(1, TOOLS_FAULT_ITER)), list(range(TOOLS_FAULT_ITER, TOOLS_TRAIN_ITERS + 1))]
+    if [[i for i, _ in part] for part in logged] != want or not all(
+            np.isfinite(v) for part in logged for _, v in part):
+        fail(f"supervisor: the children logged {logged}, want iterations {want} with finite "
+             f"losses")
+    with open(os.path.join(run_dir, "last_step.txt")) as f:
+        last_step = int(f.read().strip())
+    state_step = torch.load(os.path.join(run_dir, "last_state.pt"), map_location="cpu",
+                            weights_only=True)["step"]
+    if last_step != TOOLS_TRAIN_ITERS or state_step != TOOLS_TRAIN_ITERS:
+        fail(f"supervisor: last_step.txt {last_step}, last_state.pt step {state_step}; "
+             f"want {TOOLS_TRAIN_ITERS}")
+    times = supervisor_times(stdout)
+    if len(times["probe_s"]) != 2 or len(times["child_s"]) != 2:
+        fail(f"supervisor: printed times {times}{tail}")
+    return {"wall_s": wall, **times, "child_split": child_splits(log, times["child_s"]),
+            "logged": logged, "restarts": 1, "last_step": last_step}
+
+
+def phase_tools(detail) -> dict:
+    """Phase 16: 16.2's supervised run starts in the background, 16.1 (the
+    eval on generated masks) runs in this process meanwhile, then 16.2 is
+    checked; returns 16.1's launches."""
+    import tempfile
+    out = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as train_root, tempfile.TemporaryDirectory() as root:
+        proc, t_sup = tools_supervised_start(train_root)
+        try:
+            tools_eval_set(root)
+            out["eval"] = tools_eval(root)
+        finally:
+            if "eval" not in out:   # 16.1 failed: stop the supervisor before leaving
+                proc.kill()
+                proc.communicate()
+        out["supervised"] = tools_supervised_check(proc, t_sup, train_root)
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = out["eval"]["launches"]
+    detail["tools"] = out
+    e, s = out["eval"], out["supervised"]
+    print(f"phase 16: gen_mask --variant full wrote {e['masks']} masks of {ENGINE_SRC[0]}x"
+          f"{ENGINE_SRC[1]} in {e['gen_mask_s']:.3f} host s ({e['gen_mask_s_per_mask']:.4f} s a "
+          f"mask); main --eval-only on them in {e['eval_s']:.3f} s, launches {e['launches']}, "
+          f"the {e['masks_checked']} masks decoded equal to the tool's; results.csv "
+          f"{e['results_csv']}", flush=True)
+    print(f"phase 16: the supervisor restarted once after the fault at iteration "
+          f"{TOOLS_FAULT_ITER} and resumed to {s['last_step']} in {s['wall_s']:.3f} s (16.1 ran "
+          f"beside its start): children {s['child_s']} s, probes {s['probe_s']} s; each "
+          f"child's split {s['child_split']}; logged (iteration, loss) {s['logged']}",
+          flush=True)
+    return out
+
+
+def tools_only() -> int:
+    """``--tools``: build the kernels, then phase 16; details to
+    output/torch_port/chip_smoke_tools.json."""
+    from maggie_tpu_torch.ops.kernels import build
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                     "--format=csv,noheader"], capture_output=True,
+                                    text=True, check=True).stdout.strip(), flush=True)
+    build.build_all()
+    detail = {}
+    t0 = time.perf_counter()
+    phase_tools(detail)
+    print(f"phase 16 done in {time.perf_counter() - t0:.1f} s", flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_tools.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
     return 0
 

@@ -39,15 +39,43 @@
   of 11x11 and up, so its result differs in the last bits; after MotionBlur's
   clip and truncation to uint8 that moves a pixel by at most one level
   (``tests/test_torch_video_train_data.py`` states the share).
+- ``structuring_element``, ``dilate`` and ``erode``: ``cv2.getStructuringElement``
+  (``MORPH_RECT``, ``MORPH_ELLIPSE``, any size) and cv2's morphology of uint8
+  maps by any 0/1 element, anchor ``(kw // 2, kh // 2)`` (off-centre for even
+  sizes), pixels outside the map ignored. cv2 reads nothing outside a numpy
+  view it is given (``tests/test_torch_mask_transforms.py`` shows it), and
+  neither do these.
+- ``find_contours_list``: ``cv2.findContours(img, RETR_LIST, CHAIN_APPROX_NONE)``,
+  Suzuki-Abe border following as OpenCV runs it (``contours.cpp``): a 1-pixel
+  zero frame, borders marked 2 or, where the border's right side is
+  background, -126; outer borders start where a 0 is followed by a 1, holes
+  where a marked-or-1 pixel (not -126) is followed by a 0; each border is
+  traced from its start, every pixel written; the list is in reverse order
+  of discovery, as cv2 inserts each new contour at the head of its list.
+- ``contour_moments``: ``cv2.moments`` of a point contour (Green's theorem
+  sums, exact in int64, then cv2's double scale factors): m00, m10, m01.
+- ``fill_contours``: ``cv2.drawContours(zeros, contours, -1, value, -1)``: every
+  contour's edges as one collection, each drawn as an 8-connected line, and
+  filled by the scanline rule of ``FillEdgeCollection``: non-horizontal
+  edges in 16-bit fixed point with a truncated slope, active on rows
+  ``[y0, y1)``, sorted by x and paired, each pair filling from its left x
+  rounded up to its right x rounded down. Overlaps and self-intersections
+  go by the pairing (even-odd).
+- ``gaussian_blur_u8``: ``cv2.GaussianBlur`` of uint8 images, cv2's bit-exact
+  path (``smooth.dispatch.cpp``): the kernel in double, quantised to 8
+  fractional bits with error diffusion and the centre taking the rest of
+  256, applied separably in exact integers with ``BORDER_REFLECT_101``, the
+  horizontal pass kept whole and the vertical one rounded at 16 bits.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 
-from ..ops.morphology import grey_dilate_runs, grey_erode_runs
+from ..ops.morphology import ellipse_kernel, grey_dilate_runs, grey_erode_runs
 
 _COEF_BITS = 11
 _COEF_SCALE = np.float32(1 << _COEF_BITS)
@@ -135,29 +163,9 @@ def copy_make_border(img: np.ndarray, top: int, bottom: int, left: int, right: i
 
 def line(img: np.ndarray, p1: tuple[int, int], p2: tuple[int, int], value) -> np.ndarray:
     """Draw ``cv2.line(img, p1, p2, value, thickness=1)`` in place: points are
-    (x, y) inside ``img``; the walk goes left to right (the ends swapped when
-    ``p2`` is left of ``p1``) along the longer axis, stepping the other axis
-    where the Bresenham error is negative."""
-    (x, y), (x2, y2) = p1, p2
-    dx, dy = x2 - x, y2 - y
-    if dx < 0:
-        x, y, dx, dy = x2, y2, -dx, -dy
-    sy = -1 if dy < 0 else 1
-    dy = abs(dy)
-    vert = dy > dx
-    if vert:
-        dx, dy = dy, dx
-    err = dx - 2 * dy
-    for _ in range(dx + 1):
-        img[y, x] = value
-        step = err < 0
-        err += -2 * dy + (2 * dx if step else 0)
-        if vert:
-            y += sy
-            x += int(step)
-        else:
-            x += 1
-            y += sy * int(step)
+    (x, y) inside ``img`` (``_line_pixels``)."""
+    xs, ys = _line_pixels(*(np.array([v], np.int64) for v in (*p1, *p2)))
+    img[ys, xs] = value
     return img
 
 
@@ -282,3 +290,248 @@ def jpeg_roundtrip(rgb: np.ndarray, quality: int) -> np.ndarray:
     buf.seek(0)
     with Image.open(buf) as im:
         return np.array(im.convert("RGB"))
+
+
+MORPH_RECT, MORPH_ELLIPSE = 0, 2   # cv2's values
+
+
+def structuring_element(shape: int, ksize: tuple[int, int]) -> np.ndarray:
+    """``cv2.getStructuringElement(shape, ksize)``; ``ksize`` is cv2's (w, h)."""
+    w, h = ksize
+    if shape == MORPH_RECT:
+        return np.ones((h, w), np.uint8)
+    if shape == MORPH_ELLIPSE:
+        return ellipse_kernel(w, h).copy()
+    raise ValueError(f"structuring_element: shape {shape} is not MORPH_RECT or MORPH_ELLIPSE")
+
+
+def _element_runs(kernel: np.ndarray) -> tuple[tuple[int, int, int], ...]:
+    """The element's row runs (dy, a, b) about cv2's anchor (kw // 2, kh // 2)."""
+    kh, kw = kernel.shape
+    ay, ax = kh // 2, kw // 2
+    runs = []
+    for i in range(kh):
+        row = np.concatenate([[0], kernel[i] != 0, [0]]).astype(np.int8)
+        edges = np.flatnonzero(np.diff(row))
+        runs += [(i - ay, int(a) - ax, int(b) - 1 - ax) for a, b in zip(edges[::2], edges[1::2])]
+    if not runs:
+        raise ValueError("dilate/erode: the structuring element is empty")
+    return tuple(runs)
+
+
+def dilate(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.dilate(img, kernel)`` of a uint8 map, a new array."""
+    return grey_dilate_runs(img, _element_runs(kernel)).copy()
+
+
+def erode(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.erode(img, kernel)`` of a uint8 map, a new array."""
+    return grey_erode_runs(img, _element_runs(kernel)).copy()
+
+
+# chain codes 0-7: east, then counter-clockwise as seen on the screen
+_CHAIN_DX = (1, 1, 0, -1, -1, -1, 0, 1)
+_CHAIN_DY = (0, -1, -1, -1, 0, 1, 1, 1)
+_RIGHT_BOUND = -126   # cv2's mark: nbd 2 with the sign bit (schar)
+
+
+def _follow_border(flat: np.ndarray, step: int, start: int, hole: bool) -> list[int]:
+    """OpenCV's ``icvFetchContour`` with every point kept: the flat indices
+    of the border of the framed int8 image ``flat`` that starts at ``start``,
+    marking each pixel it leaves 2 or, where the search passed the
+    background on its right, -126."""
+    deltas = [_CHAIN_DX[s] + _CHAIN_DY[s] * step for s in range(8)] * 2
+    s_end = s = 0 if hole else 4
+    while True:   # clockwise from the background side for the first neighbour
+        s = (s - 1) & 7
+        i1 = start + deltas[s]
+        if flat[i1] != 0 or s == s_end:
+            break
+    if s == s_end:   # a single pixel
+        flat[start] = _RIGHT_BOUND
+        return [start]
+    points = []
+    i3 = start
+    while True:
+        s_end = s
+        while s < 15:   # counter-clockwise for the next border pixel
+            s += 1
+            i4 = i3 + deltas[s]
+            if flat[i4] != 0:
+                break
+        s &= 7
+        if 0 <= s - 1 < s_end:
+            flat[i3] = _RIGHT_BOUND
+        elif flat[i3] == 1:
+            flat[i3] = 2
+        points.append(i3)
+        if i4 == start and i3 == i1:
+            return points
+        i3 = i4
+        s = (s + 4) & 7
+
+
+def find_contours_list(img: np.ndarray) -> list[np.ndarray]:
+    """``cv2.findContours(img, RETR_LIST, CHAIN_APPROX_NONE)[0]`` of a 2-D map
+    (nonzero is foreground): a list of int32 (n, 1, 2) point arrays (x, y).
+
+    The raster scan runs over the candidate starts only, found with numpy:
+    a pixel whose left neighbour is 0 where it is not, or the reverse. Each
+    is checked in raster order against the marks the borders traced before
+    it left, as cv2's scan reads them."""
+    h, w = img.shape
+    step = w + 2
+    framed = np.zeros((h + 2, step), np.int8)
+    framed[1:-1, 1:-1] = img != 0
+    nz = framed != 0
+    cand = np.zeros_like(nz)
+    cand[:, 1:] = nz[:, 1:] != nz[:, :-1]
+    flat = framed.ravel()
+    found = []
+    for i in np.flatnonzero(cand).tolist():
+        p, prev = flat[i], flat[i - 1]
+        if prev == 0 and p == 1:
+            found.append(_follow_border(flat, step, i, hole=False))
+        elif p == 0 and prev >= 1:
+            found.append(_follow_border(flat, step, i - 1, hole=True))
+    out = []
+    for border in reversed(found):
+        idx = np.asarray(border, np.int64)
+        xy = np.stack([idx % step - 1, idx // step - 1], axis=1)
+        out.append(xy.astype(np.int32).reshape(-1, 1, 2))
+    return out
+
+
+def contour_moments(points: np.ndarray) -> dict:
+    """``m00``, ``m10`` and ``m01`` of ``cv2.moments(points)`` for an integer
+    point contour (n, 1, 2) or (n, 2), equal to cv2's float64 values: the
+    sums are whole numbers (exact in int64), scaled as cv2 scales them,
+    and all 0 where the area is."""
+    p = np.asarray(points, np.int64).reshape(-1, 2)
+    if len(p) == 0:
+        return {"m00": 0.0, "m10": 0.0, "m01": 0.0}
+    x, y = p[:, 0], p[:, 1]
+    x1, y1 = np.roll(x, 1), np.roll(y, 1)   # the previous point, the last one first
+    dxy = x1 * y - x * y1
+    a00, a10, a01 = (float(v) for v in (dxy.sum(), (dxy * (x1 + x)).sum(), (dxy * (y1 + y)).sum()))
+    if abs(a00) <= 1.1920928955078125e-07:   # FLT_EPSILON
+        return {"m00": 0.0, "m10": 0.0, "m01": 0.0}
+    half, sixth = (0.5, 0.16666666666666666666666666666667) if a00 > 0 else \
+        (-0.5, -0.16666666666666666666666666666667)
+    return {"m00": a00 * half, "m10": a10 * sixth, "m01": a01 * sixth}
+
+
+def _line_pixels(x0, y0, x1, y1) -> tuple[np.ndarray, np.ndarray]:
+    """The pixels of cv2's 8-connected line (OpenCV's ``LineIterator``) from
+    (x0, y0) to (x1, y1) for every segment of the int64 arrays at once, one
+    step of every walk per pass: left to right (the ends swapped when the
+    second is left of the first) along the longer axis, stepping the other
+    axis where the Bresenham error is negative, both ends drawn."""
+    swap = x1 < x0
+    x, y = np.where(swap, x1, x0), np.where(swap, y1, y0)
+    dx, dy = np.abs(x1 - x0), np.where(swap, y0 - y1, y1 - y0)
+    sy, dy = np.where(dy < 0, -1, 1), np.abs(dy)
+    vert = dy > dx
+    major, minor = np.where(vert, dy, dx), np.where(vert, dx, dy)
+    err = major - 2 * minor
+    xs, ys = [], []
+    for t in range(int(major.max(initial=-1)) + 1):
+        live = major >= t
+        xs.append(x[live])
+        ys.append(y[live])
+        stepped = err < 0
+        err = err - 2 * minor + np.where(stepped, 2 * major, 0)
+        x = x + np.where(vert, stepped, 1)
+        y = y + sy * np.where(vert, 1, stepped)
+    return np.concatenate(xs or [x[:0]]), np.concatenate(ys or [y[:0]])
+
+
+_XY_SHIFT = 16
+
+
+def fill_contours(shape: tuple[int, int], contours, value: int = 255) -> np.ndarray:
+    """``cv2.drawContours(np.zeros(shape, np.uint8), contours, -1, value,
+    thickness=-1)``: the outlines and the even-odd fill of all contours
+    together (see the module docstring)."""
+    h, w = shape
+    out = np.zeros(shape, np.uint8)
+    polys = [np.asarray(c, np.int64).reshape(-1, 2) for c in contours]
+    polys = [p for p in polys if len(p)]
+    if not polys:
+        return out
+    p1 = np.concatenate(polys)
+    p0 = np.concatenate([np.roll(p, 1, axis=0) for p in polys])   # each edge from the point before
+    lx, ly = _line_pixels(p0[:, 0], p0[:, 1], p1[:, 0], p1[:, 1])
+    inside = (lx >= 0) & (lx < w) & (ly >= 0) & (ly < h)
+    out[ly[inside], lx[inside]] = value
+    edge = p0[:, 1] != p1[:, 1]
+    if edge.sum() < 2:
+        return out
+    p0, p1 = p0[edge], p1[edge]
+    num = (p1[:, 0] - p0[:, 0]) << _XY_SHIFT
+    den = p1[:, 1] - p0[:, 1]
+    slope = np.sign(num) * np.sign(den) * (np.abs(num) // np.abs(den))   # C's truncation
+    top = np.where((p0[:, 1] < p1[:, 1])[:, None], p0, p1)
+    y0, y1 = top[:, 1], np.maximum(p0[:, 1], p1[:, 1])
+    x0 = top[:, 0] << _XY_SHIFT
+    rows = y1 - y0
+    e = np.repeat(np.arange(len(rows)), rows)
+    k = np.arange(int(rows.sum())) - np.repeat(np.cumsum(rows) - rows, rows)
+    ys, xs = y0[e] + k, x0[e] + k * slope[e]
+    order = np.lexsort((xs, ys))
+    ys, xs = ys[order], xs[order]
+    # every row crosses each closed contour an even number of times, so the
+    # sorted crossings pair up within their rows
+    ya = ys[0::2]
+    xa = (xs[0::2] + (1 << _XY_SHIFT) - 1) >> _XY_SHIFT
+    xb = xs[1::2] >> _XY_SHIFT
+    keep = (ya >= 0) & (ya < h) & (xa < w) & (xb >= 0) & (xa <= xb)
+    ya, xa, xb = ya[keep], np.maximum(xa[keep], 0), np.minimum(xb[keep], w - 1)
+    spans = np.zeros((h, w + 1), np.int32)
+    np.add.at(spans, (ya, xa), 1)
+    np.add.at(spans, (ya, xb + 1), -1)
+    out[np.cumsum(spans, axis=1)[:, :w] > 0] = value
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def gaussian_kernel_u8(n: int, sigma: float) -> tuple[int, ...]:
+    """cv2's 8-bit Gaussian kernel of odd size ``n`` and ``sigma`` > 0: the
+    double kernel of ``getGaussianKernelBitExact`` (``exp(x*x * -0.125 /
+    sigma**2)`` over x = 1-n, 3-n, ..., normalised by its sum), times 256
+    with error diffusion from the outer taps in (rounded half to even), the
+    centre tap taking what is left of 256."""
+    if n % 2 != 1 or sigma <= 0:
+        raise ValueError(f"gaussian_kernel_u8: odd size and sigma > 0, not {n}, {sigma}")
+    scale = -0.125 / (float(sigma) * float(sigma))
+    half = (n - 1) // 2
+    values = [math.exp(float(x * x) * scale) for x in range(1 - n, 0, 2)]
+    total = 0.0
+    for v in values:
+        total += v
+    mul = 1.0 / (total * 2.0 + 1.0)
+    taps, err, whole = [0] * n, 0.0, 0
+    for i, v in enumerate(values):
+        adj = v * mul * 256.0 + err
+        q = round(adj)
+        err = adj - float(q)
+        taps[i] = taps[n - 1 - i] = q
+        whole += q
+    taps[half] = 256 - 2 * whole
+    return tuple(taps)
+
+
+def gaussian_blur_u8(img: np.ndarray, k: int, sigma: float) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (k, k), sigma)`` of a uint8 (H, W) or (H, W, C)
+    image, bit for bit (``BORDER_REFLECT_101``)."""
+    if img.dtype != np.uint8:
+        raise TypeError(f"gaussian_blur_u8 takes uint8 images, not {img.dtype}")
+    taps = gaussian_kernel_u8(k, sigma)
+    a = k // 2
+    h, w = img.shape[:2]
+    rest = [(0, 0)] * (img.ndim - 2)
+    p = np.pad(img.astype(np.int64), [(0, 0), (a, a)] + rest, mode="reflect")
+    rows = sum(t * p[:, i:i + w] for i, t in enumerate(taps))
+    p = np.pad(rows, [(a, a), (0, 0)] + rest, mode="reflect")
+    out = sum(t * p[i:i + h] for i, t in enumerate(taps))
+    return np.clip((out + (1 << 15)) >> 16, 0, 255).astype(np.uint8)

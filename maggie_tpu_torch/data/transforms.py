@@ -9,12 +9,20 @@ package's order and count, so a seed gives its samples bit for bit. So do the
 two video augmentations of the VIM train set (``MotionBlur``, ``MaskDropout``),
 MotionBlur's pixels within one uint8 level of cv2's (``imgproc.filter2d``).
 
+The seven transforms that no dataset uses (``ChooseOne`` through
+``HistogramMatching``, at the end; ``tools/gen_mask.py`` runs
+``ModifyMaskBoundary``) are bit-equal to the JAX package's under the same
+``RandomState``. ``ModifyMaskBoundary`` and its walk also draw from numpy's
+global generator where the JAX package does (``np.random.normal(0, 0.0)``
+still takes a draw), so the global state after a call is its too.
+
 Output layout is NHWC float32 (``frames``: (T, H, W, 3)). Geometry ops record
 ``transform_info`` entries for ``utils/postprocess.reverse_transform``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import numpy as np
@@ -464,4 +472,227 @@ class Normalize:
     def __call__(self, d: dict) -> dict:
         f = d["frames"] / 255.0
         d["frames"] = ((f - self.mean) / self.std).astype(np.float32)
+        return d
+
+
+class ChooseOne:
+    """Apply one randomly chosen transform (reference ``:28-36``)."""
+
+    def __init__(self, random, transforms):
+        self.random = random
+        self.transforms = transforms
+
+    def __call__(self, d: dict) -> dict:
+        t = self.transforms[self.random.randint(len(self.transforms))]
+        return t(d)
+
+
+class RandomCenterCrop:
+    """Random crop retaining the center region (reference ``:68-102``). As in
+    the JAX package, the crop's x is taken from the height and its y from
+    the width, so on a frame that is not square the crop is not centred."""
+
+    def __init__(self, random):
+        self.random = random
+
+    def __call__(self, d: dict) -> dict:
+        frames, alphas, masks = d["frames"], d["alphas"], d.get("masks")
+        h, w = frames[0].shape[:2]
+        margin_h = int(h * 0.25) + self.random.randint(0, int(h * 0.25))
+        margin_w = int(w * 0.25) + self.random.randint(0, int(w * 0.25))
+        x = h // 2 - margin_h
+        y = w // 2 - margin_w
+        nh, nw = margin_h * 2, margin_w * 2
+        d["frames"] = [f[y:y + nh, x:x + nw] for f in frames]
+        d["alphas"] = [a[y:y + nh, x:x + nw] for a in alphas]
+        if masks is not None:
+            d["masks"] = [m[y:y + nh, x:x + nw] for m in masks]
+        return d
+
+
+class MasksFromBinarizedAlpha:
+    """masks = (alpha > t*255) * 255 when none given (reference ``:372-386``)."""
+
+    def __init__(self, threshold=0.5):
+        self.threshold = threshold
+
+    def __call__(self, d: dict) -> dict:
+        if d.get("masks") is None:
+            d["masks"] = [((a > self.threshold * 255).astype(np.uint8) * 255)
+                          for a in d["alphas"]]
+        return d
+
+
+class LoadRandomBackground:
+    """Load/blur/crop a random background for composition (reference
+    ``:307-350``); the file is decoded with PIL."""
+
+    def __init__(self, bg_paths, random, blur_p=0.5,
+                 blur_kernel_size=(5, 15, 25), blur_sigma=(1.0, 1.5, 3.0, 5.0)):
+        self.bg_paths = bg_paths
+        self.random = random
+        self.blur_p = blur_p
+        self.blur_kernel_size = blur_kernel_size
+        self.blur_sigma = blur_sigma
+
+    def __call__(self, d: dict) -> dict:
+        frames = d["frames"]
+        bg = pil_decode(self.bg_paths[self.random.randint(len(self.bg_paths))], "RGB")
+        if self.random.rand() < self.blur_p:
+            ks = int(self.random.choice(self.blur_kernel_size))
+            sigma = float(self.random.choice(self.blur_sigma))
+            bg = imgproc.gaussian_blur_u8(bg, ks, sigma)
+        h, w = frames[0].shape[:2]
+        bh, bw = bg.shape[:2]
+        x = self.random.randint(0, max(bw - w, 1))
+        y = self.random.randint(0, max(bh - h, 1))
+        bg = imgproc.resize_linear(bg[y:y + h, x:x + w], (w, h))
+        d["fg"] = np.asarray(frames).astype(np.float32)
+        d["bg"] = np.tile(bg[None].astype(np.float32), (len(frames), 1, 1, 1))
+        return d
+
+
+class ComposeBackground:
+    """frames = fg*alpha + bg*(1-alpha) (reference ``:352-370``)."""
+
+    def __call__(self, d: dict) -> dict:
+        alphas = np.asarray(d["alphas"]).astype(np.float32) / 255.0
+        fg = np.asarray(d["fg"]).astype(np.float32)
+        bg = np.asarray(d["bg"]).astype(np.float32)
+        comp = fg * alphas[..., None] + bg * (1 - alphas[..., None])
+        d["frames"] = np.clip(comp, 0, 255).astype(np.uint8)
+        return d
+
+
+def _get_random_structure(size):
+    """A random rectangle or ellipse of about ``size`` (numpy's global generator)."""
+    choice = np.random.randint(1, 5)
+    if choice == 1:
+        return imgproc.structuring_element(imgproc.MORPH_RECT, (size, size))
+    if choice == 2:
+        return imgproc.structuring_element(imgproc.MORPH_ELLIPSE, (size, size))
+    if choice == 3:
+        return imgproc.structuring_element(imgproc.MORPH_ELLIPSE, (size, max(size // 2, 1)))
+    return imgproc.structuring_element(imgproc.MORPH_ELLIPSE, (max(size // 2, 1), size))
+
+
+def _perturb_seg(gt, iou_target=0.6):
+    """Random dilate/erode walk until IoU drops (reference ``:599-630``); numpy's
+    global generator."""
+    h, w = gt.shape
+    seg = ((gt > 127).astype(np.uint8)) * 255
+    if h <= 2 or w <= 2:
+        return seg
+    gtb = seg.copy()
+
+    def iou(a, b):
+        inter = np.count_nonzero(a * b)
+        union = np.count_nonzero(a + b)
+        return (inter + 1e-6) / (union + 1e-6)
+
+    for _ in range(250):
+        for _ in range(4):
+            lx, ly = np.random.randint(w), np.random.randint(h)
+            lw, lh = np.random.randint(lx + 1, w + 1), np.random.randint(ly + 1, h + 1)
+            if np.random.rand() < 0.25:
+                seg[(ly + lh) // 2, (lx + lw) // 2] = np.random.randint(2) * 255
+            size = np.random.randint(3, 10)
+            kernel = _get_random_structure(size)
+            region = seg[ly:lh, lx:lw]
+            if region.size == 0:
+                continue
+            if np.random.rand() < 0.5:
+                seg[ly:lh, lx:lw] = imgproc.dilate(region, kernel)
+            else:
+                seg[ly:lh, lx:lw] = imgproc.erode(region, kernel)
+        if iou(seg, gtb) < iou_target:
+            break
+    return seg
+
+
+class ModifyMaskBoundary:
+    """Contour subsample/perturb + random morphology walk (reference ``:632-717``)."""
+
+    def __init__(self, random, p=0.5, regional_sample_rate=0.1, sample_rate=0.1,
+                 move_rate=0.0):
+        self.random = random
+        self.p = p
+        self.regional_sample_rate = regional_sample_rate
+        self.sample_rate = sample_rate
+        self.move_rate = move_rate
+
+    def _modify(self, image):
+        if self.random.rand() < self.p:
+            return image
+        iou_target = self.random.rand() * 0.2 + 0.8
+        contours = imgproc.find_contours_list(image)
+        modified = []
+        for contour in contours:
+            if contour.shape[0] < 10:
+                continue
+            M = imgproc.contour_moments(contour)
+            n = contour.shape[0]
+            n_rm = int(n * self.regional_sample_rate)
+            # the points whose cut of n_rm points spans the least distance,
+            # in index order among equal distances (a stable sort)
+            dist = ((contour[:n - n_rm] - contour[n_rm:]) ** 2).sum(axis=(1, 2))
+            cands = np.argsort(dist, kind="stable")[:math.ceil(0.1 * len(dist))]
+            start = int(cands[int(self.random.choice(np.arange(len(cands))))])
+            contour = np.concatenate([contour[:start], contour[start + n_rm:]], 0)
+            n = contour.shape[0]
+            ids = self.random.choice(range(n), int(n * self.sample_rate), replace=False)
+            ids.sort()
+            mod = np.copy(contour[ids])
+            if M["m00"] != 0:
+                cx, cy = round(M["m10"] / M["m00"]), round(M["m01"] / M["m00"])
+                for k, coor in enumerate(mod):
+                    change = np.random.normal(0, self.move_rate)
+                    x, y = coor[0]
+                    mod[k] = [x + (x - cx) * change, y + (y - cy) * change]
+            modified.append(mod)
+        modified = [c for c in modified if len(c) > 0]
+        if not modified:
+            out = image.copy()
+        else:
+            out = imgproc.fill_contours(image.shape, modified)
+        return _perturb_seg(out, iou_target)
+
+    def __call__(self, d: dict) -> dict:
+        d["masks"] = np.stack([self._modify(m) for m in d["masks"]], axis=0)
+        return d
+
+
+class HistogramMatching:
+    """Blend fg/bg toward each other's histogram (reference ``:841-863``;
+    per-channel quantile mapping, as in the JAX package)."""
+
+    def __init__(self, random, p=0.3):
+        self.random = random
+        self.p = p
+
+    @staticmethod
+    def _match(src, ref):
+        out = np.empty_like(src)
+        for c in range(src.shape[-1]):
+            s = src[..., c].ravel()
+            r = ref[..., c].ravel()
+            s_sort = np.argsort(s)
+            out_c = np.empty_like(s)
+            out_c[s_sort] = np.sort(r)[
+                np.linspace(0, len(r) - 1, len(s)).astype(np.int64)]
+            out[..., c] = out_c.reshape(src[..., c].shape)
+        return out
+
+    def __call__(self, d: dict) -> dict:
+        if "bg" not in d or self.random.rand() > self.p:
+            return d
+        fg = np.asarray(d["fg"], np.float32)
+        bg = np.asarray(d["bg"], np.float32)
+        ratio = self.random.uniform(0, 0.5)
+        if self.random.rand() < 0.05:
+            d["bg"] = (self._match(bg, fg) * ratio + bg * (1 - ratio)).astype(np.uint8)
+        else:
+            fgm = (self._match(fg, bg) * ratio + fg * (1 - ratio)).astype(np.uint8)
+            d["fg"] = fgm
+            d["frames"] = fgm
         return d

@@ -32,20 +32,21 @@ UPPER_THRES = 254.0 / 255.0
 
 
 @functools.lru_cache(maxsize=64)
-def ellipse_kernel(width: int) -> np.ndarray:
-    """cv2.getStructuringElement(cv2.MORPH_ELLIPSE, (width, width)) replica."""
-    r = width // 2
+def ellipse_kernel(width: int, height: int | None = None) -> np.ndarray:
+    """cv2.getStructuringElement(cv2.MORPH_ELLIPSE, (width, height)) replica;
+    ``height`` defaults to ``width``. cv2 takes the half-axes ``width // 2``
+    and ``height // 2`` and one run a row, so a height of 1 keeps only the
+    centre pixel, as in cv2."""
+    height = width if height is None else height
+    r = height // 2
     c = width // 2
     inv_r2 = 1.0 / (r * r) if r > 0 else 0.0
-    k = np.zeros((width, width), dtype=np.uint8)
-    for i in range(width):
+    k = np.zeros((height, width), dtype=np.uint8)
+    for i in range(height):
         dy = i - r
         if abs(dy) <= r:
-            if r > 0:
-                # cv2 uses saturate_cast<int> == round-half-to-even on the double
-                dx = int(np.round(c * np.sqrt(max(r * r - dy * dy, 0) * inv_r2)))
-            else:
-                dx = 0
+            # cv2 uses saturate_cast<int> == round-half-to-even on the double
+            dx = int(np.round(c * np.sqrt(max(r * r - dy * dy, 0) * inv_r2)))
             j1 = max(c - dx, 0)
             j2 = min(c + dx + 1, width)
             k[i, j1:j2] = 1
