@@ -12,6 +12,7 @@
     python3 chip_smoke.py --baselines-train
     python3 chip_smoke.py --demo
     python3 chip_smoke.py --tools
+    python3 chip_smoke.py --alternatives
 
 The second form only answers requests 0 and 1 in f32 and bf16 and saves the
 outputs to PATH; with REF, saved by the same form from another version, it
@@ -22,11 +23,14 @@ video path only: phase 2's video shapes and phase 8. The fifth runs video
 training only: phase 2's video train shapes and phase 9. The sixth runs
 phase 10 alone, the seventh phase 11 alone, the eighth phase 12 alone, the
 ninth phase 13 alone, the tenth phase 14 alone, the eleventh phase 15
-alone, the twelfth phase 16 alone.
+alone, the twelfth phase 16 alone, the thirteenth phase 17 alone.
 
 Phases (any failure exits non-zero):
 1. print the card's name and power limit; build the CUDA kernels from the
-   sources in this checkout (one nvcc per source, in parallel);
+   sources in this checkout (one nvcc per source, in parallel), and beside
+   the build the CPU halves of the card-vs-CPU steps of 6.1, 9.1 and 12.3
+   (``cpu_steps_meanwhile``; 11.3's two CLI processes wait beside those of
+   13.3 and 17), so that no timing shares the host with them;
 2. hold each kernel against its plain PyTorch twin on the card, at every shape,
    memory layout and dtype the main path gives it, and K2 also on a ragged
    and a misaligned map (exact equality);
@@ -236,26 +240,43 @@ Phases (any failure exits non-zero):
    True``, the first child logging iterations 1-2 and the second 3-4 with
    finite losses, ``last_step.txt`` and ``last_state.pt`` at step 4; the
    seconds of each child and of each probe. ``--tools`` runs phase 16 alone.
+17. the off-by-default alternatives at full width: ``s2d_stem`` and
+   ``lazy_os2_shortcut`` build the default model (its modules and seed-0
+   weights, checked on the CPU), so the default's numbers are theirs;
+   ``phase_rung`` and ``atten_stride 2`` alone and the default: K1 and K2
+   launches a frame (5 and 3; K1 6 with the phase rung), one f32 frame
+   against the CPU port (phase 3's checks), ms/frame in f32 and bf16 (CUDA
+   events, 3 rounds over the three models); K1 at the call shapes the
+   phase rung adds, equal to its twin and timed by graph replay against its
+   byte bound, warm and over rotating copies of the map that no 50 MB L2
+   holds; one window of the video yaml at 256x512 with lazy os2 and the
+   phase rung through ``encode_frames`` / ``decode_window`` against the CPU
+   (phase 8's check); one step at batch 1 x 512x512 (phase 6's frame size)
+   with ``atten_stride 2`` against the CPU within STEP_*.
+   ``--alternatives`` runs phase 17 alone.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's ``ddp_launches``: its
 launches over the ranks' checked steps of 11.1 and 11.2; ``baseline_launches``:
 phase 12.1's and 12.2's; ``sparsemat_launches``: phase 13.4's;
 ``baseline_train_launches``: phase 14.1's; ``demo_launches``: phase 15's
-requests; ``tools_launches``: phase 16.1's eval) and the card line, and last
+requests; ``tools_launches``: phase 16.1's eval; ``alternatives_launches``:
+phase 17's models, video window and step) and the card line, and last
 ``{"ok": true, "device": {...}}``. Details go to output/torch_port/chip_smoke.json
 (``chip_smoke_video.json``, ``chip_smoke_video_train.json``,
 ``chip_smoke_remat.json``, ``chip_smoke_ddp.json``,
 ``chip_smoke_baselines.json``, ``chip_smoke_sparsemat.json``,
-``chip_smoke_baselines_train.json``, ``chip_smoke_demo.json`` and
-``chip_smoke_tools.json`` for ``--video``, ``--video-train``, ``--remat``,
-``--ddp``, ``--baselines``, ``--sparsemat``, ``--baselines-train``,
-``--demo`` and ``--tools``).
+``chip_smoke_baselines_train.json``, ``chip_smoke_demo.json``,
+``chip_smoke_tools.json`` and ``chip_smoke_alternatives.json`` for
+``--video``, ``--video-train``, ``--remat``, ``--ddp``, ``--baselines``,
+``--sparsemat``, ``--baselines-train``, ``--demo``, ``--tools`` and
+``--alternatives``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import json
 import os
 import re
@@ -722,19 +743,34 @@ def detail_mask_check(gpu_out, cpu_out):
     return int(near.sum()), int(diff.sum()), int((diff & ~allowed).sum()), allowed | diff
 
 
-def build_models(dev):
-    """The flagship model from seed 0 with SN folded: on the CPU, its copy on
-    ``dev`` in f32, and the bf16 model on ``dev`` with the same weights."""
+def with_flags(cfg, flags: dict | None):
+    """``cfg`` with ``flags`` ({"encoder_args": {...}, "decoder_args": {...}})
+    set under ``cfg.model``."""
+    for group, values in (flags or {}).items():
+        cfg.model[group].update(values)
+    return cfg
+
+
+def bf16_copy(model):
+    """``model`` as ``model.precision bf16`` builds it: the same modules and
+    weights, with the bf16 compute dtype (the one thing the setting changes,
+    ``models/maggie.py``), without a second initialisation at full width."""
+    out = copy.deepcopy(model)
+    out.compute_dtype = torch.bfloat16
+    return out
+
+
+def build_models(dev, flags: dict | None = None):
+    """The flagship model (with ``flags``, ``with_flags``) from seed 0 with SN
+    folded: on the CPU, its copy on ``dev`` in f32, and the bf16 model on
+    ``dev`` with the same weights."""
     from maggie_tpu_torch.flagship import flagship_cfg
     from maggie_tpu_torch.models import build_model
     from maggie_tpu_torch.utils.checkpoint import fold_spectral_norm
-    cpu_model = build_model(flagship_cfg().model, device="cpu",
+    cpu_model = build_model(with_flags(flagship_cfg(), flags).model, device="cpu",
                             generator=torch.Generator().manual_seed(0))
     fold_spectral_norm(cpu_model)
-    bf16_model = build_model(flagship_cfg("bf16").model, device="cpu")
-    fold_spectral_norm(bf16_model)
-    bf16_model.load_state_dict(cpu_model.state_dict())
-    return cpu_model, copy.deepcopy(cpu_model).to(dev), bf16_model.to(dev)
+    return cpu_model, copy.deepcopy(cpu_model).to(dev), bf16_copy(cpu_model).to(dev)
 
 
 def forward_outputs(path: str, against: str | None) -> int:
@@ -796,6 +832,8 @@ def main() -> int:
         return demo_only(torch.device("cuda"))
     if "--tools" in sys.argv:
         return tools_only()
+    if "--alternatives" in sys.argv:
+        return alternatives_only(torch.device("cuda"))
     if "--gather-bwd" in sys.argv:
         print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                          "--format=csv,noheader"], capture_output=True,
@@ -819,11 +857,19 @@ def main() -> int:
         now = time.perf_counter()
         laps[phase], lap_t[0] = now - lap_t[0], now
 
-    # ---- phase 1: build ----
+    # ---- phase 1: build, with phases 6, 9 and 12's CPU steps beside it ----
     t0 = time.perf_counter()
-    build.build_all()
-    detail["build_s"] = time.perf_counter() - t0
-    print(f"phase 1: kernels built in {detail['build_s']:.1f} s", flush=True)
+
+    def build_all() -> float:
+        build.build_all()
+        return time.perf_counter() - t0
+    ahead = [flagship_step(), video_step()] + [
+        base_check_step(n, b, f, hw, BASE_CHECK.get(n)) for n, b, f, hw in BASE_TRAIN]
+    detail["build_s"] = cpu_steps_meanwhile(ahead, build_all)
+    detail["build_with_cpu_steps_s"] = time.perf_counter() - t0
+    print(f"phase 1: kernels built in {detail['build_s']:.1f} s; the CPU halves of "
+          f"{len(ahead)} card-vs-CPU steps beside it done after "
+          f"{detail['build_with_cpu_steps_s']:.1f} s", flush=True)
 
     lap("1")
     # ---- phase 2: kernels vs plain twins ----
@@ -976,7 +1022,9 @@ def main() -> int:
     lap("10")
     # ---- phase 11: data parallel, two ranks on the card and torchrun ----
     torch.cuda.empty_cache()
-    ddp = phase_ddp(dev, detail)
+    # 11.3's CLI processes wait with phases 13 and 17's CPU steps beside them
+    ddp = phase_ddp(dev, detail, [sm_step(*c) for c in SM_CHECK_STEPS]
+                    + [flagship_step(ALT_TRAIN_FLAGS, ALT_TRAIN_BATCH, TRAIN_HW)])
     for kern in kernels:
         kern["ddp_launches"] = ddp[kern["name"]]
 
@@ -1016,9 +1064,16 @@ def main() -> int:
         kern["tools_launches"] = tools["launches"][kern["name"]]
 
     lap("16")
+    # ---- phase 17: the off-by-default alternatives ----
+    torch.cuda.empty_cache()
+    alternatives = phase_alternatives(dev, detail)
+    for kern in kernels:
+        kern["alternatives_launches"] = alternatives[kern["name"]]
+
+    lap("17")
     detail["phases_s"] = time.perf_counter() - t_start
     detail["phase_s"] = laps
-    print(f"phases 1-16 done in {detail['phases_s']:.1f} s (from main(), imports not counted); "
+    print(f"phases 1-17 done in {detail['phases_s']:.1f} s (from main(), imports not counted); "
           f"by phase {json.dumps({k: round(v, 1) for k, v in laps.items()})}", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -1646,24 +1701,92 @@ def compare_steps(a: dict, b: dict) -> dict:
     return out
 
 
-def card_vs_cpu_step(dev) -> dict:
-    """Phase 6.1: one f32 step of the full-width model (seed 0) on the card and
-    on the CPU (plain twins) on the same reduced batch, the random draws
-    (dropout, dilation widths) from CPU generators of one seed on both sides."""
-    from maggie_tpu_torch.flagship import flagship_cfg, train_batch
+# The CPU half of a card-vs-CPU step (the model from seed 0 and one step on
+# the CPU) needs no card work and takes 2-20 s of the host at full width. The
+# whole run computes most of them in a worker thread while this thread only
+# waits, on work that is not timed: the kernel build (phase 1) and 11.3's two
+# CLI processes (``cpu_steps_meanwhile``); no timing shares the host with them.
+_CPU_AHEAD: dict = {}
+
+
+def cpu_step(spec) -> tuple:
+    """The CPU half of a card-vs-CPU step. ``spec`` = (key, inputs, seed):
+    ``inputs()`` gives the config and the batch, ``seed`` the step
+    generator's (None: ``torch.Generator()`` as it comes). Returns the
+    config, the batch, the model from seed 0 as it was before the step (the
+    card's copy starts from it), the step's ``one_step`` record and its
+    seconds: computed now, or the ones ``cpu_steps_meanwhile`` computed."""
+    key, inputs, seed = spec
+    if key in _CPU_AHEAD:
+        return _CPU_AHEAD.pop(key)
     from maggie_tpu_torch.models import build_model
-    cfg = flagship_cfg()
-    cpu_model = build_model(cfg.model, device="cpu", generator=torch.Generator().manual_seed(0))
-    card_model = copy.deepcopy(cpu_model).to(dev)
-    batch = train_batch(REDUCED_BATCH, REDUCED_HW, REDUCED_HW, TRAIN_SLOTS, seed=1)
+    cfg, batch = inputs()
+    model = build_model(cfg.model, device="cpu", generator=torch.Generator().manual_seed(0))
+    init = copy.deepcopy(model)
     t0 = time.perf_counter()
-    cpu = one_step(cpu_model, batch, torch.Generator().manual_seed(3), cfg)
-    cpu_s = time.perf_counter() - t0
-    card = one_step(card_model, {k: v.to(dev) for k, v in batch.items()},
-                    torch.Generator().manual_seed(3), cfg)
+    record = one_step(model, batch, step_generator(seed), cfg)
+    return cfg, batch, init, record, time.perf_counter() - t0
+
+
+def step_generator(seed: int | None) -> torch.Generator:
+    return torch.Generator() if seed is None else torch.Generator().manual_seed(seed)
+
+
+def cpu_steps_meanwhile(specs, wait):
+    """``wait()``'s result; meanwhile a worker thread computes ``cpu_step``
+    of each of ``specs`` for the phases that take them later. Both are done
+    on return, so that nothing timed after it shares the host."""
+    errors = []
+
+    def work():
+        try:
+            for spec in specs:
+                _CPU_AHEAD[spec[0]] = cpu_step(spec)
+        except BaseException as exc:  # raised again in this thread
+            errors.append(exc)
+    worker = threading.Thread(target=work)
+    worker.start()
+    try:
+        out = wait()
+    finally:
+        worker.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def card_step(spec, dev) -> dict:
+    """The card-vs-CPU step of ``spec`` (``cpu_step``): the card's copy of
+    the model steps on the same batch with a generator of the same seed, and
+    ``compare_steps`` holds it to the CPU's step."""
+    cfg, batch, init, cpu, cpu_s = cpu_step(spec)
+    card = one_step(init.to(dev), {k: v.to(dev) for k, v in batch.items()},
+                    step_generator(spec[2]), cfg)
     out = compare_steps(card, cpu)
-    out.update(cpu_step_s=cpu_s, size=f"batch {REDUCED_BATCH}, {REDUCED_HW}x{REDUCED_HW}, "
-               f"{TRAIN_SLOTS} slots", losses_card=card["losses"], losses_cpu=cpu["losses"])
+    out.update(cpu_step_s=cpu_s, losses_card=card["losses"], losses_cpu=cpu["losses"])
+    return out
+
+
+def flagship_step(flags: dict | None = None, batch_size: int = REDUCED_BATCH,
+                  hw: int = REDUCED_HW) -> tuple:
+    """The ``cpu_step`` spec of the flagship's step (with ``flags``,
+    ``with_flags``) at ``batch_size`` x ``hw`` x ``hw``."""
+    def inputs():
+        from maggie_tpu_torch.flagship import flagship_cfg, train_batch
+        return (with_flags(flagship_cfg(), flags),
+                train_batch(batch_size, hw, hw, TRAIN_SLOTS, seed=1))
+    return ("flagship", json.dumps(flags, sort_keys=True), batch_size, hw), inputs, 3
+
+
+def card_vs_cpu_step(dev, flags: dict | None = None, batch_size: int = REDUCED_BATCH,
+                     hw: int = REDUCED_HW) -> dict:
+    """Phase 6.1: one f32 step of the full-width model (seed 0; the
+    flagship's, with ``flags``) on the card and on the CPU (plain twins) on
+    the same reduced batch (``batch_size`` x ``hw`` x ``hw``), the random
+    draws (dropout, dilation widths) from CPU generators of one seed on both
+    sides."""
+    out = card_step(flagship_step(flags, batch_size, hw), dev)
+    out["size"] = f"batch {batch_size}, {hw}x{hw}, {TRAIN_SLOTS} slots"
     return out
 
 
@@ -1876,36 +1999,47 @@ def stage_split(model, batch, frame_ms: float) -> dict:
             "busy_share": kernel_ms / frame_ms}
 
 
+def gather_call_rows(name, shape, block, halo, per_image, layout, dev, rs) -> dict:
+    """K1 at one call shape (``sample_indices``' CAP entries), for each dtype
+    the call takes: the kernel, its plain twin and the library yardstick (an
+    advanced index of a pre-padded map) by graph replay and eager, and the
+    byte bound (the windows written, the distinct in-map input read, the
+    indices). {dtype: row}."""
+    from maggie_tpu_torch.ops.kernels import gather as kg
+    idx = sample_indices(shape, block, per_image, dev, rs)
+    size = block + 2 * halo
+    ar = torch.arange(size, device=dev)
+    ys = (idx[1] * block)[:, None] + ar
+    xs = (idx[2] * block)[:, None] + ar
+    ii = (idx[0][:, None, None], ys[:, :, None], xs[:, None, :])
+    rows = {}
+    for dt in gather_dtypes(shape):
+        feat = gather_map(shape, layout, dt, dev)
+        padded = torch.nn.functional.pad(feat, (0, 0, halo, halo, halo, halo))
+        kern = lambda: kg.gather_patches(feat, *idx, block, halo)
+        plain = lambda: kg.gather_patches_plain(feat, *idx, block, halo)
+        row = {"call": name, "dtype": str(dt), "layout": layout,
+               "ms": graph_ms(kern), "plain_ms": graph_ms(plain),
+               "library_ms": graph_ms(lambda: padded[ii]),
+               "eager_ms": cuda_ms(kern), "eager_plain_ms": cuda_ms(plain)}
+        esize = feat.element_size()
+        out_bytes = CAP * size * size * shape[-1] * esize
+        in_bytes = touched_bytes(shape, *idx, block, halo, esize)
+        row["bytes"] = out_bytes + in_bytes + 3 * CAP * 8
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        rows[dt] = row
+    return rows
+
+
 def time_kernels(dev, worst, launches, detail) -> list:
     """Per-frame kernel, plain-twin and yardstick times at the main-path shapes."""
-    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+    from maggie_tpu_torch.ops.kernels import unknown as ku
     rs = np.random.RandomState(11)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     g = {"calls": [], "fp32": dict.fromkeys(keys, 0.0), "bf16": dict.fromkeys(keys, 0.0)}
-    for name, shape, block, halo, per_image, layout in GATHER_CALLS:
-        idx = sample_indices(shape, block, per_image, dev, rs)
-        size = block + 2 * halo
-        ar = torch.arange(size, device=dev)
-        ys = (idx[1] * block)[:, None] + ar
-        xs = (idx[2] * block)[:, None] + ar
-        ii = (idx[0][:, None, None], ys[:, :, None], xs[:, None, :])
-        rows = {}
-        for dt in gather_dtypes(shape):
-            feat = gather_map(shape, layout, dt, dev)
-            padded = torch.nn.functional.pad(feat, (0, 0, halo, halo, halo, halo))
-            kern = lambda: kg.gather_patches(feat, *idx, block, halo)
-            plain = lambda: kg.gather_patches_plain(feat, *idx, block, halo)
-            row = {"call": name, "dtype": str(dt), "layout": layout,
-                   "ms": graph_ms(kern), "plain_ms": graph_ms(plain),
-                   "library_ms": graph_ms(lambda: padded[ii]),
-                   "eager_ms": cuda_ms(kern), "eager_plain_ms": cuda_ms(plain)}
-            esize = feat.element_size()
-            out_bytes = CAP * size * size * shape[-1] * esize
-            in_bytes = touched_bytes(shape, *idx, block, halo, esize)
-            row["bytes"] = out_bytes + in_bytes + 3 * CAP * 8
-            row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
-            g["calls"].append(row)
-            rows[dt] = row
+    for call in GATHER_CALLS:
+        rows = gather_call_rows(*call, dev, rs)
+        g["calls"].extend(rows.values())
         # the bf16 forward gathers its features in bf16 and the os1 mask in f32
         for frame, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             row = rows.get(dt, rows[torch.float32])
@@ -2013,12 +2147,13 @@ def video_alphas(n_f: int, h: int, w: int, n_i: int = N_INST, seed: int = 0) -> 
     return out
 
 
-def video_stream(n_f: int, seed: int = 0) -> dict:
-    """One synthetic video at 576x1024: uniform frames and 3 moving blob
-    instances, masks the alphas above 0.5 (full size, as VIM eval gives)."""
-    alpha = video_alphas(n_f, H, W, seed=seed)
+def video_stream(n_f: int, seed: int = 0, hw: tuple = (H, W)) -> dict:
+    """One synthetic video at ``hw`` (576x1024): uniform frames and 3 moving
+    blob instances, masks the alphas above 0.5 (full size, as VIM eval gives)."""
+    h, w = hw
+    alpha = video_alphas(n_f, h, w, seed=seed)
     rs = np.random.RandomState(seed + 1)
-    return {"image": torch.from_numpy(rs.rand(1, n_f, H, W, 3).astype(np.float32)),
+    return {"image": torch.from_numpy(rs.rand(1, n_f, h, w, 3).astype(np.float32)),
             "mask": torch.from_numpy((alpha > 0.5).astype(np.float32))}
 
 
@@ -2061,10 +2196,7 @@ def video_models(dev):
     cfg = load_config(VIDEO_CONFIG)
     cpu_model = fold_spectral_norm(build_model(cfg.model, device="cpu",
                                                generator=torch.Generator().manual_seed(0)))
-    cfg.model.precision = "bf16"
-    bf16_model = fold_spectral_norm(build_model(cfg.model, device="cpu"))
-    bf16_model.load_state_dict(cpu_model.state_dict())
-    return cfg, cpu_model, copy.deepcopy(cpu_model).to(dev), bf16_model.to(dev)
+    return cfg, cpu_model, copy.deepcopy(cpu_model).to(dev), bf16_copy(cpu_model).to(dev)
 
 
 def rule_near(out: dict, prev_pred) -> torch.Tensor:
@@ -2516,24 +2648,19 @@ def video_train_cfg(precision: str = "fp32"):
     return cfg
 
 
+def video_step() -> tuple:
+    """The ``cpu_step`` spec of 9.1's step."""
+    n_f, hw = VIDEO_REDUCED
+    return ("video", n_f, hw), lambda: (video_train_cfg(), video_train_batch(n_f, hw, seed=1)), 3
+
+
 def video_card_vs_cpu_step(dev) -> dict:
     """9.1: one f32 step of the full-width video model (seed 0) on the card
     and on the CPU (plain twins) on the same reduced clip, the random draws
     from CPU generators of one seed on both sides; phase 6's STEP_* limits."""
-    from maggie_tpu_torch.models import build_model
-    cfg = video_train_cfg()
-    cpu_model = build_model(cfg.model, device="cpu", generator=torch.Generator().manual_seed(0))
-    card_model = copy.deepcopy(cpu_model).to(dev)
     n_f, hw = VIDEO_REDUCED
-    batch = video_train_batch(n_f, hw, seed=1)
-    t0 = time.perf_counter()
-    cpu = one_step(cpu_model, batch, torch.Generator().manual_seed(3), cfg)
-    cpu_s = time.perf_counter() - t0
-    card = one_step(card_model, {k: v.to(dev) for k, v in batch.items()},
-                    torch.Generator().manual_seed(3), cfg)
-    out = compare_steps(card, cpu)
-    out.update(cpu_step_s=cpu_s, size=f"batch 1 x clip {n_f}, {hw}x{hw}, {TRAIN_SLOTS} slots",
-               losses_card=card["losses"], losses_cpu=cpu["losses"])
+    out = card_step(video_step(), dev)
+    out["size"] = f"batch 1 x clip {n_f}, {hw}x{hw}, {TRAIN_SLOTS} slots"
     return out
 
 
@@ -3406,10 +3533,11 @@ def ddp_video_check(dev, run: dict, ranks: list) -> tuple[dict, dict]:
     return out, launches
 
 
-def phase_ddp(dev, detail) -> dict:
+def phase_ddp(dev, detail, ahead=()) -> dict:
     """Phase 11: 11.1 and 11.2 in one pair of rank processes
     (``ddp_image_run``, ``ddp_video_run``, then each one's check against one
-    process), 11.3 ``ddp_cli``.
+    process), 11.3 ``ddp_cli``, with the ``cpu_step`` specs ``ahead`` computed
+    beside it (``cpu_steps_meanwhile``).
     Returns each kernel's launches over the ranks' checked steps."""
     import tempfile
     t0 = time.perf_counter()
@@ -3423,7 +3551,7 @@ def phase_ddp(dev, detail) -> dict:
         torch.cuda.empty_cache()
         out["video"], video = ddp_video_check(dev, runs[1], [r[1] for r in ranks])
         torch.cuda.empty_cache()
-        out["cli"] = ddp_cli(root)
+        out["cli"] = cpu_steps_meanwhile(ahead, lambda: ddp_cli(root))
     launches = {k: image[k] + video[k] for k in image}
     out["launches"] = launches
     detail["ddp"] = out
@@ -3514,10 +3642,7 @@ def base_eval_models(name, dev, bf16: bool = False):
     fold_spectral_norm(cpu)
     out = [cpu, copy.deepcopy(cpu).to(dev)]
     if bf16:
-        half = build_model(cfg("bf16").model, device="cpu")
-        fold_spectral_norm(half)
-        half.load_state_dict(cpu.state_dict())
-        out.append(half.to(dev))
+        out.append(bf16_copy(cpu).to(dev))
     return out
 
 
@@ -3852,28 +3977,31 @@ def card_steps(cfg, batch: dict, dev, label: str, steps: int = BASE_TRAIN_STEPS,
             "launches": {k: sum(c[k] for c in launches) for k in launches[0]}}
 
 
+def base_check_step(name: str, b: int, n_f: int, hw: int, check: tuple | None = None) -> tuple:
+    """The ``cpu_step`` spec of 12.3's step of ``name`` at ``hw`` with at most
+    ``check`` = (batch, clip) of (``b``, ``n_f``)."""
+    check_b, check_f = min(b, (check or (b, n_f))[0]), min(n_f, (check or (b, n_f))[1])
+
+    def inputs():
+        cfg = base_cfg(name)
+        return cfg, base_train_batch(check_b, check_f, hw, int(cfg.model.encoder_args.num_mask))
+    return ("base", name, check_b, check_f, hw), inputs, 3
+
+
 def base_train(name: str, b: int, n_f: int, hw: int, dev, check: tuple | None = None) -> dict:
     """12.3: one f32 step of ``name`` on the card against the CPU port at
     ``hw`` with at most ``check`` = (batch, clip) (the random widths
     from CPU generators of one seed on both sides) within phase 6's STEP_*
     limits, then BASE_TRAIN_STEPS steps on the card at the whole clip
     (``card_steps``): ms/step, peak memory, launches."""
-    from maggie_tpu_torch.models import build_model
     cfg = base_cfg(name)
     slots = int(cfg.model.encoder_args.num_mask)
     batch = base_train_batch(b, n_f, hw, slots)
-    check_b, check_f = min(b, (check or (b, n_f))[0]), min(n_f, (check or (b, n_f))[1])
-    check_batch = batch if (check_b, check_f) == (b, n_f) else \
-        base_train_batch(check_b, check_f, hw, slots)
-    cpu_model = build_model(cfg.model, device="cpu", generator=torch.Generator().manual_seed(0))
-    card_model = copy.deepcopy(cpu_model).to(dev)
-    t0 = time.perf_counter()
-    cpu = one_step(cpu_model, check_batch, torch.Generator().manual_seed(3), cfg)
-    cpu_s = time.perf_counter() - t0
-    card = one_step(card_model, {k: v.to(dev) for k, v in check_batch.items()},
-                    torch.Generator().manual_seed(3), cfg)
-    check = compare_steps(card, cpu)
-    del cpu_model, cpu, card_model
+    spec = base_check_step(name, b, n_f, hw, check)
+    check_b, check_f = spec[0][2:4]
+    check = card_step(spec, dev)
+    cpu_s, losses_card = check.pop("cpu_step_s"), check.pop("losses_card")
+    del check["losses_cpu"]
     if not check["within"]:
         fail(f"phase 12 {name}: the card's step differs from the CPU port's beyond phase 6's "
              f"STEP_* limits: {check}")
@@ -3883,7 +4011,7 @@ def base_train(name: str, b: int, n_f: int, hw: int, dev, check: tuple | None = 
         fail(f"phase 12 {name}: the train step launched {launches}; the family's train "
              f"fusion dilates with random widths in plain torch")
     out.update(size=f"batch {b} x clip {n_f} x {hw}x{hw}, {slots} slots", check=check,
-               cpu_step_s=cpu_s, losses_card=card["losses"])
+               cpu_step_s=cpu_s, losses_card=losses_card)
     out["check_size"] = f"batch {check_b} x clip {check_f} x {hw}x{hw}"
     print(f"phase 12 {name} train ({out['size']}, f32): card vs CPU (at "
           f"{out['check_size']}) loss terms max rel "
@@ -4192,20 +4320,18 @@ def sm_video(dev, root: str) -> dict:
     return out
 
 
+def sm_step(name: str, b: int, n_f: int, hw: int) -> tuple:
+    """The ``cpu_step`` spec of 13.3's step of ``name`` (one slot)."""
+    return ("sparsemat", name, b, n_f, hw), lambda: (sm_cfg(name), base_train_batch(b, n_f, hw, 1)), None
+
+
 def sm_check_step(name: str, b: int, n_f: int, hw: int, dev) -> dict:
     """13.3: one f32 step of ``name`` at one slot on the card against the
     CPU port within phase 6's STEP_* limits."""
-    from maggie_tpu_torch.models import build_model
-    cfg = sm_cfg(name)
-    batch = base_train_batch(b, n_f, hw, 1)
-    cpu_model = build_model(cfg.model, device="cpu", generator=torch.Generator().manual_seed(0))
-    card_model = copy.deepcopy(cpu_model).to(dev)
-    t0 = time.perf_counter()
-    cpu = one_step(cpu_model, batch, torch.Generator(), cfg)
-    cpu_s = time.perf_counter() - t0
-    card = one_step(card_model, {k: v.to(dev) for k, v in batch.items()}, torch.Generator(), cfg)
-    check = compare_steps(card, cpu)
-    check["cpu_step_s"] = cpu_s
+    check = card_step(sm_step(name, b, n_f, hw), dev)
+    for k in ("losses_card", "losses_cpu"):
+        del check[k]
+    cpu_s = check["cpu_step_s"]
     print(f"phase 13.3 {name} card vs CPU step (batch {b} x clip {n_f} x {hw}x{hw}, f32): loss "
           f"terms max rel {check['loss_max_rel']:.3g}, gradients rel L2 "
           f"{check['grad_rel_l2']:.3g}, params max |d| {check['param_max_abs']:.3g} (far share "
@@ -5175,6 +5301,284 @@ def tools_only() -> int:
     print(f"phase 16 done in {time.perf_counter() - t0:.1f} s", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_tools.json"), "w") as f:
+        json.dump(detail, f, indent=1, default=str)
+    return 0
+
+
+# ---------------------------------------------------------------- phase 17
+# the flagship's off-by-default alternatives (ROADMAP 14a-14c) at full width:
+# s2d_stem and lazy_os2_shortcut build the default model; phase_rung and
+# atten_stride 2 each with one f32 frame on the card against the port on the
+# CPU (phase 3's checks), ms/frame in f32 and bf16 beside the default model
+# timed in the same rounds, K1 and K2 launches a frame; the K1 call shapes
+# the phase rung adds, by graph replay; one video window with lazy os2 and
+# the phase rung through the feature cache against the CPU; one train step
+# with atten_stride 2 against the CPU.
+ALT_AS_DEFAULT = (
+    ("s2d_stem", {"encoder_args": {"s2d_stem": True}}),
+    ("lazy_os2_shortcut", {"encoder_args": {"lazy_os2_shortcut": True}}),
+)
+ALTERNATIVES = (
+    ("default", {}),
+    ("phase_rung", {"decoder_args": {"phase_rung": True}}),
+    ("atten_stride_2", {"decoder_args": {"atten_stride": 2}}),
+)
+# K1 and K2 a frame (decoder_sparse.py): the phase rung gathers its hand-off
+# buffer and fea1 at os1 halo 4 where the default gathers the lazy os1 input
+# (lazy os1 is off with it)
+ALT_PER_FRAME = {"default": (5, 3), "phase_rung": (6, 3), "atten_stride_2": (5, 3)}
+ALT_ROUNDS, ALT_FRAMES = 3, 5  # timing: rounds over every model, CUDA-event windows of frames
+# the K1 call shapes the phase rung adds at the bench condition: (name, map
+# (N, H, W, C), block, halo, per-image index?, layout)
+ALT_GATHER_CALLS = (
+    ("phase_hand_off", (3, 288, 512, 32), 32, 2, False, "pixel"),
+    ("phase_fea1", (1, 576, 1024, 32), 64, 4, True, "plane"),
+)
+ALT_COLD_BYTES = 200 * 2 ** 20  # the rotating copies of a map: 4x the card's 50 MB L2
+ALT_VIDEO_HW = (256, 512)      # one 3-frame window: its CPU side stays short
+ALT_VIDEO_FLAGS = {"encoder_args": {"lazy_os2_shortcut": True},
+                   "decoder_args": {"phase_rung": True}}
+ALT_VIDEO_PER_WINDOW = {"gather_patches": 6, "compute_unknown": 3}
+ALT_TRAIN_FLAGS = {"decoder_args": {"atten_stride": 2}}
+ALT_TRAIN_BATCH = 1            # at TRAIN_HW: the stride pools phase 6's 64x64 os8 map
+
+
+def alt_as_default() -> dict:
+    """The flags that the port takes and runs as the default model
+    (``models/__init__.py``): each builds, from seed 0 on the CPU, the
+    default's modules and weights."""
+    from maggie_tpu_torch.flagship import flagship_cfg
+    from maggie_tpu_torch.models import build_model
+
+    def build(flags):
+        return build_model(with_flags(flagship_cfg(), flags).model, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    default = build(None)
+    want = default.state_dict()
+    out = {}
+    for name, flags in ALT_AS_DEFAULT:
+        model = build(flags)
+        got = model.state_dict()
+        if (str(model) != str(default) or got.keys() != want.keys()
+                or not all(torch.equal(got[k], want[k]) for k in want)):
+            fail(f"alternative {name}: the model differs from the default's")
+        out[name] = {"flags": flags, "default_model": True}
+    return out
+
+
+def alt_frame(name: str, flags: dict, dev, request: dict, batch: dict) -> dict:
+    """One alternative's models (``build_models``), its launches on one f32
+    frame on the card, and that frame against the CPU port (not for the
+    default, which phase 3 checks). Returns the record with the card models
+    under ``models``."""
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+    cpu_model, model, bf16_model = build_models(dev, flags)
+    torch.cuda.synchronize()
+    kg.launches = ku.launches = 0
+    with torch.inference_mode():
+        card = model(batch)
+    torch.cuda.synchronize()
+    got = (kg.launches, ku.launches)
+    if got != ALT_PER_FRAME[name]:
+        fail(f"alternative {name}: K1, K2 launches a frame {got}, not {ALT_PER_FRAME[name]}")
+    for k, v in card.items():
+        if tuple(v.shape) != (1, 1, N_INST, H, W) or not bool(torch.isfinite(v).all()):
+            fail(f"alternative {name}: {k} has shape {tuple(v.shape)} or non-finite values")
+    out = {"flags": flags, "launches_per_frame": {"gather_patches": got[0],
+                                                  "compute_unknown": got[1]},
+           "models": (model, bf16_model)}
+    if name == "default":
+        return out
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cpu = cpu_model(request)
+    out["cpu_forward_s"] = time.perf_counter() - t0
+    near, n_diff, unexplained, region = detail_mask_check(card, cpu)
+    err = (card["refined_masks"].cpu() - cpu["refined_masks"]).abs()[0, 0]
+    outside = float(err[~region].max()) if bool((~region).any()) else 0.0
+    out["cpu_check"] = {"near_threshold_pixels": near, "detail_mask_diff": n_diff,
+                        "unexplained_diff": unexplained, "refined_max_abs_err": float(err.max()),
+                        "refined_max_abs_err_outside_flips": outside,
+                        "refined_mean_abs_err": float(err.mean()), "tolerance": REFINED_ATOL}
+    if unexplained:
+        fail(f"alternative {name}: detail_mask differs from the CPU port at {unexplained} "
+             f"pixels not explained by {near} near-threshold alpha_os8 pixels")
+    if outside > REFINED_ATOL:
+        fail(f"alternative {name}: refined_masks differ from the CPU port by {outside}")
+    return out
+
+
+def alt_gathers(dev) -> list:
+    """K1 at the alternatives' new call shapes: equal to its twin (f32 and
+    bf16), then timed by graph replay with its byte bound, warm (``ms``: one
+    map, which the L2 may hold) and cold (``cold_ms``: each call on the next
+    of copies of the map that together fill ALT_COLD_BYTES)."""
+    from maggie_tpu_torch.ops.kernels import gather as kg
+    rows = []
+    for i, (name, shape, block, halo, per_image, layout) in enumerate(ALT_GATHER_CALLS):
+        idx = sample_indices(shape, block, per_image, dev, np.random.RandomState(17 + i))
+        for dt in gather_dtypes(shape):
+            feat = gather_map(shape, layout, dt, dev, seed=i)
+            got = kg.gather_patches(feat, *idx, block, halo)
+            if not torch.equal(got, kg.gather_patches_plain(feat, *idx, block, halo)):
+                fail(f"gather {name} {dt}: kernel != plain twin")
+        timed = gather_call_rows(name, shape, block, halo, per_image, layout, dev,
+                                 np.random.RandomState(17 + i))
+        for dt, row in timed.items():
+            feat = gather_map(shape, layout, dt, dev)
+            copies = [feat] + [gather_map(shape, layout, dt, dev) for _ in
+                               range(-(-ALT_COLD_BYTES // (feat.numel() * feat.element_size())) - 1)]
+            turn = itertools.cycle(copies)
+            row["cold_ms"] = graph_ms(lambda: kg.gather_patches(next(turn), *idx, block, halo))
+            row["cold_copies"] = len(copies)
+            del copies, feat
+        rows.extend({**r, "shape": list(shape), "block": block, "halo": halo, "equal": True}
+                    for r in timed.values())
+    return rows
+
+
+def alt_video(dev) -> dict:
+    """One 3-frame window of the video yaml with lazy os2 and the phase rung
+    through ``encode_frames`` / ``decode_window`` on the card and on the CPU
+    (phase 8's window check)."""
+    from maggie_tpu_torch.config import load_config
+    from maggie_tpu_torch.models import build_model
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+    from maggie_tpu_torch.utils.checkpoint import fold_spectral_norm
+    cfg = with_flags(load_config(VIDEO_CONFIG), ALT_VIDEO_FLAGS)
+    cpu_model = fold_spectral_norm(build_model(cfg.model, device="cpu",
+                                               generator=torch.Generator().manual_seed(0)))
+    model = copy.deepcopy(cpu_model).to(dev)
+    video = video_stream(VIDEO_FRAMES, hw=ALT_VIDEO_HW)
+    on_dev = {k: v.to(dev) for k, v in video.items()}
+    with torch.inference_mode():
+        pack = sorted(model.encode_frames({k: v[:, :1] for k, v in on_dev.items()}))
+    if "x1" in pack or "fea2" not in pack or "inp" in pack or "fea1" not in pack:
+        fail(f"video feature pack with lazy os2 and the phase rung holds {pack}")
+    torch.cuda.synchronize()
+    kg.launches = ku.launches = 0
+    with torch.inference_mode(), ThresholdRecorder(1) as card_rec:
+        card = stream_windows(model, on_dev, True, keep=(0,))
+    torch.cuda.synchronize()
+    launches = {"gather_patches": kg.launches, "compute_unknown": ku.launches}
+    if launches != ALT_VIDEO_PER_WINDOW:
+        fail(f"alternative video window: launches {launches}, not {ALT_VIDEO_PER_WINDOW}")
+    t0 = time.perf_counter()
+    with torch.inference_mode(), ThresholdRecorder(1) as cpu_rec:
+        cpu = stream_windows(cpu_model, video, True, keep=(0,))
+    cpu_s = time.perf_counter() - t0
+    c = video_window_check(card[0], cpu[0], card_rec.records[0], cpu_rec.records[0])
+    c.pop("frame1_flips")
+    if video_window_failures(c):
+        fail(f"alternative video window vs the CPU port: "
+             f"{'; '.join(video_window_failures(c))}: {c}")
+    return {"flags": ALT_VIDEO_FLAGS, "hw": list(ALT_VIDEO_HW), "pack": pack,
+            "launches": launches, "cpu_window_s": cpu_s, "cpu_check": c}
+
+
+def phase_alternatives(dev, detail) -> dict:
+    """Phase 17; returns the launches of its card work by kernel."""
+    from maggie_tpu_torch.flagship import blob_batch
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+    t0 = time.perf_counter()
+    request = blob_batch(H, W, N_INST, 0)
+    batch = {k: v.to(dev) for k, v in request.items()}
+    out, launches = {"models": {}}, {"gather_patches": 0, "gather_patches_bwd": 0,
+                                      "compute_unknown": 0}
+    out["as_default"] = alt_as_default()
+    for name, flags in ALTERNATIVES:
+        out["models"][name] = alt_frame(name, flags, dev, request, batch)
+        for k, v in out["models"][name]["launches_per_frame"].items():
+            launches[k] += v
+    # timing: every model in each round, so that the host's drift falls on all
+    windows = {(n, p): [] for n, _ in ALTERNATIVES for p in ("fp32", "bf16")}
+    with torch.inference_mode():
+        for r in range(ALT_ROUNDS):
+            for name, _ in ALTERNATIVES:
+                for prec, m in zip(("fp32", "bf16"), out["models"][name]["models"]):
+                    windows[name, prec].append(
+                        cuda_ms(lambda: m(batch), iters=ALT_FRAMES, warmup=2 if not r else 1))
+    for name, _ in ALTERNATIVES:
+        rec = out["models"][name]
+        del rec["models"]
+        rec["timing"] = {p: {"ms_per_frame_median": float(np.median(windows[name, p])),
+                             "windows_ms": windows[name, p]} for p in ("fp32", "bf16")}
+    torch.cuda.empty_cache()
+    out["gathers"] = alt_gathers(dev)
+    kg.launches = ku.launches = 0       # the comparisons' launches above are not the path's
+    out["video"] = alt_video(dev)
+    for k, v in out["video"]["launches"].items():
+        launches[k] += v
+    kg.launches = kg.bwd_launches = ku.launches = 0
+    step = card_vs_cpu_step(dev, ALT_TRAIN_FLAGS, ALT_TRAIN_BATCH, TRAIN_HW)
+    step["launches"] = {"gather_patches": kg.launches, "gather_patches_bwd": kg.bwd_launches,
+                        "compute_unknown": ku.launches}
+    step["flags"] = ALT_TRAIN_FLAGS
+    out["train_check"] = step
+    if not step["within"]:
+        fail(f"alternative train step on the card differs from the CPU port: {step}")
+    if step["launches"] != {"gather_patches": 10, "gather_patches_bwd": 6, "compute_unknown": 1}:
+        fail(f"alternative train step: launches {step['launches']}")
+    for k, v in step["launches"].items():
+        launches[k] += v
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t0
+    detail["alternatives"] = out
+    base = out["models"]["default"]["timing"]
+    for name, _ in ALT_AS_DEFAULT:
+        print(f"phase 17: {name}: builds the default model (its modules and seed-0 weights), "
+              f"so the default's numbers below are its own", flush=True)
+    for name, _ in ALTERNATIVES:
+        rec = out["models"][name]
+        t = rec["timing"]
+        check = rec.get("cpu_check")
+        print(f"phase 17: {name}: f32 {t['fp32']['ms_per_frame_median']:.3f} ms/frame "
+              f"(default {base['fp32']['ms_per_frame_median']:.3f}), bf16 "
+              f"{t['bf16']['ms_per_frame_median']:.3f} (default "
+              f"{base['bf16']['ms_per_frame_median']:.3f}); K1, K2 a frame "
+              f"{rec['launches_per_frame']['gather_patches']}, "
+              f"{rec['launches_per_frame']['compute_unknown']}"
+              + ("" if check is None else
+                 f"; CPU check: detail_mask diff {check['detail_mask_diff']} px "
+                 f"({check['near_threshold_pixels']} near-threshold), refined max |err| "
+                 f"{check['refined_max_abs_err_outside_flips']:.3g}, CPU forward "
+                 f"{rec['cpu_forward_s']:.1f} s"), flush=True)
+    for r in out["gathers"]:
+        print(f"phase 17: K1 {r['call']} {r['dtype']} {r['layout']} {r['shape']} ({r['block']}, "
+              f"{r['halo']}): kernel {r['ms'] * 1e3:.2f} us, over {r['cold_copies']} rotating "
+              f"copies {r['cold_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us, "
+              f"plain {r['plain_ms'] * 1e3:.2f} us, library {r['library_ms'] * 1e3:.2f} us",
+              flush=True)
+    v = out["video"]
+    c = v["cpu_check"]
+    print(f"phase 17: video window ({VIDEO_CONFIG}, lazy os2 + phase rung, {ALT_VIDEO_HW[0]}x"
+          f"{ALT_VIDEO_HW[1]}; pack {v['pack']}): launches {v['launches']}; vs the CPU port "
+          f"refined max |err| outside the region {c['refined_max_abs_err_outside_flips']:.3g}, "
+          f"flips {c['refined_flips']}, detail_mask diff {c['detail_mask_diff']} px; CPU window "
+          f"{v['cpu_window_s']:.1f} s", flush=True)
+    print(f"phase 17: train step with atten_stride 2 ({step['size']}), card vs CPU: "
+          f"loss terms max rel {step['loss_max_rel']:.3g}, gradients rel L2 "
+          f"{step['grad_rel_l2']:.3g}, params max |d| {step['param_max_abs']:.3g}, BN stats max "
+          f"|d| {step['batch_stats_max_abs']:.3g}; launches {step['launches']}; CPU step "
+          f"{step['cpu_step_s']:.1f} s", flush=True)
+    print(f"phase 17 done in {out['wall_s']:.1f} s; launches {launches}", flush=True)
+    return launches
+
+
+def alternatives_only(dev) -> int:
+    """``--alternatives``: build the kernels, then phase 17; details to
+    output/torch_port/chip_smoke_alternatives.json."""
+    from maggie_tpu_torch.ops.kernels import build
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                     "--format=csv,noheader"], capture_output=True,
+                                    text=True, check=True).stdout.strip(), flush=True)
+    build.build_all()
+    detail = {}
+    phase_alternatives(dev, detail)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_alternatives.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
     return 0
 

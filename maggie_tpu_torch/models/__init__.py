@@ -5,7 +5,19 @@ MaGGIe video model (arch ``MaGGIe_Temp``), the MGM baseline family (arch
 InstMatt ablation decoder ``res_shortcut_inst_matt_22`` and the plain
 ``ResNetD`` encoder ``res_encoder_29`` (which no harness takes: ROADMAP.md
 queue 3); and the passthrough arch ``Dummy`` (the input masks as the
-prediction). Every other name raises and points to ROADMAP.md."""
+prediction). Every other name raises and points to ROADMAP.md.
+
+The encoders take the JAX package's off-by-default flags ``s2d_stem`` and
+``lazy_os2_shortcut`` (``maggie_tpu/models/__init__.py:11-35``) and read
+neither: both are TPU forms of the same numbers. ``s2d_stem`` runs the 3x3
+stride-2 stem conv as a 2x2 conv on the space-to-depth input
+(``maggie_tpu/models/layers.py:66-72,101-119``), the same sum in another
+order; ``lazy_os2_shortcut`` defers ``shortcut.1`` to the ladder's patches
+at eval, which the JAX package asserts bit-equal to the dense branch
+(``tests/test_blocksparse.py:91-113``) and which computes 2.3x the dense
+map's sites at the bench's capacity. So the port runs the ordinary stem conv
+and the dense ``shortcut.1``; ``maggie.py`` keeps the JAX package's refusal
+of lazy os2 off ``block`` mode."""
 
 from __future__ import annotations
 
@@ -20,15 +32,8 @@ from .layers import init_weights
 _LATER = "is not ported yet; ROADMAP.md queue 1 lists the order of the port"
 
 
-def _refuse_off_by_default(args: dict) -> None:
-    for flag in ("lazy_os2_shortcut", "s2d_stem"):
-        if args.get(flag, False):
-            raise NotImplementedError(f"encoder_args.{flag} {_LATER} (item 14)")
-
-
 def _enc_res_shortcut_embed_29(args: dict) -> nn.Module:
     from .encoder import ResMaskEmbedShortCutD
-    _refuse_off_by_default(args)
     return ResMaskEmbedShortCutD(
         layers=(3, 4, 4, 2), num_mask=int(args.get("num_mask", 10)),
         num_embed=int(args.get("num_embed", 3)),
@@ -39,7 +44,6 @@ def _enc_res_shortcut_29(args: dict) -> nn.Module:
     """The MGM encoder: RGB | ``num_mask`` masks in, no mask embedding
     (``maggie_tpu/models/__init__.py:24-29``)."""
     from .encoder import ResShortCutD
-    _refuse_off_by_default(args)
     return ResShortCutD(3 + int(args.get("num_mask", 1)), (3, 4, 4, 2),
                         lazy_os1_shortcut=bool(args.get("lazy_os1_shortcut", False)))
 
@@ -48,7 +52,6 @@ def _enc_res_encoder_29(args: dict) -> nn.Module:
     """``ResNetD``: the trunk alone, returning the pyramid dict
     (``maggie_tpu/models/__init__.py:32-35``); input RGB | ``num_mask`` masks."""
     from .encoder import ResNetD
-    _refuse_off_by_default(args)
     return ResNetD(3 + int(args.get("num_mask", 1)), (3, 4, 4, 2))
 
 

@@ -47,16 +47,14 @@ class ResShortCutInstMattDec(nn.Module):
                  max_inst: int = 10, use_id_pe: bool = True, large_kernel: bool = False,
                  late_downsample: bool = False, **_unused):
         super().__init__()
-        if float(atten_stride) != 1.0:
-            raise NotImplementedError("atten_stride != 1 is not ported yet (ROADMAP.md queue 1 "
-                                      "item 14)")
         k = 5 if large_kernel else 3
         midplanes = 64 if late_downsample else 32
         self.layer1 = res_layer_dec(512, 256, layers[0], 2)
         self.layer2 = res_layer_dec(256, 128, layers[1], 2)
         self.refine_OS8 = InstanceMatteDecoder(
             input_dim=128, attention_dim=atten_dim, n_block=atten_block, n_head=atten_head,
-            output_dim=final_channel, max_inst=max_inst, use_id_pe=use_id_pe)
+            output_dim=final_channel, max_inst=max_inst, use_id_pe=use_id_pe,
+            atten_stride=atten_stride)
         self.layer3 = res_layer_dec(final_channel, 64, layers[2], 2)
         self.refine_OS4 = RefineHead(64, 32, max_inst, k)
         self.layer4 = res_layer_dec(64, midplanes, layers[3], 2)

@@ -29,8 +29,24 @@ train mode runs them as they are.
 
 Sparse heads are densified with the -99 sentinel, so inactive sites decode to
 alpha 0 after (tanh + 1) / 2 (reference ``:248-251,265-268``).
-``phase_rung`` and ``lazy_os2_shortcut`` are not ported (ROADMAP.md queue 1
-item 14).
+
+Off-by-default eval forms of the block ladder (``predict_details_block``):
+
+- the lazy os1 shortcut: the encoder's ``shortcut.0`` runs on gathered
+  patches of its input instead of the dense map, one K1 gather (the
+  default with ``block`` mode; ``lazy_os2_shortcut``, the same one octave
+  up, runs the dense branch: ``models/__init__.py``);
+- ``phase_rung``: rung 3 takes its input through a dense hand-off, as the JAX
+  package's phase-space rung 3 does (``maggie_tpu/models/decoder_sparse.py:355-360,
+  407-476``): rung 2's cores are scattered into a dense os2 buffer and gathered
+  again (K1), and ``fea1`` is gathered at os1 halo 4 (K1). The port runs the
+  ordinary modules on those windows; the phase-major channel layout is a TPU
+  lane layout and changes no number beyond summation order. Under capacity
+  overflow the hand-off differs from the default's: a halo next to an active
+  block that was dropped reads zeros from the buffer.
+
+``atten_stride`` > 1 runs the os8 attention on average-pooled features
+(``instance_decoder.py``).
 """
 
 from __future__ import annotations
@@ -63,6 +79,16 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 def _nchw(p: torch.Tensor) -> torch.Tensor:
     return p.permute(0, 3, 1, 2)
+
+
+def _inside(idx_by, idx_bx, block: int, lo: int, size: int, limit) -> torch.Tensor:
+    """(cap, 1, size, size) bool: the sites [b*block + lo, b*block + lo + size)
+    of each entry's window that lie inside the (h, w) map ``limit``."""
+    ar = torch.arange(lo, lo + size, device=idx_by.device)
+    ys = idx_by[:, None] * block + ar
+    xs = idx_bx[:, None] * block + ar
+    return (((ys >= 0) & (ys < limit[0]))[:, :, None]
+            & ((xs >= 0) & (xs < limit[1]))[:, None, :])[:, None]
 
 
 def _per_instance(x: torch.Tensor, n_i: int) -> torch.Tensor:
@@ -128,21 +154,18 @@ class ResShortCutInstMattSpconvDec(nn.Module):
                  sparse_mode: str = "oracle", block_cap_frac: float = 0.5,
                  phase_rung: bool = False, inst_spec_dropout: float = 0.1, **_unused):
         super().__init__()
-        if float(atten_stride) != 1.0:
-            raise NotImplementedError("atten_stride != 1 is not ported yet (see ROADMAP.md)")
-        if phase_rung:
-            raise NotImplementedError("phase_rung is not ported (ROADMAP.md queue 1 item 14)")
         if sparse_mode not in ("block", "oracle"):
             raise ValueError(f"sparse_mode must be 'block' or 'oracle', not {sparse_mode!r}")
         self.sparse_mode = sparse_mode
         self.block_cap_frac = float(block_cap_frac)
+        self.phase_rung = bool(phase_rung)
         k = 5 if large_kernel else 3
         fc = final_channel
         self.layer1 = res_layer_dec(512, 256, layers[0], 2)
         self.layer2 = res_layer_dec(256, 128, layers[1], 2)
         self.refine_OS8 = InstanceMatteDecoder(
             input_dim=128, attention_dim=atten_dim, n_block=atten_block, n_head=atten_head,
-            output_dim=fc, max_inst=max_inst, use_id_pe=use_id_pe)
+            output_dim=fc, max_inst=max_inst, use_id_pe=use_id_pe, atten_stride=atten_stride)
         self.inst_spec_layer = FFNLayer(fc, fc, dropout=inst_spec_dropout)
         act = nn.Identity  # activations are applied in forward; keeps reference indices
         # Sequential indices follow the reference definitions (:69-130)
@@ -222,7 +245,8 @@ class ResShortCutInstMattSpconvDec(nn.Module):
         """Fixed-capacity block-sparse form of ``predict_details`` (eval;
         ``maggie_tpu/models/decoder_sparse.py:189-405``). With capacity for every
         active block it equals the oracle; overflow drops the least-active blocks,
-        whose alpha then falls back to the os8 prediction."""
+        whose alpha then falls back to the os8 prediction. ``sc0``: the lazy
+        os1 shortcut's module and input, in place of ``fea1``."""
         B, n_i, H, W = roi_masks.shape
         N = B * n_i
         dt = os8_feat.dtype
@@ -241,12 +265,7 @@ class ResShortCutInstMattSpconvDec(nn.Module):
 
         def in_bounds(win, lo, blk, limit):
             # zero sites whose absolute index falls outside the dense map
-            ar = torch.arange(lo, lo + win.shape[-1], device=win.device)
-            ys = idx_by[:, None] * blk + ar
-            xs = idx_bx[:, None] * blk + ar
-            ok = (((ys >= 0) & (ys < limit[0]))[:, :, None]
-                  & ((xs >= 0) & (xs < limit[1]))[:, None, :])
-            return win * ok[:, None].to(win.dtype)
+            return win * _inside(idx_by, idx_bx, blk, lo, win.shape[-1], limit).to(win.dtype)
 
         # The mask pyramid of every window from ONE gather of the os1 mask (halo
         # 32) and in-patch max-pools: k3 s2, no padding, -inf init (:232-255).
@@ -286,29 +305,37 @@ class ResShortCutInstMattSpconvDec(nn.Module):
         f2p = gather(_nhwc(fea2), img_n, 32, 2) * m2p2.to(dt)
         z = self._smooth(self.layer4_smooth, f2p, z, m2p2)
 
-        # ---- rung 3: os2 -> os1 (core 64, os1 halo 3) ----
-        crop1 = lambda t: t[..., 1:71, 1:71]
-        z = self._inv_bn_subm(self.layer5, z, m2p2, m1p4, crop1)             # (cap,32,70,70)
-        m1p = crop1(m1p4)
-        if sc0 is not None:
-            # lazy os1 skip features (:377-391): gather the 6-channel encoder
-            # input with halo 5 and run shortcut.0 on the patches; [2:72] is the
-            # exactly-valid interior after two 3x3 convs. inner_mask zeroes the
-            # intermediate beyond the image border, where the dense branch's
-            # second conv saw zero padding.
-            sc0_fn, sc0_inp = sc0
-            p6 = gather(_nhwc(sc0_inp), img_n, 64, 5)                         # (cap,6,74,74)
-            ar = torch.arange(-5, 69, device=p6.device)
-            ys = idx_by[:, None] * 64 + ar
-            xs = idx_bx[:, None] * 64 + ar
-            inner = ((ys >= 0) & (ys < H))[:, :, None] & ((xs >= 0) & (xs < W))[:, None, :]
-            f1p = sc0_fn(p6, inner[:, None])[..., 2:72, 2:72] * m1p.to(dt)
+        # ---- rung 3: os2 -> os1 (core 64) ----
+        if self.phase_rung:
+            # the dense hand-off of the JAX package's phase-space rung 3
+            # (:355-360, :407-476): rung 2's cores through a dense os2 buffer,
+            # and every window at os1 halo 4, [-4, 68)
+            x2 = scatter_blocks(z[..., 2:34, 2:34].permute(0, 2, 3, 1), idx_n, idx_by, idx_bx,
+                                valid, (N, H // 2, W // 2, z.shape[1]), fill=0.0)
+            z = self._inv_bn_subm(self.layer5, gather(x2, idx_n, 32, 2), m2p2, m1p4)
+            m1p, lo = m1p4, 4                                                 # (cap,32,72,72)
+            f1p = gather(_nhwc(fea1), img_n, 64, 4) * m1p.to(dt)
         else:
-            f1p = gather(_nhwc(fea1), img_n, 64, 3) * m1p.to(dt)
+            # os1 halo 3, the input sliced from rung 2's patch stack
+            crop1 = lambda t: t[..., 1:71, 1:71]
+            z = self._inv_bn_subm(self.layer5, z, m2p2, m1p4, crop1)         # (cap,32,70,70)
+            m1p, lo = crop1(m1p4), 3
+            if sc0 is not None:
+                # lazy os1 skip features (:377-391): gather the 6-channel
+                # encoder input with halo 5 and run shortcut.0 on the patches;
+                # [2:72] is the exactly-valid interior after two 3x3 convs.
+                # inner_mask zeroes the intermediate beyond the image border,
+                # where the dense branch's second conv saw zero padding.
+                sc0_fn, sc0_inp = sc0
+                p6 = gather(_nhwc(sc0_inp), img_n, 64, 5)                     # (cap,6,74,74)
+                inner = _inside(idx_by, idx_bx, 64, -5, 74, (H, W))
+                f1p = sc0_fn(p6, inner)[..., 2:72, 2:72] * m1p.to(dt)
+            else:
+                f1p = gather(_nhwc(fea1), img_n, 64, 3) * m1p.to(dt)
         z = self._smooth(self.layer5_smooth, f1p, z, m1p)
         h1 = self._head(self.refine_OS1, z, m1p)
-        x_os1 = scatter_blocks(h1[..., 3:67, 3:67].permute(0, 2, 3, 1), idx_n, idx_by, idx_bx,
-                               valid, (N, H, W, 1), fill=SENTINEL)
+        x_os1 = scatter_blocks(h1[..., lo:lo + 64, lo:lo + 64].permute(0, 2, 3, 1), idx_n,
+                               idx_by, idx_bx, valid, (N, H, W, 1), fill=SENTINEL)
         return (x_os4[..., 0].reshape(B, n_i, H // 4, W // 4),
                 x_os1[..., 0].reshape(B, n_i, H, W))
 
@@ -421,14 +448,22 @@ class ResShortCutInstMattSpconvDec(nn.Module):
         """The os8 instance attention (the video decoder adds its memory)."""
         return self.refine_OS8(z, masks5, gt_masks, use_mask_atten)
 
+    def _lazy_shortcut(self, mid_fea: dict):
+        """The lazy os1 shortcut's (module, input), None where the encoder
+        gave the dense ``fea1``; the JAX package's error for the forms that
+        cannot take it (``:509-511``)."""
+        if mid_fea["shortcut"][0] is not None:
+            return None
+        if self.sparse_mode != "block" or self.phase_rung:
+            raise ValueError("lazy os1 shortcut requires sparse_mode='block' without phase_rung")
+        return mid_fea["shortcut0_fn"], mid_fea["shortcut0_input"]
+
     def _decode(self, x, mid_fea, b, n_f, n_i, masks, mem_feat=None):
         """The eval forward's result, and the os8 features and the attention's
         hidden state."""
         fea1, fea2, fea3, fea4, fea5 = mid_fea["shortcut"]
         h, w = mid_fea["image"].shape[2:]
-        sc0 = (mid_fea["shortcut0_fn"], mid_fea["shortcut0_input"]) if fea1 is None else None
-        if sc0 is not None and self.sparse_mode != "block":
-            raise ValueError("lazy os1 shortcut requires sparse_mode='block'")
+        sc0 = self._lazy_shortcut(mid_fea)
         masks5 = masks.reshape((b, n_f) + masks.shape[1:])
         z = self.layer1(x) + fea5
         z = self.layer2(z) + fea4

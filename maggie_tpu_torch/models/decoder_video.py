@@ -174,9 +174,7 @@ class ResShortCutInstMattSpconvTempDec(ResShortCutInstMattSpconvDec):
                       mem_feat) -> dict:
         fea1, fea2, fea3, fea4, fea5 = mid_fea["shortcut"]
         h, w = mid_fea["image"].shape[2:]
-        sc0 = (mid_fea["shortcut0_fn"], mid_fea["shortcut0_input"]) if fea1 is None else None
-        if sc0 is not None and self.sparse_mode != "block":
-            raise ValueError("lazy os1 shortcut requires sparse_mode='block'")
+        sc0 = self._lazy_shortcut(mid_fea)
         masks5 = masks.reshape((b, n_f) + masks.shape[1:])
         z = per_frame(lambda e, f5, f4: self.layer2(self.layer1(e) + f5) + f4, x, fea5, fea4)
         x_os8_logit, feat8, queries, _, hidden = self._attend(z, masks5, None, False, mem_feat)

@@ -8,7 +8,12 @@ cross-attention, FFN, token self-attention, feat<-token cross-attention), a fina
 token<-feat cross-attention, and the token-feature product that gives one matte
 logit map per instance slot.
 
-This port runs ``atten_stride`` 1. With ``use_temp_pe`` the positional
+``atten_stride`` s > 1 (``maggie_tpu/models/instance_decoder.py:58-66,205-209``)
+runs the attention on the features average-pooled by s (f32, VALID), with
+the guidance masks pooled to that size too, then resizes the attended map
+back by s (bilinear, align_corners True) and adds ``ori_feat_proj``, a 1x1
+conv of the un-pooled features; an os8 side that s does not divide raises
+``ValueError`` (the JAX package fails at that add). With ``use_temp_pe`` the positional
 embedding's last ``C - 2 * (C // 8 * 3)`` channels are the frame's sine
 embedding (``position_encoding.py``) and the ID table is that much narrower
 (``maggie_tpu/models/instance_decoder.py:52-55,74-79,103-117``); no config
@@ -28,13 +33,13 @@ from .. import parallel
 from .attention import CrossAttentionLayer, FFNLayer, SelfAttentionLayer
 from .layers import MLP, BatchNorm, Conv2d, Embedding, LayerNorm, per_frame
 from .position_encoding import temporal_position_embedding_sine
-from ..ops.resize import avg_pool2d, resize_any_shape
+from ..ops.resize import avg_pool2d, resize_any_shape, resize_bilinear
 
 
 class InstanceMatteDecoder(nn.Module):
     def __init__(self, input_dim: int = 256, attention_dim: int = 256, n_block: int = 2,
                  n_head: int = 4, output_dim: int = 32, max_inst: int = 10,
-                 use_id_pe: bool = True, use_temp_pe: bool = False):
+                 use_id_pe: bool = True, use_temp_pe: bool = False, atten_stride: float = 1.0):
         super().__init__()
         self.attention_dim, self.n_block, self.max_inst = attention_dim, n_block, max_inst
         self.use_id_pe = use_id_pe
@@ -59,6 +64,10 @@ class InstanceMatteDecoder(nn.Module):
             BatchNorm(attention_dim), nn.LeakyReLU(0.2),
             Conv2d(attention_dim, output_dim, 1, bias=False),
             BatchNorm(output_dim), nn.LeakyReLU(0.2))
+        # the JAX package's test of the stride (a float): s = int(atten_stride)
+        self.atten_stride = int(atten_stride) if float(atten_stride) > 1.0 else None
+        if self.atten_stride is not None:
+            self.ori_feat_proj = Conv2d(input_dim, attention_dim, 1, bias=False)
 
     def _attention_masks(self, gm: torch.Tensor, b: int, n_f: int, h: int, w: int):
         """Train mode (``maggie_tpu/models/instance_decoder.py:135-154``): from
@@ -96,6 +105,15 @@ class InstanceMatteDecoder(nn.Module):
         with the guidance masks. In eval the loss is 0."""
         dt = feat.dtype
         b, n_f = mask.shape[:2]
+        ori_feat, s = feat, self.atten_stride
+        if s is not None:
+            h8, w8 = feat.shape[2:]
+            if h8 % s or w8 % s:
+                raise ValueError(
+                    f"atten_stride {s} needs os8 features whose sides it divides, got "
+                    f"{h8}x{w8}: pooled to {h8 // s}x{w8 // s} and resized back, the "
+                    f"attended map would be {h8 // s * s}x{w8 // s * s}")
+            feat = avg_pool2d(feat, s)
         h, w = feat.shape[2], feat.shape[3]
         c = self.attention_dim
         if w < mask.shape[-1]:
@@ -166,6 +184,9 @@ class InstanceMatteDecoder(nn.Module):
 
         # (h*w*n_f, b, c) -> (b*n_f, c, h, w)
         fm = feat_seq.reshape(h, w, n_f, b, c).permute(3, 2, 4, 0, 1).reshape(b * n_f, c, h, w)
+        if s is not None:
+            h, w = ori_feat.shape[2:]
+            fm = self.ori_feat_proj(ori_feat) + resize_bilinear(fm, (h, w), align_corners=True)
         # the conv stack is frame-local: in eval it runs one frame at a time
         # (layers.per_frame); train-mode BatchNorm needs the whole batch
         smooth = self.conv if self.training else (lambda t: per_frame(self.conv, t))

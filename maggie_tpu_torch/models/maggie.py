@@ -84,6 +84,13 @@ class MaGGIe(nn.Module):
                 and "lazy_os1_shortcut" not in enc_args
                 and cfg["encoder"] in _LAZY_OS1_ENCODERS):
             enc_args["lazy_os1_shortcut"] = True
+        # encoder_args.lazy_os2_shortcut runs the dense shortcut.1 (the same
+        # numbers: models/__init__.py); the JAX package refuses it at eval off
+        # block mode (maggie_tpu/models/decoder_sparse.py:514-515), and so does
+        # the port
+        self.lazy_os2_off_block = (bool(enc_args.get("lazy_os2_shortcut", False))
+                                   and cfg["decoder"] in _SPARSE_DECODERS
+                                   and cfg["decoder_args"].get("sparse_mode") != "block")
         self.encoder = build_encoder(cfg["encoder"], enc_args)
         if getattr(self.encoder, "returns_pyramid", False):
             # maggie_tpu/models/maggie.py:135 unpacks two values from it and fails
@@ -235,6 +242,8 @@ class MaGGIe(nn.Module):
         algorithm for another batch size (oneDNN on the CPU does, for the
         deeper maps), and a frame's features must not depend on the window
         that encoded it for a rolled pack to equal a fresh one bit for bit."""
+        if self.lazy_os2_off_block:
+            raise ValueError("lazy os2 shortcut requires sparse_mode='block'")
         inp, masks, _, _ = self._inputs(batch, train=False)
         packs = [self._encode(inp[i:i + 1]) for i in range(inp.shape[0])]
         feats = {k: torch.cat([p[k] for p in packs]) if len(packs) > 1 else packs[0][k]

@@ -90,7 +90,10 @@ def load_model_weights(model: nn.Module, cfg) -> nn.Module:
       reference's ``state_dict`` (optionally under a ``state_dict`` key)
       loads straight into the port's modules, which carry the reference's
       names (strict, less the unused ``decoder.dummy_downscale`` weights, as
-      the JAX package's converter drops them);
+      the JAX package's converter drops them); a model with ``atten_stride``
+      > 1 needs its ``ori_feat_proj`` weight there, which no released
+      checkpoint is known to hold, and a file without it raises ``KeyError``
+      naming the route through the JAX package's ``.npz``;
     - a ``.npz`` of the JAX package's variables (``save_variables_npz``) goes
       through ``convert_jax``;
     - an empty ``weights`` keeps the seeded init, with a warning.
@@ -126,6 +129,12 @@ def load_model_weights(model: nn.Module, cfg) -> nn.Module:
         # the reference's index-book convs: their weights are never used, and
         # the port derives the active sets itself (models/sparse_layers.py)
         sd = {k: v for k, v in sd.items() if ".dummy_downscale." not in k}
+        proj = [k for k in model.state_dict() if ".ori_feat_proj." in k and k not in sd]
+        if proj:
+            raise KeyError(f"{path!r} has no {proj[0]}, the 1x1 projection that "
+                           f"model.decoder_args.atten_stride > 1 adds; no torch checkpoint "
+                           f"reader maps it (ROADMAP.md queue 3): carry such weights from the "
+                           f"JAX package as a .npz (save_variables_npz), or use atten_stride 1")
     else:
         raise FileNotFoundError(f"Cannot load weights from {weights!r}: this kind of "
                                 f"checkpoint (an orbax dir or a hub id) {_NOT_PORTED}")

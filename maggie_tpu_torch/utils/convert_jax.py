@@ -14,6 +14,15 @@ reference's. The map is chosen by the model's own names (``_layout``): the
 MaGGIe encoder (``mask_embed_layer``) sits under ``encoder_mod/backbone`` in
 JAX, the MGM encoder directly under ``encoder_mod`` (``:256-268``).
 
+``atten_stride`` > 1 adds the instance decoder's ``ori_feat_proj`` (a 1x1
+conv, ``decoder.refine_OS8.ori_feat_proj.weight`` here, JAX
+``refine_OS8_mod/ori_feat_proj/weight``) to the image, dense InstMatt and
+video decoders. This module maps it; no ``.pth`` reader on either side does
+(the JAX package's ``convert_torch.py`` has no entry for it, and no released
+checkpoint with the stride is known), so such a model's weights come across
+from the JAX package only, and ``checkpoint.load_model_weights`` refuses a
+torch file without it.
+
 SparseMat's map is the port's own (``_KeyMap.sparsemat``): its torch names
 mirror the JAX package's, because the reference's SparseMat names cannot be
 read here and the JAX package's converter maps no SparseMat key. So a released
@@ -158,6 +167,7 @@ class _KeyMap:
         self.bn(f"{tkey}.conv.1", f"{dst}/conv_bn0")
         self.conv(f"{tkey}.conv.3", f"{dst}/conv_1")
         self.bn(f"{tkey}.conv.4", f"{dst}/conv_bn1")
+        self.conv(f"{tkey}.ori_feat_proj", f"{dst}/ori_feat_proj")    # atten_stride > 1
 
     def video_decoder(self, tkey, dst):
         """The video decoder's own modules (``Converter.maggie(video=True)``)."""
