@@ -13,6 +13,7 @@
     python3 chip_smoke.py --demo
     python3 chip_smoke.py --tools
     python3 chip_smoke.py --alternatives
+    python3 chip_smoke.py --space
 
 The second form only answers requests 0 and 1 in f32 and bf16 and saves the
 outputs to PATH; with REF, saved by the same form from another version, it
@@ -23,7 +24,8 @@ video path only: phase 2's video shapes and phase 8. The fifth runs video
 training only: phase 2's video train shapes and phase 9. The sixth runs
 phase 10 alone, the seventh phase 11 alone, the eighth phase 12 alone, the
 ninth phase 13 alone, the tenth phase 14 alone, the eleventh phase 15
-alone, the twelfth phase 16 alone, the thirteenth phase 17 alone.
+alone, the twelfth phase 16 alone, the thirteenth phase 17 alone, the
+fourteenth phase 18 alone (in a rank pair of its own) with 18's dryrun.
 
 Phases (any failure exits non-zero):
 1. print the card's name and power limit; build the CUDA kernels from the
@@ -149,12 +151,14 @@ Phases (any failure exits non-zero):
    process on the card on the same global batch within phase 6's STEP_*
    limits, the ranks' models equal bit for bit after the update, K1, its
    backward and K2 launched 10 / 6 / 1 times (selective 20 / 6 / 2) a step
-   on each rank, and the ladder without overflow; 11.2 the video step the
-   same way on two clips of 3 frames at 512x512, a clip a rank; ms/step
-   (CUDA events, steps 2-3) and peak memory per rank beside one process's;
-   11.3 ``torchrun --standalone --nproc_per_node 1 -m maggie_tpu_torch.main``
-   (NCCL) trains phase 7's set for 2 iterations and must log the losses of
-   the same run without torchrun. ``--ddp`` runs phase 11 alone.
+   on each rank, and the ladder without overflow; ms/step (CUDA events,
+   steps 2-3) and peak memory per rank beside one process's; 11.2 the video
+   step the same way on two clips of 3 frames at 512x512, a clip a rank;
+   11.3 ``torchrun --standalone --nproc_per_node 1 -m
+   maggie_tpu_torch.main`` (NCCL) trains phase 7's set for 2 iterations
+   and must log the losses of the same run without torchrun. The rank pair
+   also runs 14.3's and phase 18's steps. ``--ddp`` runs phase 11 alone
+   (with 14.3 and 18).
 12. the MGM baseline family (``configs/mgm*.yaml``) at full width from seed
    0: 12.1 ``mgm`` (arch MGM_SingInst) and ``mgm_stacked`` answer 2 frames
    (576x1024, 3 blob instances) in f32 with TF32 off, K2 launched twice a
@@ -210,9 +214,9 @@ Phases (any failure exits non-zero):
    out-of-memory batch reported) with phase 10.3's fit through 14.1's
    point; 14.3 ``mgm_stacked_tcvom`` (2 clips of
    3, a clip a rank) and ``sparsemat_image`` (2 images) on two gloo ranks
-   on the card, plain and selective, against one process on the card
-   within STEP_*, the ranks bit-equal. ``--baselines-train`` runs phase 14
-   alone.
+   on the card, plain and under selective, against one process on the card
+   within STEP_*, the ranks bit-equal: run in phase 11's rank pair (after 11.1-11.2) and
+   checked there. ``--baselines-train`` runs 14.1-14.2 alone.
 15. the demo's serving path (``maggie_tpu_torch/demo/``): the flagship
    image and video models' seed-0 weights written as ``.safetensors`` with
    numpy; ``demo.app.launch_http`` on a free port in this process, on the
@@ -254,9 +258,22 @@ Phases (any failure exits non-zero):
    (phase 8's check); one step at batch 1 x 512x512 (phase 6's frame size)
    with ``atten_stride 2`` against the CPU within STEP_*.
    ``--alternatives`` runs phase 17 alone.
+18. row sharding (``maggie_tpu_torch/parallel/space.py``), in phase 11's
+   rank pair after 14.3: the flagship step at full width on one 1024x1024
+   frame (3 instances in 10 slots, cap 0.5, f32) with its rows split over
+   a space group of the two gloo ranks (``space.shard_batch_2d``), against
+   one process on the whole frame on the card within STEP_*: the ranks
+   bit-equal, each rank's block selection the one process's, K1 10 / its
+   backward 6 / K2 1 launches on each rank; each geometry K1, its backward
+   and K2 met on a rank (band-plus-halo maps, the band's entries) held
+   against the plain twins (equal bits); ms/step (median of steps 2-3) and
+   the step's peak memory above its start per rank beside one process's
+   (the rank's must be lower); then ``maggie_tpu_torch.dryrun.dryrun_multichip(2)``
+   on the card beside 11.3's CLI runs. ``--space`` runs phase 18 alone.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's ``ddp_launches``: its
-launches over the ranks' checked steps of 11.1 and 11.2; ``baseline_launches``:
+launches over the ranks' checked steps of 11.1 and 11.2; ``space_launches``:
+over phase 18's ranks' checked step; ``baseline_launches``:
 phase 12.1's and 12.2's; ``sparsemat_launches``: phase 13.4's;
 ``baseline_train_launches``: phase 14.1's; ``demo_launches``: phase 15's
 requests; ``tools_launches``: phase 16.1's eval; ``alternatives_launches``:
@@ -266,10 +283,10 @@ phase 17's models, video window and step) and the card line, and last
 ``chip_smoke_remat.json``, ``chip_smoke_ddp.json``,
 ``chip_smoke_baselines.json``, ``chip_smoke_sparsemat.json``,
 ``chip_smoke_baselines_train.json``, ``chip_smoke_demo.json``,
-``chip_smoke_tools.json`` and ``chip_smoke_alternatives.json`` for
-``--video``, ``--video-train``, ``--remat``, ``--ddp``, ``--baselines``,
-``--sparsemat``, ``--baselines-train``, ``--demo``, ``--tools`` and
-``--alternatives``).
+``chip_smoke_tools.json``, ``chip_smoke_alternatives.json`` and
+``chip_smoke_space.json`` for ``--video``, ``--video-train``, ``--remat``,
+``--ddp``, ``--baselines``, ``--sparsemat``, ``--baselines-train``,
+``--demo``, ``--tools``, ``--alternatives`` and ``--space``).
 """
 
 from __future__ import annotations
@@ -834,6 +851,8 @@ def main() -> int:
         return tools_only()
     if "--alternatives" in sys.argv:
         return alternatives_only(torch.device("cuda"))
+    if "--space" in sys.argv:
+        return space_only(torch.device("cuda"))
     if "--gather-bwd" in sys.argv:
         print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                          "--format=csv,noheader"], capture_output=True,
@@ -1023,12 +1042,16 @@ def main() -> int:
     # ---- phase 11: data parallel, two ranks on the card and torchrun ----
     torch.cuda.empty_cache()
     # 11.3's CLI processes wait with phases 13 and 17's CPU steps beside them
-    ddp = phase_ddp(dev, detail, [sm_step(*c) for c in SM_CHECK_STEPS]
-                    + [flagship_step(ALT_TRAIN_FLAGS, ALT_TRAIN_BATCH, TRAIN_HW)])
+    # 14.3 and phase 18 run in phase 11's rank pair
+    ddp, space_launches = phase_ddp(dev, detail, [sm_step(*c) for c in SM_CHECK_STEPS]
+                                    + [flagship_step(ALT_TRAIN_FLAGS, ALT_TRAIN_BATCH, TRAIN_HW)])
     for kern in kernels:
         kern["ddp_launches"] = ddp[kern["name"]]
+        kern["space_launches"] = space_launches[kern["name"]]
 
     lap("11")
+    laps["18"] = detail["ddp"]["space"]["phase_s"]
+    laps["11"] -= laps["18"]
     # ---- phase 12: the MGM baseline family ----
     torch.cuda.empty_cache()
     baselines = phase_baselines(dev, detail)
@@ -1073,8 +1096,9 @@ def main() -> int:
     lap("17")
     detail["phases_s"] = time.perf_counter() - t_start
     detail["phase_s"] = laps
-    print(f"phases 1-17 done in {detail['phases_s']:.1f} s (from main(), imports not counted); "
-          f"by phase {json.dumps({k: round(v, 1) for k, v in laps.items()})}", flush=True)
+    print(f"phases 1-18 done in {detail['phases_s']:.1f} s (from main(), imports not counted); "
+          f"by phase {json.dumps({k: round(v, 1) for k, v in laps.items()})} (18 ran in 11's "
+          f"rank pair, 14.3 too)", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
@@ -3186,7 +3210,8 @@ def ddp_selection(record: list, split: int = 1):
         h, w = mask.shape[1] // block, mask.shape[2] // block
         scores = mask[:, :h * block, :w * block].reshape(-1, h, block, w, block).sum((2, 4))
         keep = valid.nonzero()[:, 0]
-        blocks = torch.stack([idx_n[keep] + parallel.rank() * mask.shape[0], by[keep], bx[keep]], 1)
+        blocks = torch.stack([idx_n[keep] + parallel.data_rank() * mask.shape[0], by[keep],
+                              bx[keep]], 1)
         record.append({"cap": cap, "active": int((scores > 0).sum()), "kept": int(valid.sum()),
                        "blocks": sorted(map(tuple, blocks.tolist()))})
         return idx_n, by, bx, valid
@@ -3203,6 +3228,7 @@ def ddp_timed_steps(model, cfg, batch, dev, remat: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
     ms = []
     for _ in range(DDP_TIMED_STEPS):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -3212,7 +3238,7 @@ def ddp_timed_steps(model, cfg, batch, dev, remat: str) -> dict:
         torch.cuda.synchronize()
         ms.append(start.elapsed_time(end))
     return {"ms_per_step_median": float(np.median(ms[1:])), "ms_per_step": ms,
-            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(), "start_bytes": start_bytes}
 
 
 def ddp_steps(model, cfg, batch, dev, modes, split: int = 1, timed: bool = True) -> dict:
@@ -3257,14 +3283,20 @@ def ddp_rank_main(case: str, in_path: str, out_path: str) -> int:
                                  timeout=timedelta(seconds=DDP_GROUP_TIMEOUT_S))
     try:
         res = []
-        for run in p.get("runs", [p]):   # 11.1-11.2 and 14.3 run several configs in one pair
+        for run in p.get("runs", [p]):   # 11.1-11.2, 14.3 and 18 run in one pair
+            t0 = time.perf_counter()
             cfg = ConfigNode(run["cfg"])
             model = build_model(cfg.model, device=dev)
             model.load_state_dict(run["state"])
-            rows = parallel.shard_rows(run["batch"], parallel.rank(), parallel.world())
-            res.append(ddp_steps(model, cfg, {k: v.to(dev) for k, v in rows.items()}, dev,
-                                 run["modes"], timed=run.get("timed", True)))
-            del model, rows
+            if run.get("space", 1) > 1:
+                res.append(space_rank_run(model, cfg, run, dev))
+            else:
+                rows = parallel.shard_rows(run["batch"], parallel.rank(), parallel.world())
+                res.append(ddp_steps(model, cfg, {k: v.to(dev) for k, v in rows.items()}, dev,
+                                     run["modes"], timed=run.get("timed", True)))
+                del rows
+            res[-1]["seconds"] = time.perf_counter() - t0
+            del model
             torch.cuda.empty_cache()
         torch.save(res if "runs" in p else res[0], out_path)
     finally:
@@ -3533,34 +3565,298 @@ def ddp_video_check(dev, run: dict, ranks: list) -> tuple[dict, dict]:
     return out, launches
 
 
-def phase_ddp(dev, detail, ahead=()) -> dict:
-    """Phase 11: 11.1 and 11.2 in one pair of rank processes
-    (``ddp_image_run``, ``ddp_video_run``, then each one's check against one
-    process), 11.3 ``ddp_cli``, with the ``cpu_step`` specs ``ahead`` computed
-    beside it (``cpu_steps_meanwhile``).
-    Returns each kernel's launches over the ranks' checked steps."""
+# ---------------------------------------------------------------- phase 18
+# Row sharding (maggie_tpu_torch/parallel/space.py): the flagship step at
+# full width on one 1024x1024 frame (3 instances in 10 slots, cap 0.5, f32),
+# its rows split over a space group of two gloo ranks on the card (1 x 2),
+# run in phase 11's rank pair after 11.1-11.2 and 14.3, against one process
+# on the whole frame. Each rank runs the bands' dense stages and its
+# blocks of the ladder (K1 at 10 sites, its backward at 6, K2 once) and the
+# os8 stages on the whole frame.
+SPACE_HW = 1024
+SPACE_N_INST = 3
+SPACE = 2
+
+
+def space_run() -> dict:
+    """Phase 18's run for the ranks: the flagship (seed 0) and its batch."""
+    from maggie_tpu_torch.flagship import flagship_cfg, train_batch
+    from maggie_tpu_torch.models import build_model
+    cfg = flagship_cfg()
+    state = build_model(cfg.model, device="cpu",
+                        generator=torch.Generator().manual_seed(0)).state_dict()
+    batch = train_batch(1, SPACE_HW, SPACE_HW, SPACE_N_INST, seed=0)
+    return {"cfg": cfg.to_dict(), "state": state, "batch": batch, "modes": ("none",),
+            "space": SPACE}
+
+
+@contextlib.contextmanager
+def kernel_calls():
+    """Records the inputs' geometry of every K1, K1 backward and K2 launch
+    (first occurrence of each geometry), indices on the host."""
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+    calls = {"gather": {}, "gather_bwd": {}, "unknown": {}}
+    fwd, bwd, k2 = kg._forward, kg.gather_patches_bwd, ku._launch
+
+    def rec_fwd(feat, idx_n, idx_by, idx_bx, block, halo):
+        layout = "pixel" if feat.is_contiguous() else "plane"
+        key = (tuple(feat.shape), layout, str(feat.dtype), block, halo, idx_n.shape[0])
+        calls["gather"].setdefault(key, [t.cpu() for t in (idx_n, idx_by, idx_bx)])
+        return fwd(feat, idx_n, idx_by, idx_bx, block, halo)
+
+    def rec_bwd(g, idx_n, idx_by, idx_bx, shape, block, halo, plane=False):
+        key = (tuple(shape), "plane" if plane else "pixel", str(g.dtype), block, halo,
+               idx_n.shape[0])
+        calls["gather_bwd"].setdefault(key, [t.cpu() for t in (idx_n, idx_by, idx_bx)])
+        return bwd(g, idx_n, idx_by, idx_bx, shape, block, halo, plane)
+
+    def rec_k2(masks, k_size):
+        calls["unknown"].setdefault((tuple(masks.shape), k_size), None)
+        return k2(masks, k_size)
+    kg._forward, kg.gather_patches_bwd, ku._launch = rec_fwd, rec_bwd, rec_k2
+    try:
+        yield calls
+    finally:
+        kg._forward, kg.gather_patches_bwd, ku._launch = fwd, bwd, k2
+
+
+def space_kernel_checks(calls: dict, dev) -> dict:
+    """K1, its backward and K2 at every geometry the row-sharded step gave
+    them (band-plus-halo maps, the bands' entries) against their plain
+    twins on random inputs of those shapes: equal bits."""
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+    out, worst = {"gather": [], "gather_bwd": [], "unknown": []}, {"unknown": 0.0}
+    for i, ((shape, layout, dtype, block, halo, cap), idx) in enumerate(calls["gather"].items()):
+        idx = [t.to(dev) for t in idx]
+        feat = gather_map(shape, layout, getattr(torch, dtype.split(".")[1]), dev, seed=i)
+        got = kg.gather_patches(feat, *idx, block, halo)
+        ref = kg.gather_patches_plain(feat, *idx, block, halo)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"phase 18: K1 at {shape} {layout} ({block}, {halo}) != its plain twin")
+        out["gather"].append({"shape": list(shape), "layout": layout, "dtype": dtype,
+                              "block": block, "halo": halo, "cap": cap, "equal": True})
+    for i, ((shape, layout, dtype, block, halo, cap), idx) in enumerate(
+            calls["gather_bwd"].items()):
+        idx = [t.to(dev) for t in idx]
+        size = block + 2 * halo
+        g = torch.randn((cap, size, size, shape[-1]), generator=torch.Generator().manual_seed(i))
+        check_bwd(f"space_{block}_{halo}", g.to(dev, getattr(torch, dtype.split(".")[1])), idx,
+                  shape, block, halo, layout, out, worst)
+    for i, (shape, k) in enumerate(calls["unknown"]):
+        a = torch.rand(shape, generator=torch.Generator().manual_seed(i)).to(dev)
+        check_unknown(a, k, "space band", out, worst)
+    return out
+
+
+def space_rank_run(model, cfg, run: dict, dev) -> dict:
+    """A rank's phase-18 run: the space group (``space.init_groups``), its
+    band of the batch (``space.shard_batch_2d``), ``ddp_steps`` with every
+    kernel call's geometry recorded in the checked step, then those
+    geometries against the plain twins."""
+    from maggie_tpu_torch import parallel
+    from maggie_tpu_torch.parallel import space
+    space.init_groups(run["space"])
+    try:
+        rows = space.shard_batch_2d(run["batch"], parallel.rank(), parallel.world(),
+                                    run["space"])
+        with kernel_calls() as calls:
+            res = ddp_steps(model, cfg, {k: v.to(dev) for k, v in rows.items()}, dev,
+                            run["modes"])
+        res["kernel_checks"] = space_kernel_checks(calls, dev)
+        return res
+    finally:
+        space.init_groups(1)
+
+
+def space_check(dev, run: dict, ranks: list) -> dict:
+    """Phase 18: the ranks' row-sharded step against one process on the
+    whole frame on the card within phase 6's STEP_* limits (the loss terms'
+    rank parts summed), the ranks bit-equal, each rank's selection the one
+    process's, K1 10 / its backward 6 / K2 1 launched on each rank; their
+    ms/step and peak memory beside the one process's."""
+    from maggie_tpu_torch.config import ConfigNode
+    from maggie_tpu_torch.models import build_model
+    cfg = ConfigNode(run["cfg"])
+    model = build_model(cfg.model, device=dev)
+    model.load_state_dict(run["state"])
+    single = ddp_steps(model, cfg, {k: v.to(dev) for k, v in run["batch"].items()}, dev,
+                       ("none",))["none"]
+    del model
+    torch.cuda.empty_cache()
+    got = [r["none"] for r in ranks]
+    differ = [f"{part} {k}" for part in ("params", "batch_stats", "spectral", "grads")
+              for k, v in got[0][part].items() if not torch.equal(v, got[1][part][k])]
+    if differ:
+        fail(f"phase 18: the space ranks' models differ after the step at {differ[:5]}")
+    losses = {k: sum(r["losses"][k] for r in got) for k in got[0]["losses"]}
+    check = compare_steps(dict(got[0], losses=losses), single)
+    if not check["within"]:
+        fail(f"phase 18: space {SPACE} differs from one process beyond the STEP_* limits: "
+             f"{check}")
+    for r, res in enumerate(got):
+        if res["selections"] != single["selections"]:
+            fail(f"phase 18: space rank {r} selected other blocks than one process")
+        if res["launches"] != PER_ITER:
+            fail(f"phase 18: space rank {r} launched {res['launches']}, not {PER_ITER}")
+    checks = ranks[0]["kernel_checks"]
+    check.update(
+        launches_per_rank=[r["launches"] for r in got],
+        launches_one_process=single["launches"],
+        selection={k: v for k, v in single["selections"][0].items() if k != "blocks"},
+        ms_per_step_ranks=[r["ms_per_step_median"] for r in got],
+        ms_per_step_one_process=single["ms_per_step_median"],
+        peak_mem_bytes_ranks=[r["peak_mem_bytes"] for r in got],
+        peak_above_start_bytes_ranks=[r["peak_mem_bytes"] - r["start_bytes"] for r in got],
+        peak_mem_bytes_one_process=single["peak_mem_bytes"],
+        peak_above_start_bytes_one_process=single["peak_mem_bytes"] - single["start_bytes"],
+        rank_seconds=[r["seconds"] for r in ranks],
+        kernel_geometries={k: len(v) for k, v in checks.items()}, kernel_checks=checks)
+    ratio = max(check["peak_above_start_bytes_ranks"]) / check["peak_above_start_bytes_one_process"]
+    check["peak_ratio"] = ratio
+    if ratio >= 1.0:
+        fail(f"phase 18: a space rank's peak ({check['peak_above_start_bytes_ranks']}) is not "
+             f"below one process's ({check['peak_above_start_bytes_one_process']})")
+    print(f"phase 18: space {SPACE} ({SPACE_HW}x{SPACE_HW}, {SPACE_N_INST} instances in "
+          f"{TRAIN_SLOTS} slots, two gloo ranks on one card) vs one process: loss terms max rel "
+          f"{check['loss_max_rel']:.3g}, gradients rel L2 {check['grad_rel_l2']:.3g}, params max "
+          f"|d| {check['param_max_abs']:.3g}, BN stats {check['batch_stats_max_abs']:.3g}, SN "
+          f"u/v {check['spectral_max_abs']:.3g}; ranks bit-equal, selections equal "
+          f"({check['selection']}); launches per rank {check['launches_per_rank'][0]}; "
+          f"ms/step ranks {[round(v, 3) for v in check['ms_per_step_ranks']]} vs one process "
+          f"{check['ms_per_step_one_process']:.3f}; step peak above start per rank "
+          f"{[round(v / 2 ** 30, 3) for v in check['peak_above_start_bytes_ranks']]} GiB vs one "
+          f"process {check['peak_above_start_bytes_one_process'] / 2 ** 30:.3f} GiB (ratio "
+          f"{ratio:.3f}; absolute peaks {[round(v / 2 ** 30, 3) for v in check['peak_mem_bytes_ranks']]}"
+          f" vs {check['peak_mem_bytes_one_process'] / 2 ** 30:.3f} GiB); kernels equal to "
+          f"their twins at {check['kernel_geometries']} band geometries", flush=True)
+    return check
+
+
+def space_dryrun_start() -> tuple:
+    """``python -m maggie_tpu_torch.dryrun 2`` started on the card (data 2,
+    gloo ranks on one card, against one process in its own), as a user
+    runs it: a process of its own, which shares no module state with this
+    one."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH", "")]))
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "maggie_tpu_torch.dryrun", "2"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def space_dryrun_wait(started) -> dict:
+    """The dryrun's result: fails the script unless it printed its OK line
+    and exited 0 (it raises unless it equals one process)."""
+    t0, proc = started
+    try:
+        log = proc.communicate(timeout=DDP_TIMEOUT_S)[0]
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"dryrun_multichip(2) ran past {DDP_TIMEOUT_S} s")
+    ok = [line for line in log.splitlines() if line.startswith("dryrun_multichip(2) OK")]
+    if proc.returncode != 0 or not ok:
+        fail(f"dryrun_multichip(2) on the card exited {proc.returncode}:\n{log[-3000:]}")
+    print(ok[0], flush=True)
+    return {"line": ok[0], "seconds": time.perf_counter() - t0}
+
+
+def space_dryrun() -> dict:
+    return space_dryrun_wait(space_dryrun_start())
+
+
+def with_space_dryrun(wait):
+    """``wait()``'s result, with ``space_dryrun`` on the card beside it
+    (``wait`` times nothing); its result after."""
+    started = space_dryrun_start()
+    try:
+        out = wait()
+    except BaseException:
+        started[1].kill()
+        started[1].communicate()
+        raise
+    return out, space_dryrun_wait(started)
+
+
+def space_only(dev) -> int:
+    """``--space``: build the kernels, then phase 18 alone in a rank pair of
+    its own and ``dryrun_multichip(2)``; details to
+    output/torch_port/chip_smoke_space.json."""
+    import tempfile
+    from maggie_tpu_torch.ops.kernels import build
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                     "--format=csv,noheader"], capture_output=True,
+                                    text=True, check=True).stdout.strip(), flush=True)
+    build.build_all()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        run = space_run()
+        ranks = ddp_spawn("space", {"runs": [run]}, root)
+        detail = {"space": space_check(dev, run, [r[0] for r in ranks])}
+    detail["space"]["dryrun"] = space_dryrun()
+    detail["space"]["phase_s"] = time.perf_counter() - t0
+    print(f"phase 18: done in {detail['space']['phase_s']:.1f} s; dryrun_multichip(2) on the "
+          f"card {detail['space']['dryrun']}", flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_space.json"), "w") as f:
+        json.dump(detail, f, indent=1, default=str)
+    return 0
+
+
+def phase_ddp(dev, detail, ahead=()) -> tuple[dict, dict]:
+    """Phase 11 and, in its rank pair, 14.3 and phase 18: one pair of rank
+    processes runs 11.1 and 11.2 (``ddp_image_run``, ``ddp_video_run``),
+    14.3's configs (``b14_runs``) and phase 18's row-sharded step
+    (``space_run``) in turn; then each one's check against one process
+    (``ddp_image_check``, ``ddp_video_check``, ``space_check``, then, with
+    nothing timed after, ``b14_check``), then 11.3 ``ddp_cli`` with the
+    ``cpu_step`` specs ``ahead`` computed meanwhile (``cpu_steps_meanwhile``);
+    ``dryrun_multichip(2)`` runs on the card beside 14.3's check and 11.3
+    (``with_space_dryrun``). Returns each kernel's launches over 11.1-11.2's
+    ranks' checked steps, and over phase 18's."""
     import tempfile
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     out = {}
     with tempfile.TemporaryDirectory() as root:
-        # one pair of rank processes runs 11.1's steps, then 11.2's
         runs = [ddp_image_run(), ddp_video_run()]
-        ranks = ddp_spawn("train", {"runs": runs}, root)
+        b14 = b14_runs()
+        space = space_run()
+        ranks = ddp_spawn("train", {"runs": runs + b14 + [space]}, root)
         out["image"], image = ddp_image_check(dev, runs[0], [r[0] for r in ranks])
         torch.cuda.empty_cache()
         out["video"], video = ddp_video_check(dev, runs[1], [r[1] for r in ranks])
         torch.cuda.empty_cache()
-        out["cli"] = cpu_steps_meanwhile(ahead, lambda: ddp_cli(root))
+        t18 = time.perf_counter()
+        out["space"] = space_check(dev, space, [r[-1] for r in ranks])
+        torch.cuda.empty_cache()
+        out["space"]["check_s"] = time.perf_counter() - t18
+        # nothing is timed from here on: 18's dryrun runs beside 14.3's
+        # check and 11.3's CLI processes
+        out["cli"], out["space"]["dryrun"] = with_space_dryrun(lambda: (
+            b14_check(dev, b14, [r[2:2 + len(b14)] for r in ranks], out),
+            cpu_steps_meanwhile(ahead, lambda: ddp_cli(root)))[1])
     launches = {k: image[k] + video[k] for k in image}
     out["launches"] = launches
+    space_launches = {k: sum(r[k] for r in out["space"]["launches_per_rank"]) for k in PER_ITER}
+    out["space"]["launches"] = space_launches
+    # phase 18's seconds: its ranks' run and its check (11.3's wall holds its dryrun)
+    out["space"]["phase_s"] = (max(out["space"]["rank_seconds"]) + out["space"]["check_s"])
     detail["ddp"] = out
-    print(f"phase 11: done in {time.perf_counter() - t0:.1f} s; launches over the ranks' "
-          f"checked steps {launches}", flush=True)
+    print(f"phase 11: done in {time.perf_counter() - t0:.1f} s (phase 18's "
+          f"{out['space']['phase_s']:.1f} s and 14.3's included); launches over the ranks' "
+          f"checked steps {launches}; phase 18's {space_launches}; dryrun_multichip(2) on the "
+          f"card beside 11.3: {out['space']['dryrun']}", flush=True)
     for k, n in launches.items():
         if n == 0:
             fail(f"phase 11: {k} was not launched on the data-parallel path")
-    return launches
+    for k, n in space_launches.items():
+        if n == 0:
+            fail(f"phase 18: {k} was not launched on the row-sharded path")
+    return launches, space_launches
 
 
 def ddp_only(dev) -> int:
@@ -4570,51 +4866,56 @@ def b14_yaml(dev, points: dict, budget: int) -> dict:
     return out
 
 
-def b14_ddp(dev, root: str) -> dict:
-    """14.3: each config of B14_DDP on two gloo ranks on the card (one
-    spawn for both), a row a rank, plain and under selective, against one
-    process on the card (run while the ranks run) on the same global batch
-    within phase 6's STEP_*
-    limits, the ranks' models bit-equal after the update; no kernel
-    launched (no ladder, random-width fusions, SparseMat)."""
-    from maggie_tpu_torch.config import ConfigNode
+B14_MODES = ("none", "selective")
+
+
+def b14_runs() -> list:
+    """14.3's runs for phase 11's rank pair: each config of B14_DDP, a row a
+    rank, plain and under selective, untimed."""
     from maggie_tpu_torch.models import build_model
-    modes = ("none", "selective")
     runs = []
     for name, b, n_f in B14_DDP:
         cfg = b14_cfg(name)
         state = build_model(cfg.model, device="cpu",
                             generator=torch.Generator().manual_seed(0)).state_dict()
         batch = base_train_batch(b, n_f, B14_HW, int(cfg.model.encoder_args.num_mask))
-        runs.append({"cfg": cfg.to_dict(), "state": state, "batch": batch, "modes": modes,
-                     "timed": False})
-    singles = []
+        runs.append({"cfg": cfg.to_dict(), "state": state, "batch": batch,
+                     "modes": B14_MODES, "timed": False})
+    return runs
 
-    def one_process():   # while the ranks run: nothing here is timed
-        for run in runs:
-            cfg = ConfigNode(run["cfg"])
-            model = build_model(cfg.model, device=dev)
-            model.load_state_dict(run["state"])
-            on_dev = {k: v.to(dev) for k, v in run["batch"].items()}
-            singles.append(ddp_steps(model, cfg, on_dev, dev, modes, timed=False))
-            del model, on_dev
-            torch.cuda.empty_cache()
-    ranks = ddp_spawn("baselines", {"runs": runs}, root, meanwhile=one_process)
+
+def b14_check(dev, runs: list, ranks: list, into: dict) -> None:
+    """14.3: the ranks' results of ``b14_runs`` (run in phase 11's pair)
+    against one process on the card on the same global batch within phase
+    6's STEP_* limits, the ranks' models bit-equal after the update; no
+    kernel launched (no ladder, random-width fusions, SparseMat). The
+    checks go to ``into["baselines"]``."""
+    from maggie_tpu_torch.config import ConfigNode
+    from maggie_tpu_torch.models import build_model
+    modes = B14_MODES
+    singles = []
+    for run in runs:
+        cfg = ConfigNode(run["cfg"])
+        model = build_model(cfg.model, device=dev)
+        model.load_state_dict(run["state"])
+        on_dev = {k: v.to(dev) for k, v in run["batch"].items()}
+        singles.append(ddp_steps(model, cfg, on_dev, dev, modes, timed=False))
+        del model, on_dev
+        torch.cuda.empty_cache()
     none = dict.fromkeys(PER_ITER, 0)
-    out = {}
+    out = into["baselines"] = {}
     for i, (name, b, n_f) in enumerate(B14_DDP):
         size = f"batch {b}" + (f" x clip {n_f}" if n_f > 1 else "") + f", {B14_HW}x{B14_HW}"
         out[name] = {mode: ddp_check(f"14.3 {name} {mode} ({size}, a row a rank)",
                                      [r[i][mode] for r in ranks], singles[i][mode], none)
                      for mode in modes}
-    return out
 
 
 def phase_baselines_train(dev, detail) -> dict:
-    """Phase 14: 14.1 ``b14_remat``, 14.2 ``b14_yaml``, 14.3 ``b14_ddp``.
-    The allocator maps expandable segments during 14.1 and 14.2, as in
-    phase 10. Returns each kernel's launches over 14.1's steps."""
-    import tempfile
+    """Phase 14: 14.1 ``b14_remat``, 14.2 ``b14_yaml`` (14.3 runs in phase
+    11's rank pair, ``b14_check``). The allocator maps expandable segments
+    during 14.1 and 14.2, as in phase 10. Returns each kernel's launches
+    over 14.1's steps."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.memory._set_allocator_settings("expandable_segments:True")
@@ -4629,9 +4930,7 @@ def phase_baselines_train(dev, detail) -> dict:
     finally:
         torch.cuda.empty_cache()
         torch.cuda.memory._set_allocator_settings("expandable_segments:False")
-    with tempfile.TemporaryDirectory() as root:
-        out["ddp"] = b14_ddp(dev, root)
-    out["seconds"] = {"14.1": t1 - t0, "14.2": t2 - t1, "14.3": time.perf_counter() - t2}
+    out["seconds"] = {"14.1": t1 - t0, "14.2": t2 - t1}
     launches = {k: sum(out["remat"][n][m]["launches"][k]
                        for n, _, _ in B14_CHECK for m in REMAT_MODES) for k in PER_ITER}
     out.update(launches=launches, phase_s=time.perf_counter() - t0)

@@ -27,7 +27,10 @@ batch) the model's reductions are global, a rank's loss terms are its parts
 of the global batch's loss (``parallel.sum_values`` adds them up), and the
 gradients are summed over the ranks before the clip, so that every rank
 clips and steps on the global gradient and holds the same parameters. The
-step raises if the ranks disagree on the remat mode or the flags.
+step raises if the ranks disagree on the remat mode or the flags. Under row
+sharding (``parallel/space.py``; each rank holds a band of its data shard's
+frames) the sum of the gradients over every rank stays right: a replicated
+stage's copies each carry their own ranks' losses (``space.gather_rows``).
 """
 
 from __future__ import annotations
@@ -69,6 +72,8 @@ def compute_grads(model: nn.Module, batch: dict, generator: torch.Generator | No
     segment; ``"selective"`` has the model run its stages in segments of
     their own."""
     mode = remat_mode(remat)
+    if parallel.space_world() > 1:
+        check_rows(model, mode)
     model.zero_grad(set_to_none=True)
     model.remat = "selective" if mode == "selective" else "none"
     try:
@@ -85,6 +90,19 @@ def compute_grads(model: nn.Module, batch: dict, generator: torch.Generator | No
             p.grad = torch.zeros_like(p)
     parallel.all_reduce_grads(list(model.parameters()))
     return {k: v.detach() for k, v in loss_dict.items()}
+
+
+def check_rows(model: nn.Module, mode: str) -> None:
+    """ValueError unless ``model``'s step runs row-sharded
+    (``parallel/space.py``): the flagship image step at ``model.remat none``
+    (``MaGGIe.check_rows``)."""
+    check = getattr(model, "check_rows", None)
+    if check is None or mode != "none":
+        what = f"model.remat {mode}" if check is not None else f"arch {type(model).__name__}"
+        raise ValueError(f"row sharding (space {parallel.space_world()}) runs the MaGGIe image "
+                         f"train step with the block ladder and model.remat none; {what} is "
+                         f"not yet sharded")
+    check()
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,

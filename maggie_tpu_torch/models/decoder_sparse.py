@@ -47,6 +47,14 @@ Off-by-default eval forms of the block ladder (``predict_details_block``):
 
 ``atten_stride`` > 1 runs the os8 attention on average-pooled features
 (``instance_decoder.py``).
+
+Row-sharded (``parallel/space.py``; the train step only), os32 -> os8 and
+the attention run replicated on the whole frame from the bands' pooled
+masks; the os8 alpha is the band's rows of the whole frame's resize, K2 and
+the random dilations take their reach's rows of the neighbours, the blocks
+are selected on the gathered os8 map, and each rank runs those whose cores
+lie in its band, gathering band-plus-halo maps and scattering into the
+band.
 """
 
 from __future__ import annotations
@@ -58,12 +66,13 @@ import torch
 import torch.nn as nn
 
 from .. import parallel
+from ..parallel import space
 from . import remat
 from .attention import FFNLayer
 from .instance_decoder import InstanceMatteDecoder
 from .layers import leaky_relu, res_layer_dec
 from .sparse_layers import MaskedBatchNorm, SparseInverseConv, SubMConv, active_pyramid
-from ..ops.blocksparse import gather_patches, scatter_blocks, select_blocks
+from ..ops.blocksparse import gather_patches, gather_patches_rows, scatter_blocks, select_blocks
 from ..ops.kernels.unknown import compute_unknown
 from ..ops.morphology import compute_unknown_random
 from ..ops.resize import resize_any_shape, resize_bilinear
@@ -100,7 +109,13 @@ def _per_instance(x: torch.Tensor, n_i: int) -> torch.Tensor:
 class _Plan:
     """The blocks of the train ladder (``select_blocks``) and the masks its
     rungs share: the os1 and os2 masks (N, 1, H/s, W/s), and the os4 mask
-    patches (``m4p6``) that rung 1 gathers and rung 2 reads."""
+    patches (``m4p6``) that rung 1 gathers and rung 2 reads.
+
+    Row-sharded (``by0`` set), the entries are the blocks whose cores lie in
+    this rank's band, which starts at block row ``by0``; ``idx_by`` stays the
+    whole frame's. The dense maps are bands, gathered with their neighbours'
+    halo rows (``gather_patches_rows``), except the whole os8 maps of a
+    replicated stage (``whole``); cores scatter into the band."""
     idx_n: torch.Tensor
     idx_by: torch.Tensor
     idx_bx: torch.Tensor
@@ -109,17 +124,23 @@ class _Plan:
     m1: torch.Tensor
     m2: torch.Tensor
     m4p6: torch.Tensor | None = None
+    by0: int | None = None
 
     def __post_init__(self):
         self.img_n = self.idx_n // self.n_i    # skip features are per image
         self.vmask = self.valid.float()[:, None, None, None]
 
-    def gather(self, feat_nhwc, block: int, halo: int, per_image: bool = False):
+    def gather(self, feat_nhwc, block: int, halo: int, per_image: bool = False,
+               whole: bool = False):
         idx = self.img_n if per_image else self.idx_n
-        return _nchw(gather_patches(feat_nhwc, idx, self.idx_by, self.idx_bx, block, halo))
+        if self.by0 is None or whole:
+            return _nchw(gather_patches(feat_nhwc, idx, self.idx_by, self.idx_bx, block, halo))
+        return _nchw(gather_patches_rows(feat_nhwc, idx, self.idx_by, self.idx_bx, block, halo,
+                                         self.by0))
 
     def scatter(self, cores, shape, fill: float):
-        return scatter_blocks(cores.permute(0, 2, 3, 1), self.idx_n, self.idx_by, self.idx_bx,
+        by = self.idx_by if self.by0 is None else self.idx_by - self.by0
+        return scatter_blocks(cores.permute(0, 2, 3, 1), self.idx_n, by, self.idx_bx,
                               self.valid, shape, fill=fill)
 
     def stats(self, mask_patch, lo: int, hi: int):
@@ -359,19 +380,29 @@ class ResShortCutInstMattSpconvDec(nn.Module):
         """Block choice and rung 1, os8 -> os4 (core 16, os4 halo 4). Returns
         the os4 logits (B, n_i, H/4, W/4), the dense os4 hand-off ``x4``
         (N, H/4, W/4, 64) and the ``_Plan`` of the later rungs."""
-        B, n_i, H, W = roi_masks.shape
+        B, n_i, hb, W = roi_masks.shape
         N = B * n_i
         dt = os8_feat.dtype
-        m1 = roi_masks.reshape(N, 1, H, W).float()
+        m1 = roi_masks.reshape(N, 1, hb, W).float()
         _, m2, m4, m8 = active_pyramid(m1)
+        if space.banded():
+            # blocks of the shard's whole frame, from the gathered os8 map
+            m8 = space.gather_rows(m8)
+        H = m8.shape[-2] * 8
         cap = max(int(round(self.block_cap_frac * N * (H // 64) * (W // 64))), 1)
         blocks = select_blocks(m8[:, 0], 8, cap)
         remat.replayed("blocks", *blocks)
-        p = _Plan(*blocks, n_i, m1, m2)
+        if space.banded():
+            # this rank runs the blocks whose cores lie in its band
+            by0 = space.band(H // 64)[0]
+            keep = (blocks[1] >= by0) & (blocks[1] < by0 + hb // 64)
+            p = _Plan(*(t[keep] for t in blocks), n_i, m1, m2, by0=by0)
+        else:
+            p = _Plan(*blocks, n_i, m1, m2)
 
         x8 = self._inst_features(os8_feat, queries, m8, n_i, generator)      # NHWC
-        x8p = p.gather(x8, 8, 3)                                              # (cap,C,14,14)
-        m8p = p.gather(_nhwc(m8), 8, 3)
+        x8p = p.gather(x8, 8, 3, whole=True)                                  # (cap,C,14,14)
+        m8p = p.gather(_nhwc(m8), 8, 3, whole=True)
         m4p6 = p.m4p6 = p.gather(_nhwc(m4), 16, 6)                            # (cap,1,28,28)
         crop4 = lambda t: t[..., 2:26, 2:26]
         m4p = crop4(m4p6)
@@ -380,9 +411,9 @@ class ResShortCutInstMattSpconvDec(nn.Module):
         f3p = p.gather(_nhwc(fea3), 16, 4, per_image=True) * m4p.to(dt)
         z = self._guidance(f3p, z, m4p, s4)
         h4 = self._head(self.refine_OS4, z, m4p, s4)
-        x_os4 = p.scatter(h4[..., 4:20, 4:20], (N, H // 4, W // 4, 1), SENTINEL)
-        x4 = p.scatter(z[..., 4:20, 4:20], (N, H // 4, W // 4, z.shape[1]), 0.0)
-        return x_os4[..., 0].reshape(B, n_i, H // 4, W // 4), x4, p
+        x_os4 = p.scatter(h4[..., 4:20, 4:20], (N, hb // 4, W // 4, 1), SENTINEL)
+        x4 = p.scatter(z[..., 4:20, 4:20], (N, hb // 4, W // 4, z.shape[1]), 0.0)
+        return x_os4[..., 0].reshape(B, n_i, hb // 4, W // 4), x4, p
 
     def _rung2_train(self, x4, fea2, p):
         """Rung 2, os4 -> os2 (core 32), from the dense os4 hand-off; returns
@@ -489,8 +520,10 @@ class ResShortCutInstMattSpconvDec(nn.Module):
     @staticmethod
     def _os4_os1_alphas(x_os4_log, x_os1_log, h: int, w: int):
         """The os4 and os1 logits as alphas at (h, w), f32 whatever the
-        ladder's compute dtype (:580-583)."""
-        x_os4 = resize_bilinear(x_os4_log.float(), (h, w), align_corners=False)
+        ladder's compute dtype (:580-583); on a band, the band's rows of the
+        whole frame's resize, from the os4 band and a row of either
+        neighbour."""
+        x_os4 = space.resize_rows(x_os4_log.float(), (h, w), halo=1)
         x_os4 = (torch.tanh(x_os4) + 1.0) / 2.0
         x_os1 = (torch.tanh(x_os1_log.float()) + 1.0) / 2.0
         return x_os4, x_os1
@@ -529,19 +562,28 @@ class ResShortCutInstMattSpconvDec(nn.Module):
 
     def _train_os8(self, x, fea5, fea4, step: TrainStep):
         """Stage 3: os32 -> os8 and the instance attention, supervised by the
-        GT masks. Returns (x_os8_logit, feat8, queries, attention loss)."""
-        masks5 = step.masks.reshape((step.b, step.n_f) + step.masks.shape[1:])
+        GT masks. Returns (x_os8_logit, feat8, queries, attention loss).
+        A replicated stage under row sharding: the attention takes the whole
+        frame's masks pooled to os8 (as it pools them itself) from the
+        bands."""
+        five = lambda t: t.reshape((step.b, step.n_f) + t.shape[1:])
         gt_masks = None
-        if step.gt_alphas is not None:
-            gt_masks = (step.gt_alphas > 0).float().reshape(
-                (step.b, step.n_f) + step.gt_alphas.shape[1:])
-            if gt_masks.shape[-1] != masks5.shape[-1]:
-                gt_masks = resize_any_shape(gt_masks, use_max_pool=True,
-                                            scale_factor=masks5.shape[-1] / gt_masks.shape[-1])
-        z = self.layer1(x) + fea5
-        z = self.layer2(z) + fea4
-        x_os8_logit, feat8, queries, loss_max_atten, _ = self._attend(
-            z, masks5, gt_masks, step.use_mask_atten, step.mem_feat)
+        if space.banded():
+            masks5 = five(space.frame_mask_pool(step.masks, 8, use_max=False))
+            if step.gt_alphas is not None:
+                gt_masks = five(space.frame_mask_pool((step.gt_alphas > 0).float(), 8, True))
+        else:
+            masks5 = five(step.masks)
+            if step.gt_alphas is not None:
+                gt_masks = five((step.gt_alphas > 0).float())
+                if gt_masks.shape[-1] != masks5.shape[-1]:
+                    gt_masks = resize_any_shape(gt_masks, use_max_pool=True,
+                                                scale_factor=masks5.shape[-1] / gt_masks.shape[-1])
+        with parallel.replicated():
+            z = self.layer1(x) + fea5
+            z = self.layer2(z) + fea4
+            x_os8_logit, feat8, queries, loss_max_atten, _ = self._attend(
+                z, masks5, gt_masks, step.use_mask_atten, step.mem_feat)
         return x_os8_logit, feat8, queries, loss_max_atten
 
     def _train_os8_alpha(self, x_os8_logit, queries, step: TrainStep):
@@ -549,9 +591,10 @@ class ResShortCutInstMattSpconvDec(nn.Module):
         the uncertainty map (K2) that drives the ladder, and the queries per
         frame."""
         b, n_f = step.b, step.n_f
-        x_os8 = resize_bilinear(x_os8_logit, step.masks.shape[-2:], align_corners=False)
+        hb, w = step.masks.shape[-2:]
+        x_os8 = space.resize_rows(x_os8_logit, (hb, w))   # on a band: the band's rows
         x_os8 = (torch.tanh(x_os8) + 1.0) / 2.0
-        x_os8 = x_os8 * (step.masks.sum(dim=(2, 3), keepdim=True) > 0).float()
+        x_os8 = x_os8 * (space.frame_sum(step.masks) > 0).float()
         guided, use_gt = x_os8, None
         if step.gt_alphas is not None:
             # warmup guidance by the GT, and its rescue of an all-zero
@@ -559,10 +602,13 @@ class ResShortCutInstMattSpconvDec(nn.Module):
             # here are the global batch's under data parallelism
             use_gt = (parallel.global_sum(x_os8.sum()) == 0) | step.use_gt_guidance
             guided = torch.where(use_gt, step.gt_alphas, x_os8)
-        unknown_os8 = compute_unknown(guided, k_size=30)
-        # an empty uncertainty map gets a fixed patch (:563-568)
+        # K2 (on a band: with its neighbours' rows)
+        unknown_os8 = space.rows_op(guided, 15, lambda t: compute_unknown(t, k_size=30))
+        # an empty uncertainty map gets a fixed patch (:563-568), rows
+        # 200:250 of the whole frame
+        lo = space.band(hb * space.world())[0]
         patch = torch.zeros_like(unknown_os8)
-        patch[:, :, 200:250, 200:250] = 1.0
+        patch[:, :, max(200 - lo, 0):max(250 - lo, 0), 200:250] = 1.0
         unknown_os8 = torch.where(parallel.global_max(unknown_os8.amax()) == 0, patch, unknown_os8)
         q = queries[:, None].expand((b, n_f) + queries.shape[1:])
         q = q.reshape((b * n_f,) + queries.shape[1:])[:, :x_os8.shape[1]]

@@ -14,7 +14,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .layers import BatchNorm, Embedding, SNConv, res_layer_enc
+from .. import parallel
 from ..ops.resize import resize_bilinear
+from ..parallel import space
 
 
 class ShortcutBlock(nn.Sequential):
@@ -60,12 +62,17 @@ class ResNetD(nn.Module):
         self.layer3 = res_layer_enc(128, 256, layers[2], 2)
         self.layer_bottleneck = res_layer_enc(256, 512, layers[3], 2)
 
+    def stem(self, inp: torch.Tensor):
+        """The stem's first output (os2 of the input), the os2 stem output
+        and the first stage's (os4)."""
+        x0 = F.relu(self.bn1(self.conv1(inp)))
+        x1 = F.relu(self.bn2(self.conv2(x0)))
+        return x0, x1, self.layer1(F.relu(self.bn3(self.conv3(x1))))
+
     def trunk(self, inp: torch.Tensor):
         """The stem's first output (os2 of the input), the os2 stem output,
         and the four stages' outputs (os4 to os32)."""
-        x0 = F.relu(self.bn1(self.conv1(inp)))
-        x1 = F.relu(self.bn2(self.conv2(x0)))
-        x2 = self.layer1(F.relu(self.bn3(self.conv3(x1))))
+        x0, x1, x2 = self.stem(inp)
         x3 = self.layer2(x2)
         x4 = self.layer3(x3)
         return x0, x1, x2, x3, x4, self.layer_bottleneck(x4)
@@ -99,6 +106,8 @@ class ResShortCutD(ResNetD):
             ShortcutBlock(128, 128), ShortcutBlock(256, 256)])
 
     def backbone(self, inp: torch.Tensor):
+        if space.banded():
+            return self._backbone_rows(inp)
         _, x1, x2, x3, x4, out = self.trunk(inp)
         mid_fea = {}
         if self.lazy_os1_shortcut and not self.training:
@@ -115,6 +124,21 @@ class ResShortCutD(ResNetD):
                         "image": inp[:, :3],
                         "backbone_feat": (x2, x3, x4, out)})
         return out, mid_fea
+
+    def _backbone_rows(self, inp: torch.Tensor):
+        """``backbone`` (train) on a band of a row-sharded frame
+        (``parallel/space.py``): the stem, the first stage and shortcuts 0-2
+        on the band, their convs taking halo rows from the neighbours; the
+        rest replicated on the whole frame from the gathered os4 map. The
+        os1-os4 features stay bands, fea4, fea5 and the output are whole."""
+        _, x1, x2 = self.stem(inp)
+        fea1, fea2, fea3 = self.shortcut[0](inp), self.shortcut[1](x1), self.shortcut[2](x2)
+        with parallel.replicated():
+            x3 = self.layer2(space.gather_rows(x2))
+            x4 = self.layer3(x3)
+            out = self.layer_bottleneck(x4)
+            fea4, fea5 = self.shortcut[3](x3), self.shortcut[4](x4)
+        return out, {"shortcut": (fea1, fea2, fea3, fea4, fea5), "image": inp[:, :3]}
 
     def forward(self, x: torch.Tensor):
         return self.backbone(x)

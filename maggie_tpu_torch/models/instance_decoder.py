@@ -132,7 +132,8 @@ class InstanceMatteDecoder(nn.Module):
         def atten_loss(att):
             vals = (guidance * att).sum(dim=2)
             gt = torch.where(guidance.sum(dim=2) == 0, 0.0, 1.0)
-            return (gt - vals).sum() / (n_f * b * parallel.world())   # the global frames
+            # the global frames: a data shard's whole frames here, copied on its space ranks
+            return (gt - vals).sum() / (n_f * b * parallel.data_world())
 
         # paint instance IDs onto the feature map: max over instances of mask*id
         n_i_in = mask.shape[2]

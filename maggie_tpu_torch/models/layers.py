@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from . import remat
 from .. import parallel
+from ..parallel import space
 
 EPS_L2NORM = 1e-12
 
@@ -51,7 +52,8 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding,
+        x, padding = space.conv_rows(x, self.padding)
+        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, padding,
                         self.dilation, self.groups)
 
     def init_params(self, g: torch.Generator) -> None:
@@ -110,7 +112,9 @@ class BatchNorm(nn.BatchNorm2d):
     JAX package's sharded step, whatever ``model.sync_bn`` says: the ranks'
     per-channel sums of x and x^2 are all-reduced (differentiably, so the
     backward carries every rank's term) and the running statistics step from
-    the global values, equal on every rank."""
+    the global values, equal on every rank. Under row sharding a band's sums
+    join every rank's (equal bands), and so do a replicated stage's copies
+    (``parallel/dist.py``)."""
 
     def __init__(self, num_features: int, zero_init: bool = False):
         super().__init__(num_features)
@@ -290,8 +294,9 @@ class SNConv(_SpectralNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = self.module.bias
+        x, padding = space.conv_rows(x, self.padding)
         return F.conv2d(x, self.weight(x.dtype), None if b is None else b.to(x.dtype),
-                        self.stride, self.padding)
+                        self.stride, padding)
 
     def init_params(self, g: torch.Generator) -> None:
         o, i, kh, kw = self.module.weight_bar.shape

@@ -15,7 +15,11 @@ Each loss is a masked mean, sum(...) / sum(weight). Under data parallelism
 denominator (all-reduced, detached; an ``eps`` per element counts the global
 elements), so the ranks' terms sum to the loss of the global batch, as the
 JAX package's sharded step computes it; an unweighted mean is the local sum
-over the global count.
+over the global count. Row-sharded (``parallel/space.py``), the maps are
+bands: the same sums, and the Sobel and Gaussian filters take their padding
+rows from the neighbour bands (the frame's own edges keep replicate and
+reflect; the pyramid's ``[::2]`` needs the even band offsets whole 64-row
+blocks give).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import parallel
+from ..parallel import space
 
 
 def regression_loss(logit: torch.Tensor, target: torch.Tensor, loss_type: str = "l1",
@@ -55,7 +60,7 @@ def sobel_magnitude(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """|grad| of each (h, w) map of x (..., h, w), Sobel kernels normalized by
     their absolute sum, replicate padding."""
     h, w = x.shape[-2:]
-    y = F.pad(x.reshape(-1, 1, h, w).float(), (1, 1, 1, 1), mode="replicate")
+    y = space.pad(x.reshape(-1, 1, h, w).float(), (1, 1, 1, 1), "replicate")
     k = torch.from_numpy(np.stack([_SOBEL_X, _SOBEL_X.T])[:, None]).to(x.device)
     g = F.conv2d(y, k)
     mag = torch.sqrt(g[:, 0] ** 2 + g[:, 1] ** 2 + eps)
@@ -75,7 +80,7 @@ def _conv_gauss(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     """Depthwise 5x5 Gaussian with reflect padding 2 (loss.py:143-146), (n, c, h, w)."""
     c = x.shape[1]
     k = torch.from_numpy(_GAUSS * scale).to(x.device).expand(c, 1, 5, 5)
-    return F.conv2d(F.pad(x, (2, 2, 2, 2), mode="reflect"), k, groups=c)
+    return F.conv2d(space.pad(x, (2, 2, 2, 2), "reflect"), k, groups=c)
 
 
 def _upsample(x: torch.Tensor) -> torch.Tensor:

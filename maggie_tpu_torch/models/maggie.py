@@ -18,7 +18,10 @@ losses at os1 (x2), os4 and os8 (``compute_loss``, ``:300-373``) and the
 attention loss. The step's flags are the JAX package's static ones
 (``:83-94``); ``generator`` feeds every random draw of the forward. Under
 ``model.remat selective`` (``remat.py``; the train step sets ``self.remat``)
-the train forward runs its stages in checkpoint segments.
+the train forward runs its stages in checkpoint segments. Row-sharded
+(``parallel/space.py``; ``check_rows`` says what may be), the frames are
+bands: the encoder and decoder exchange rows, ASPP runs replicated, and the
+losses' frame-wide flags and the attention loss count the whole frame once.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import torch
 import torch.nn as nn
 
 from . import remat
+from .. import parallel
+from ..parallel import space
 from .aspp import ASPP
 from .decoder_sparse import TrainStep
 from .layers import end_sn_chains
@@ -169,16 +174,39 @@ class MaGGIe(nn.Module):
         a dense decoder (``res_shortcut_22``, ``res_shortcut_inst_matt_22``),
         which tags nothing in the JAX package, stages 3-6 are one: the
         decoder, the fusion and the losses."""
+        if space.banded():
+            self.check_rows()
         inp, masks, gt, dims = self._inputs(batch, train=True)
         run = remat.Stages(self.remat == "selective", generator)
         out, *feas = run(self._train_encode, inp)                          # stage 1
-        embedding = run(self.aspp, out)                                     # stage 2
+        with parallel.replicated():
+            embedding = run(self.aspp, out)                                 # stage 2
         finish = functools.partial(self._train_loss, gt=gt, dims=dims,
                                    use_prm_weights=use_prm_weights,
                                    atten_loss_enabled=atten_loss_enabled, generator=generator)
         step = TrainStep(dims[0], dims[1], masks, gt["alpha"], gt["transition"], use_mask_atten,
                          use_gt_guidance, generator, finish=finish)
         return self.decoder.train_forward(run, embedding, feas, step)      # stages 3-6
+
+    def check_rows(self) -> None:
+        """ValueError unless this model's train step runs row-sharded
+        (``parallel/space.py``): the flagship image arch with the block
+        ladder, without remat. Other archs, the video step and eval are not
+        yet sharded."""
+        from .decoder_sparse import ResShortCutInstMattSpconvDec
+        why = None
+        if type(self) is not MaGGIe or type(self.decoder) is not ResShortCutInstMattSpconvDec:
+            why = f"arch {type(self).__name__} with decoder {type(self.decoder).__name__}"
+        elif self.decoder.sparse_mode != "block":
+            why = f"the {self.decoder.sparse_mode!r} ladder"
+        elif self.remat != "none":
+            why = f"model.remat {self.remat}"
+        elif not self.training:
+            why = "eval"
+        if why is not None:
+            raise ValueError(f"row sharding (space {parallel.space_world()}) runs the MaGGIe "
+                             f"image train step with the block ladder and model.remat none; "
+                             f"{why} is not yet sharded")
 
     def _train_encode(self, inp: torch.Tensor):
         """Stage 1: the encoder's trunk output and its five shortcut features."""
@@ -207,14 +235,15 @@ class MaGGIe(nn.Module):
                 weight_os4 = weight_os1 = pred["detail_mask"].to(alpha_pred.dtype)
         output = self._transform_output(pred, b, n_f, n_i, h, w)
         output = {k: v for k, v in output.items() if not k.startswith("mem_")}
-        valid = (gt["transition"].sum(dim=(2, 3), keepdim=True) > 0).float()
+        valid = (space.frame_sum(gt["transition"]) > 0).float()
         alphas = {k: pred[k] * valid for k in _ALPHAS}
         loss_dict = self.compute_loss(alphas, weight_os4, weight_os1, gt["alpha"],
                                       (b, n_f, self.num_masks, h, w))
         if "loss_max_atten" in pred and self.loss_atten_w > 0 and atten_loss_enabled:
             atten = pred["loss_max_atten"]
-            loss_dict["loss_max_atten"] = (atten if torch.is_tensor(atten)
-                                           else alpha_pred.new_tensor(atten))
+            atten = atten if torch.is_tensor(atten) else alpha_pred.new_tensor(atten)
+            # a replicated stage's term: once in the total under row sharding
+            loss_dict["loss_max_atten"] = space.replicated_term(atten)
             loss_dict["total"] = loss_dict["total"] + loss_dict["loss_max_atten"] * self.loss_atten_w
         self._extra_losses(pred, loss_dict)
         return output, loss_dict
@@ -244,6 +273,8 @@ class MaGGIe(nn.Module):
         that encoded it for a rolled pack to equal a fresh one bit for bit."""
         if self.lazy_os2_off_block:
             raise ValueError("lazy os2 shortcut requires sparse_mode='block'")
+        if parallel.space_world() > 1:
+            self.check_rows()
         inp, masks, _, _ = self._inputs(batch, train=False)
         packs = [self._encode(inp[i:i + 1]) for i in range(inp.shape[0])]
         feats = {k: torch.cat([p[k] for p in packs]) if len(packs) > 1 else packs[0][k]
@@ -309,7 +340,7 @@ class MaGGIe(nn.Module):
         three alphas (b*n_f, n_i, H, W), ``alphas`` the GT; ``reweight_os8``
         overrides ``loss_reweight_os8``."""
         a1, a4, a8 = (pred[k] for k in _ALPHAS)
-        valid = (alphas.sum(dim=(2, 3), keepdim=True) > 0).float()
+        valid = (space.frame_sum(alphas) > 0).float()
         weight_os8 = torch.ones_like(a8) * valid
         if self.reweight_os8 if reweight_os8 is None else reweight_os8:
             unk_gt = (alphas <= 254.0 / 255.0) & (alphas >= 1.0 / 255.0)

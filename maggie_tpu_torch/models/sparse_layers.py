@@ -22,13 +22,17 @@ import torch.nn.functional as F
 
 from . import remat
 from .. import parallel
+from ..parallel import space
 from .layers import BatchNorm, xavier_
 
 
 def active_mask_downsample(mask: torch.Tensor) -> torch.Tensor:
     """Active-set transfer of a k=3 s=2 p=1 sparse conv (padding never wins:
-    ``max_pool2d`` pads with -inf, as the JAX ``reduce_window`` does)."""
-    return F.max_pool2d(mask, 3, 2, 1)
+    ``max_pool2d`` pads with -inf, as the JAX ``reduce_window`` does). On a
+    band of a row-sharded frame the window's row above comes from the
+    neighbour (zeros beyond the frame never win over a 0/1 map either)."""
+    x, padding = space.conv_rows(mask, 1)
+    return F.max_pool2d(x, 3, 2, padding)
 
 
 def active_pyramid(m1: torch.Tensor):
@@ -107,7 +111,8 @@ class MaskedBatchNorm(BatchNorm):
     first and divided (a rank may hold no active site, and counts differ
     per rank, so per-rank means are never averaged), then the masked squared
     deviations from that global mean; the running variance's correction
-    takes the global count."""
+    takes the global count. Under row sharding each block runs on the rank
+    whose band holds its core, so every rank's sums join."""
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 stats_mask: torch.Tensor | None = None) -> torch.Tensor:

@@ -7,6 +7,10 @@ Port of ``maggie_tpu/ops/blocksparse.py`` (eval forward):
 2. ``gather_patches`` (CUDA kernel on the card, ``ops/kernels/gather.py``)
    reads haloed windows around the selected blocks;
 3. ``scatter_blocks`` writes the exact core regions back into a dense buffer.
+
+Row-sharded (``parallel/space.py``), ``gather_patches_rows`` reads the
+windows of a band's blocks from the band and its neighbours' halo rows, and
+the cores scatter into the band at their block rows less the band's first.
 """
 
 from __future__ import annotations
@@ -14,8 +18,10 @@ from __future__ import annotations
 import torch
 
 from .kernels.gather import gather_patches, gather_patches_plain
+from ..parallel import space
 
-__all__ = ["select_blocks", "gather_patches", "gather_patches_plain", "scatter_blocks"]
+__all__ = ["select_blocks", "gather_patches", "gather_patches_plain", "gather_patches_rows",
+           "scatter_blocks"]
 
 
 def select_blocks(mask: torch.Tensor, block: int, cap: int):
@@ -61,3 +67,25 @@ def scatter_blocks(cores: torch.Tensor, idx_n, idx_by, idx_bx, valid,
     tiles[tile] = cores
     return (tiles[:n_tiles].reshape(n, nby, nbx, block, block, c)
             .permute(0, 1, 3, 2, 4, 5).reshape(n, h, w, c))
+
+
+def gather_patches_rows(feat: torch.Tensor, idx_n, idx_by, idx_bx, block: int, halo: int,
+                        by0: int) -> torch.Tensor:
+    """``gather_patches`` of the whole frame's map for entries whose cores lie
+    in this rank's band, from the band alone: ``feat`` (N, h, W, C), pixel-
+    or plane-major, holds the rows from block row ``by0``; ``idx_by`` counts
+    the whole frame's block rows. The band gets ``halo`` rows of either
+    neighbour (``space.halo_rows``: zeros beyond the frame, as the gather
+    reads there) and zero rows above them up to one block, so that the
+    kernel reads it unchanged at block rows ``idx_by - by0 + 1``; the
+    extended map keeps the band's layout. The backward sends the halo rows'
+    gradients to their owners."""
+    if halo > block:
+        raise ValueError(f"a halo of {halo} rows exceeds the block of {block}")
+    nchw = feat.permute(0, 3, 1, 2)
+    plane = not feat.is_contiguous() and nchw.is_contiguous()
+    x, dim = (nchw, 2) if plane else (feat, 1)
+    x = space.halo_rows(x, halo, halo, dim)
+    x = torch.cat([x.new_zeros(x.shape[:dim] + (block - halo,) + x.shape[dim + 1:]), x], dim)
+    ext = x.permute(0, 2, 3, 1) if plane else x
+    return gather_patches(ext, idx_n, idx_by - (by0 - 1), idx_bx, block, halo)

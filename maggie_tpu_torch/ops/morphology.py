@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import parallel
+from ..parallel import space
 
 LOWER_THRES = 1.0 / 255.0
 UPPER_THRES = 254.0 / 255.0
@@ -151,10 +152,16 @@ def dilate_ellipse_random(binary: torch.Tensor, k_size: int,
 def compute_unknown_random(masks: torch.Tensor, k_size: int,
                            generator: torch.Generator | None = None) -> torch.Tensor:
     """Train-mode uncertainty region: threshold to (1/255, 254/255) in f32, then
-    ``dilate_ellipse_random``; a 0/1 map in the input dtype, without gradient."""
+    ``dilate_ellipse_random``; a 0/1 map in the input dtype, without gradient.
+    Row-sharded, the band's rows of the whole frame's map (``space.rows_op``)."""
     lo, hi = float(np.float32(LOWER_THRES)), float(np.float32(UPPER_THRES))
-    uncertain = ((masks > lo) & (masks < hi)).float()
-    return dilate_ellipse_random(uncertain, k_size, generator).to(masks.dtype)
+
+    def unknown(m):
+        uncertain = ((m > lo) & (m < hi)).float()
+        return dilate_ellipse_random(uncertain, k_size, generator).to(m.dtype)
+    # on a band of a row-sharded frame: the element's reach (under k_size // 2)
+    # of neighbour rows, zero padding beyond the frame as on one process
+    return space.rows_op(masks, k_size // 2, unknown)
 
 
 @functools.lru_cache(maxsize=64)

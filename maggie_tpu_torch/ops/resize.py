@@ -52,18 +52,32 @@ def _weights(in_size: int, out_size: int, align_corners: bool, device) -> torch.
     return torch.from_numpy(_linear_weight_matrix(in_size, out_size, align_corners)).to(device)
 
 
-def resize_bilinear(x: torch.Tensor, size: tuple[int, int],
-                    align_corners: bool = False) -> torch.Tensor:
-    """Bilinear resize of the last two dims, matching ``F.interpolate(mode='bilinear')``."""
-    h_in, w_in = x.shape[-2], x.shape[-1]
+def resize_bilinear(x: torch.Tensor, size: tuple[int, int], align_corners: bool = False,
+                    rows: tuple[int, int] | None = None,
+                    in_rows: tuple[int, int] | None = None) -> torch.Tensor:
+    """Bilinear resize of the last two dims, matching ``F.interpolate(mode='bilinear')``.
+
+    ``rows`` (lo, hi) keeps only those rows of the output. ``in_rows``
+    (lo, h_in): ``x`` holds the rows of a frame of ``h_in`` rows from row
+    ``lo`` on, zeros where they lie beyond the frame (a band with its
+    neighbours' rows); a ValueError if the kept rows read a row it lacks."""
+    h_x, w_in = x.shape[-2], x.shape[-1]
     h_out, w_out = size
-    if (h_in, w_in) == (h_out, w_out):
+    x_lo, h_in = in_rows or (0, h_x)
+    lo, hi = rows or (0, h_out)
+    if (h_x, w_in) == (h_out, w_out) and rows is None and in_rows is None:
         return x
-    wh = _weights(h_in, h_out, align_corners, x.device)
+    wh = _weights(h_in, h_out, align_corners, x.device)[lo:hi]
+    if in_rows is not None:
+        a, b = max(x_lo, 0), min(x_lo + h_x, h_in)
+        if wh[:, :a].any() or wh[:, b:].any():
+            raise ValueError(f"rows {x_lo}-{x_lo + h_x} of {h_in} do not hold the input rows "
+                             f"that output rows {lo}-{hi} of {h_out} read")
+        wh = F.pad(wh[:, a:b], (a - x_lo, x_lo + h_x - b))
     ww = _weights(w_in, w_out, align_corners, x.device)
-    y = x.reshape(-1, h_in, w_in).float()
+    y = x.reshape(-1, h_x, w_in).float()
     y = torch.matmul(torch.matmul(wh, y), ww.t())
-    return y.reshape(x.shape[:-2] + (h_out, w_out)).to(x.dtype)
+    return y.reshape(x.shape[:-2] + (hi - lo, w_out)).to(x.dtype)
 
 
 def resize_bilinear_nhwc(x: torch.Tensor, size: tuple[int, int],

@@ -19,6 +19,15 @@ makes those reductions global by hand through these helpers:
 - ``check_same``, ``host_all_reduce``, ``barrier``: host values over a gloo
   group beside NCCL, which never waits on the card.
 
+Under row sharding (``space.py``) the world is ``data x space``: global rank
+``d * space + s`` holds band ``s`` of the rows of data shard ``d``'s frames.
+Sums of banded tensors and their counts run over every rank, as above (the
+bands are equal). A replicated stage (``replicated()``), which every space
+rank of a data shard runs on the whole frame, sums its batch statistics
+over every rank too, at the world's count: the ``space`` copies' mean is
+the data shards' mean, equal on every rank even where the card's convs
+round the copies apart. Its draws (``shard_draw``) go by data rank.
+
 Every helper is the identity when no process group is initialised or the
 group has one rank: world size 1 runs the single-process code bit for bit.
 Nothing falls back: a rank that cannot reach its card raises, and a
@@ -43,6 +52,12 @@ BUCKET_ELEMENTS = 1 << 24
 
 # the gloo group of host values when the default group is NCCL (None: the default)
 _host_group = None
+# row sharding (space.py): the ranks that split one frame's rows, this rank's
+# space group (the bands of its data shard), and whether a replicated stage
+# is running
+_space = 1
+_space_group = None
+_replicated = False
 
 
 def launched() -> bool:
@@ -86,9 +101,16 @@ def init_from_env(device: str | torch.device | None = None, backend: str | None 
 def destroy() -> None:
     """Leave the process group (a no-op without one)."""
     global _host_group
+    set_groups(1, None)
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
     _host_group = None
+
+
+def set_groups(space: int, space_group) -> None:
+    """Row sharding's group (``space.init_groups``); ``space`` 1 leaves it."""
+    global _space, _space_group
+    _space, _space_group = space, space_group
 
 
 def _initialized() -> bool:
@@ -101,6 +123,47 @@ def world() -> int:
 
 def rank() -> int:
     return dist.get_rank() if _initialized() else 0
+
+
+def space_world() -> int:
+    """The ranks that split one frame's rows (1 without row sharding)."""
+    return _space
+
+
+def space_rank() -> int:
+    """This rank's band: its index in its space group."""
+    return rank() % _space
+
+
+def space_group():
+    return _space_group
+
+
+def data_world() -> int:
+    """The data shards: the world without its space ranks."""
+    return world() // _space
+
+
+def data_rank() -> int:
+    return rank() // _space
+
+
+class replicated:
+    """Context of a replicated stage under row sharding: dense convs on the
+    whole frame, without halo exchange (``space.conv_rows``)."""
+
+    def __enter__(self):
+        global _replicated
+        self._outer, _replicated = _replicated, True
+        return self
+
+    def __exit__(self, *exc):
+        global _replicated
+        _replicated = self._outer
+
+
+def in_replicated() -> bool:
+    return _replicated
 
 
 def backend() -> str | None:
@@ -182,12 +245,14 @@ def global_mean(x: torch.Tensor) -> torch.Tensor:
 
 def shard_draw(draw: Callable[[tuple], torch.Tensor], shape) -> torch.Tensor:
     """``draw(shape)`` for this rank's rows: ``draw`` of the global batch's
-    shape (dim 0 times the world size), then the rank's rows."""
+    shape (dim 0 times the data shards), then the rank's rows. Under row
+    sharding every draw of the step is per map or per os8 feature, which
+    the space ranks of a data shard share: they draw alike."""
     shape = tuple(shape)
-    if world() == 1:
+    if data_world() == 1:
         return draw(shape)
-    n, r = shape[0], rank()
-    return draw((n * world(),) + shape[1:])[r * n:(r + 1) * n]
+    n, r = shape[0], data_rank()
+    return draw((n * data_world(),) + shape[1:])[r * n:(r + 1) * n]
 
 
 def all_reduce_grads(params: list[torch.Tensor]) -> None:

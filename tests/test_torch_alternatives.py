@@ -444,7 +444,7 @@ def train_setup(mended):
     variables = jax_variables(flat)
     tx = _keeping_grads(jax_build_optimizer(jcfg)[0])
     jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
-                           opt_state=tx.init(variables["params"]),
+                           opt_state=jax.jit(tx.init)(variables["params"]),
                            batch_stats=variables["batch_stats"], spectral=variables["spectral"])
     pcfg = ConfigNode(jcfg.to_dict())
     model = port_build_model(pcfg.model, device="cpu")

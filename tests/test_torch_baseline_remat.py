@@ -38,6 +38,7 @@ model.remat selective`` leaves the parameters and buffers the plain run
 leaves, bit for bit.
 """
 
+import contextlib
 import copy
 import itertools
 from types import SimpleNamespace
@@ -62,7 +63,7 @@ from maggie_tpu.engine.train_step import make_train_step as jax_make_train_step
 from maggie_tpu_torch.config import ConfigNode
 from maggie_tpu_torch.engine.optim import build_optimizer
 from maggie_tpu_torch.models import remat
-from test_torch_harness import one_torch_thread  # noqa: F401
+from test_torch_harness import jax_step_lock, one_torch_thread  # noqa: F401
 from test_torch_mgm import _cli, _data_opts, him_root  # noqa: F401
 from test_torch_tcvom import CLIP
 from test_torch_train import FLAGS
@@ -177,16 +178,18 @@ def port_step(c, mode: str, fed_widths: bool):
     return out
 
 
-def jax_step(c, mode: str = "none"):
+def jax_step(c, mode: str = "none", lock: str | None = None):
     """JAX ``make_train_step(remat=mode)`` from ``c``'s weights on its batch
     ``c.jb``, the fusion's widths fed as ``c.widths``: (state after, loss
     dict); the optimizer hands back the gradients it received
-    (``_keeping_grads``)."""
+    (``_keeping_grads``). Computed under ``jax_step_lock(lock)`` where
+    another file computes the same step."""
     tx = _keeping_grads(jax_build_optimizer(c.jcfg)[0])
     jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=c.jv["params"],
-                           opt_state=tx.init(c.jv["params"]), batch_stats=c.jv["batch_stats"],
-                           spectral=c.jv.get("spectral", {}))
-    with pytest.MonkeyPatch.context() as mp:
+                           opt_state=jax.jit(tx.init)(c.jv["params"]),
+                           batch_stats=c.jv["batch_stats"], spectral=c.jv.get("spectral", {}))
+    held = contextlib.nullcontext() if lock is None else jax_step_lock(lock)
+    with pytest.MonkeyPatch.context() as mp, held:
         if c.widths is not None:
             _keyed_dilations(mp, c.widths)
         return jax_make_train_step(c.jm, tx, remat=mode)(jstate, c.jb, jax.random.PRNGKey(1),
@@ -254,7 +257,8 @@ def jax_reference(c):
             return tag(x, name)
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(jax.ad_checkpoint, "checkpoint_name", recording)
-            c.jax = jax_step(c, JAX_MODE)
+            # the family's own train-step test computes the same step
+            c.jax = jax_step(c, JAX_MODE, lock=c.name)
         c.tags = shapes
     return c.jax
 

@@ -139,18 +139,20 @@ def train_cfg(dropout: float):
     return cfg
 
 
-def global_batch(seed: int = 0, n: int = GLOBAL_BATCH, hw: int = HW) -> dict:
-    """``n`` frames at ``hw`` x ``hw``, ``N_INST`` instances (uniform squares
-    of alpha, so the GT masks supervise the attention) in ``SLOTS`` slots."""
+def global_batch(seed: int = 0, n: int = GLOBAL_BATCH, hw: int = HW, w: int | None = None) -> dict:
+    """``n`` frames at ``hw`` x ``w`` (``hw`` x ``hw`` by default), ``N_INST``
+    instances (uniform rectangles of alpha, half the frame's sides, so the GT
+    masks supervise the attention) in ``SLOTS`` slots."""
     rs = np.random.RandomState(seed)
-    alpha = np.zeros((n, 1, SLOTS, hw, hw), np.float32)
+    h, w = hw, hw if w is None else w
+    alpha = np.zeros((n, 1, SLOTS, h, w), np.float32)
     for b in range(n):
         for j in range(N_INST):
-            y0, x0 = rs.randint(0, hw // 2, 2)
-            alpha[b, 0, j, y0:y0 + hw // 2, x0:x0 + hw // 2] = rs.rand(hw // 2, hw // 2)
-    mask = np.zeros((n, 1, SLOTS, hw // 8, hw // 8), np.float32)
-    mask[:, :, :N_INST] = rs.rand(n, 1, N_INST, hw // 8, hw // 8) > 0.5
-    batch = {"image": rs.rand(n, 1, hw, hw, 3).astype(np.float32), "mask": mask,
+            y0, x0 = rs.randint(0, h // 2), rs.randint(0, w // 2)
+            alpha[b, 0, j, y0:y0 + h // 2, x0:x0 + w // 2] = rs.rand(h // 2, w // 2)
+    mask = np.zeros((n, 1, SLOTS, h // 8, w // 8), np.float32)
+    mask[:, :, :N_INST] = rs.rand(n, 1, N_INST, h // 8, w // 8) > 0.5
+    batch = {"image": rs.rand(n, 1, h, w, 3).astype(np.float32), "mask": mask,
              "alpha": alpha,
              "transition": ((rs.rand(*alpha.shape) > 0.8) & (alpha > 0)).astype(np.float32)}
     return {k: torch.from_numpy(v) for k, v in batch.items()}
@@ -169,10 +171,11 @@ def weights():
 
 
 def step_payload(weights, dropout=0.1, modes=("none",), widths=None, batch=None, seed=5,
-                 cfg=None):
+                 cfg=None, space=1):
     cfg = cfg if cfg is not None else train_cfg(dropout).to_dict()
     return dict(cfg=cfg, state=weights["state"], modes=list(modes), flags=FLAGS, seed=seed,
-                widths=widths, batch=batch if batch is not None else global_batch())
+                widths=widths, batch=batch if batch is not None else global_batch(),
+                space=space)
 
 
 def summed_losses(ranks: list, mode: str = "none") -> dict:
@@ -243,6 +246,27 @@ def norms_payload() -> dict:
 
 
 JAX_WIDTHS = [np.random.RandomState(k).randint(1, k, GLOBAL_BATCH * SLOTS) for k in (27, 15, 30, 15)]
+# The row-sharded step's frames: 2 of 128 x 64, so that a space group of 2
+# holds one 64-row block row a band and every block's halo crosses a band
+# edge.
+SPACE_BATCH, SPACE_HW = 2, (128, 64)
+
+
+def space_batch(seed: int = 0) -> dict:
+    return global_batch(seed, SPACE_BATCH, *SPACE_HW)
+
+
+def space_overflow_cfg() -> dict:
+    """The model at ``block_cap_frac`` 0.25: round(0.25 * 20 maps * 2
+    blocks) = 10 entries for the up to 12 uncertain blocks of
+    ``space_batch``'s 6 instance maps. (``full_batch``'s recipe, every slot
+    an instance, is too ill-conditioned at 2 x 128 x 64 for the gradient
+    limits: there a 1e-7 relative change of the input frames moves one
+    process's own gradients by 3.9e-2 relative L2, 4.7e-2 per tensor;
+    ``space_batch`` by 9.7e-3 and 1.8e-2.)"""
+    cfg = train_cfg(0.1)
+    cfg.model.decoder_args.block_cap_frac = 0.25
+    return cfg.to_dict()
 
 
 @pytest.fixture(scope="module")
@@ -262,18 +286,38 @@ def world2(weights, tmp_path_factory):
     - ``overflow``: a global batch that overflows the ladder's capacity;
       one process selecting per half as the ranks do, and one selecting
       the global top-cap blocks as the JAX package does;
-    - ``video``: ``video_payload``."""
+    - ``video``: ``video_payload``;
+    - row sharding at ``1 x 2`` (``parallel/space.py``: one data shard, each
+      frame's rows over the two ranks): ``space_modules``, each banded piece
+      of the step (``torch_ddp_worker._space_cases``) against one process
+      on the whole tensors; ``space_image``, the step with dropout and
+      random dilation on ``space_batch``; ``space_overflow``, that step at
+      a capacity that overflows (``space_overflow_cfg``); each against one
+      process; ``space_jax``,
+      ``tests/test_torch_train.py``'s frame (128 x 128, its widths, dropout
+      off) against JAX's single-device step. (On ``space_batch`` the port's
+      one-process step itself reads 4.2e-5 and 4.6e-5 off JAX's in the os8
+      L1 and gradient terms, over that file's 1e-5, as JAX's f32 sums
+      amplify through the random network; on that file's frame it holds
+      1e-5.)"""
     import jax.numpy as jnp
     import maggie_tpu.ops.morphology as jmorph
     import test_torch_train as ttrain
 
     jax_batch = global_batch(seed=1)
+    space_jb, space_tb = ttrain.train_batch()
     payloads = {
         "image": ("step", step_payload(weights, modes=("none", "full", "selective"))),
         "norms": ("norms", norms_payload()),
         "jax": ("step", step_payload(weights, dropout=0.0, widths=JAX_WIDTHS, batch=jax_batch)),
         "overflow": ("step", step_payload(weights, batch=full_batch())),
         "video": ("step", video_payload()),
+        "space_modules": ("space_modules", space_modules_payload()),
+        "space_image": ("step", step_payload(weights, batch=space_batch(), space=WORLD)),
+        "space_jax": ("step", step_payload(weights, dropout=0.0, widths=ttrain._WIDTHS,
+                                           batch=space_tb, space=WORLD)),
+        "space_overflow": ("step", step_payload(weights, batch=space_batch(), space=WORLD,
+                                                cfg=space_overflow_cfg())),
     }
     wait = start_ranks("cases", {"cases": payloads}, tmp_path_factory.mktemp("ddp_world2"),
                        timeout=TIMEOUT_S * len(payloads))
@@ -281,13 +325,20 @@ def world2(weights, tmp_path_factory):
               "norms": worker.run_norms(payloads["norms"][1]),
               "overflow": (worker.run_step(dict(payloads["overflow"][1], split_select=WORLD)),
                            worker.run_step(payloads["overflow"][1])),
-              "video": worker.run_step(payloads["video"][1])}
+              "video": worker.run_step(payloads["video"][1]),
+              "space_modules": worker.run_space_modules(payloads["space_modules"][1]),
+              "space_image": worker.run_step(dict(payloads["space_image"][1], space=1)),
+              "space_overflow": worker.run_step(dict(payloads["space_overflow"][1], space=1))}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ttrain, "_WIDTHS", JAX_WIDTHS)
         mp.setattr(jmorph, "dilate_ellipse_random",
                    ttrain._jax_dilate_with_widths(itertools.count()))
         single["jax"] = jax_step(weights, {k: jnp.asarray(v.numpy())
                                            for k, v in jax_batch.items()})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jmorph, "dilate_ellipse_random",
+                   ttrain._jax_dilate_with_widths(itertools.count()))
+        single["space_jax"] = train_file_jax_step(weights, space_jb)
     ranks = wait()
     return {name: ([r[name] for r in ranks], single[name]) for name in payloads}
 
@@ -372,7 +423,8 @@ def test_batchnorm_over_ranks_equals_the_concatenated_batch(norms, name):
 def jax_step(weights, jbatch):
     """JAX ``make_train_step`` (``maggie_tpu/engine/train_step.py:82-103``) on
     one device: the forward, loss and gradients jitted, then the optax update
-    and the new state, so that one compile also gives the gradients."""
+    (jitted apart) and the new state, so that one compile also gives the
+    gradients."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -382,7 +434,7 @@ def jax_step(weights, jbatch):
     jm, v = weights["jm"], weights["variables"]
     tx, _ = jax_build_optimizer(train_cfg(0.0))
     state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=v["params"],
-                          opt_state=tx.init(v["params"]), batch_stats=v["batch_stats"],
+                          opt_state=jax.jit(tx.init)(v["params"]), batch_stats=v["batch_stats"],
                           spectral=v["spectral"])
 
     @jax.jit
@@ -398,12 +450,34 @@ def jax_step(weights, jbatch):
             return ld["total"], (ld, mutated)
         (_, (ld, mutated)), g = jax.value_and_grad(loss_fn, has_aux=True)(state.params)
         return ld, g, mutated
+    @jax.jit
+    def update(g, opt_state, params):
+        updates, opt_state = tx.update(g, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state
     ld, g, mutated = grads(state, jbatch, jax.random.PRNGKey(1))
-    updates, opt_state = tx.update(g, state.opt_state, state.params)
-    new = state.replace(step=state.step + 1, params=optax.apply_updates(state.params, updates),
-                        opt_state=opt_state, batch_stats=mutated["batch_stats"],
-                        spectral=mutated["spectral"])
+    params, opt_state = update(g, state.opt_state, state.params)
+    new = state.replace(step=state.step + 1, params=params, opt_state=opt_state,
+                        batch_stats=mutated["batch_stats"], spectral=mutated["spectral"])
     return ld, g, new
+
+
+def train_file_jax_step(weights, jb):
+    """``tests/test_torch_train.py``'s JAX step (``make_train_step`` with the
+    gradients kept, default flags, its widths) from ``weights`` on ``jb``:
+    (state after, loss dict), compiled once with that file's when it holds
+    the port to the same step (``test_torch_train.jax_image_step``)."""
+    import jax
+    import test_torch_train as ttrain
+    from maggie_tpu.engine.optim import build_optimizer as jax_build_optimizer
+    from maggie_tpu.engine.train_step import TrainState as JaxTrainState
+    from maggie_tpu.engine.train_step import make_train_step as jax_make_train_step
+
+    v = weights["variables"]
+    tx = ttrain._keeping_grads(jax_build_optimizer(train_cfg(0.0))[0])
+    jstate = JaxTrainState(step=jax.numpy.zeros((), jax.numpy.int32), params=v["params"],
+                           opt_state=jax.jit(tx.init)(v["params"]), batch_stats=v["batch_stats"],
+                           spectral=v["spectral"])
+    return ttrain.jax_image_step(jstate, jb, jax_make_train_step(weights["jm"], tx))
 
 
 @pytest.fixture(scope="module")
@@ -523,6 +597,164 @@ def test_world2_video_step_equals_one_process(video_steps):
     for sel in [s for r in ranks for s in r["none"]["selections"]]:
         assert 0 < sel["active"] == sel["kept"] <= sel["cap"], sel
     print("video world 2 vs one process:", compare_to_single(ranks, single))
+
+
+# ------------------------------------------- row sharding at 1 x 2 (space.py)
+SPACE_ATOL = 1e-5       # relative to each tensor's largest magnitude
+
+
+def space_modules_payload() -> dict:
+    """``torch_ddp_worker._space_cases``' inputs: two (4, 128, 128) maps (a
+    band of 64 rows a rank), their os4 and os8 sizes, a 0/1 mask, and 6
+    distinct os4 blocks of 16 (halo 4) over the 2 x 2 block grid of each
+    map, so that half of them sit in each band and every window crosses a
+    band edge or the frame's."""
+    rs = np.random.RandomState(4)
+    h = w = 128
+    cells = np.array([(n, y, x) for n in range(2) for y in range(2) for x in range(2)])
+    cells = cells[rs.permutation(len(cells))[:6]]
+    f = lambda *shape: torch.from_numpy(rs.randn(*shape).astype(np.float32))
+    return dict(x=f(2, 4, h, w), x4=f(2, 4, h // 4, w // 4), x8=f(2, 4, h // 8, w // 8),
+                mask=torch.from_numpy((rs.rand(2, 1, h, w) > 0.5).astype(np.float32)),
+                blocks=[torch.from_numpy(cells[:, i].copy()) for i in range(3)])
+
+
+@pytest.fixture(scope="module")
+def space_modules(world2):
+    return world2["space_modules"]
+
+
+def _close(got: torch.Tensor, want: torch.Tensor, what: str, exact: bool = False) -> float:
+    diff = float((got - want).abs().max()) if want.numel() else 0.0
+    scale = max(float(want.abs().max()) if want.numel() else 0.0, 1.0)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert diff == 0.0 if exact else diff <= SPACE_ATOL * scale, (what, diff, scale)
+    return diff
+
+
+def test_space_exchanges_are_exact(space_modules):
+    """``space.halo_rows`` and ``space.gather_rows`` on a band of two rows
+    ranks against the whole tensor, bit for bit: the halo'd bands are the
+    whole map's rows with zeros beyond the frame, the gathered frame is the
+    whole map on both ranks. Backward: each element's gradient is the sum
+    of the cotangents of every rank's output that holds it (a halo row
+    twice, a gathered frame on both ranks: the reduce-scatter)."""
+    ranks, single = space_modules
+    x = space_modules_payload()["x"]
+    h = x.shape[-2] // WORLD
+    ct = lambda y, row0: worker._cotangent(y, y.dim() - 2, row0)
+    want_grad = torch.zeros_like(x)
+    for r, got in enumerate(r["halo_rows"] for r in ranks):
+        lo = r * h
+        padded = torch.nn.functional.pad(x, (0, 0, 3, 2))
+        assert torch.equal(got["y"][0], padded[..., lo:lo + h + 5, :])
+        g = torch.nn.functional.pad(torch.zeros_like(x), (0, 0, 3, 2))
+        g[..., lo:lo + h + 5, :] = ct(got["y"][0], lo - 3)
+        want_grad += g[..., 3:-2, :]
+    got_grad = torch.cat([r["halo_rows"]["x_grad"] for r in ranks], -2)
+    _close(got_grad, want_grad, "halo_rows grad")
+    assert torch.equal(single["halo_rows"]["y"][0], torch.nn.functional.pad(x, (0, 0, 3, 2)))
+    for r in ranks:
+        assert torch.equal(r["gather_rows"]["y"][0], x)
+    got_grad = torch.cat([r["gather_rows"]["x_grad"] for r in ranks], -2)
+    assert torch.equal(got_grad, ct(x, 0) * WORLD)
+
+
+SPACE_MODULES = ["conv", "conv_stride2", "sn_conv", "batchnorm", "masked_batchnorm",
+                 "resize_os4_halo", "resize_os8_whole", "sobel", "laplacian", "active_pyramid",
+                 "unknown", "gather_scatter"]
+
+
+@pytest.mark.parametrize("name", SPACE_MODULES)
+def test_space_banded_module_equals_one_process(space_modules, name):
+    """Each banded piece of the row-sharded step on two ranks' bands
+    against one process on the whole tensors (the same code without a
+    group): convs (stride 1 and 2, spectral norm's power step), BatchNorm
+    and masked BatchNorm over both bands, the os4 band's resize with a
+    halo row and the whole os8 map's band rows, the Sobel (replicate) and
+    Laplacian (reflect, 3 levels of ``[::2]``) filters, the active-set
+    pyramid, K2's plain twin and the random-width dilation (``rows_op``),
+    and K1's twin on band-plus-halo maps with its cores scattered into the
+    band. Outputs (the bands concatenated, K1's entries by band) and the
+    input's gradient (bands concatenated; the whole os8 map's summed over
+    the ranks): discrete ones exact, floats within 1e-5 of each tensor's
+    scale (read: up to 7.6e-6 absolute on resize gradients of O(10))."""
+    ranks, single = space_modules
+    got, want = [r[name] for r in ranks], single[name]
+    by = space_modules_payload()["blocks"][1]
+    exact = name in ("active_pyramid", "unknown")
+    for i, w in enumerate(want["y"]):
+        ys = [g["y"][i] for g in got]
+        if name == "gather_scatter" and i == 0:
+            cat = torch.empty_like(w)
+            for r, y in enumerate(ys):
+                cat[(by >= r) & (by < r + 1)] = y
+        else:
+            cat = torch.cat(ys, 1 if name == "gather_scatter" else -2)
+        _close(cat, w, f"{name} output {i}", exact or name == "gather_scatter")
+    if want["x_grad"] is not None:
+        grads = [g["x_grad"] for g in got]
+        total = sum(grads) if name == "resize_os8_whole" else torch.cat(grads, -2)
+        _close(total, want["x_grad"], f"{name} input gradient")
+
+
+@pytest.fixture(scope="module")
+def space_steps(world2):
+    return {k: world2[k] for k in ("space_image", "space_jax", "space_overflow")}
+
+
+def _space_selections_equal(ranks: list, single: dict) -> None:
+    """Every space rank records its data shard's whole selection: the one
+    process's, block for block."""
+    for r in ranks:
+        assert r["none"]["selections"] == single["none"]["selections"]
+
+
+def test_space_step_equals_one_process(space_steps):
+    """The flagship step (reduced widths) row-sharded at ``1 x 2`` on two
+    frames of 128 x 64, dropout and random dilation on, against one
+    process on the whole frames at (a)'s limits: equal block selections,
+    both ranks bit-equal, the generators in the one process's state."""
+    ranks, single = space_steps["space_image"]
+    assert_ranks_equal(ranks)
+    _space_selections_equal(ranks, single)
+    sel = single["none"]["selections"][0]
+    assert 0 < sel["active"] == sel["kept"] <= sel["cap"], sel
+    print("space 1 x 2 vs one process:", compare_to_single(ranks, single))
+
+
+def test_space_step_matches_jax(space_steps):
+    """The row-sharded step at ``1 x 2`` against JAX's single-device step on
+    ``tests/test_torch_train.py``'s frame (128 x 128, 3 instances; dropout
+    off, the dilations' widths fed alike), at that file's limits: the
+    contract the JAX package's own sharded step meets
+    (``tests/test_multidevice.py:106-115``)."""
+    from test_torch_train import _check_grads, _check_losses, _check_state, _flat
+    from maggie_tpu_torch.utils.convert_jax import to_jax
+
+    ranks, (jstate, jld) = space_steps["space_jax"]
+    assert_ranks_equal(ranks)
+    got = ranks[0]["none"]
+    _check_losses(jld, summed_losses(ranks))
+    _check_grads(_flat("params", jstate.opt_state[1]), to_jax(got["grads"]))
+    tstate = types.SimpleNamespace(params=lambda: got["params"],
+                                   batch_stats=lambda: got["batch_stats"],
+                                   spectral=lambda: got["spectral"])
+    _check_state(jstate, tstate, lr=got["lr"])
+
+
+def test_space_overflow_equals_one_process(space_steps):
+    """The ladder over its capacity (``space_overflow_cfg``) row-sharded at
+    ``1 x 2``: one data shard selects its whole frames' top blocks, as one
+    process does, so the step equals one process at (a)'s limits with the
+    same kept blocks, the dropped ones' neighbours reading zeros from the
+    dense hand-offs alike."""
+    ranks, single = space_steps["space_overflow"]
+    assert_ranks_equal(ranks)
+    _space_selections_equal(ranks, single)
+    sel = single["none"]["selections"][0]
+    assert sel["active"] > sel["cap"] == sel["kept"], sel
+    print("space 1 x 2 overflow vs one process:", compare_to_single(ranks, single))
 
 
 def test_ranks_that_disagree_on_the_flags_raise(weights, tmp_path):

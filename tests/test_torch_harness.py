@@ -9,6 +9,14 @@ to the port. The helpers are imported by the other ``test_torch_*`` files.
 
 from __future__ import annotations
 
+import contextlib
+import fcntl
+import hashlib
+import os
+import pickle
+import tempfile
+from pathlib import Path
+
 import numpy as np
 import pytest
 import jax
@@ -69,10 +77,64 @@ def shapes_of(init) -> dict:
     return {"/".join(k): v.shape for k, v in flatten_dict(jax.eval_shape(init)).items()}
 
 
+def shared_shapes(key: str, init) -> dict:
+    """``shapes_of(init)`` once a test run for ``key``, which names the model
+    (its repr) and what else its init depends on. Tracing a model's init
+    takes tens of seconds on a loaded host, and xdist runs the test files in
+    several processes that ask for the same shapes: the first to ask traces
+    it under a lock and leaves the shapes (a few KB) in the run's directory
+    (``run_dir``); the others read them. Without xdist, once a process."""
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if not run:
+        return memo(key, lambda: shapes_of(init))
+
+    def shared():
+        path = run_dir(run) / f"{hashlib.sha256(key.encode()).hexdigest()[:32]}.shapes"
+        with _locked(path):
+            if not path.exists():
+                with open(path.with_suffix(".part"), "wb") as f:
+                    pickle.dump(shapes_of(init), f)
+                os.replace(path.with_suffix(".part"), path)
+            with open(path, "rb") as f:
+                return pickle.load(f)
+    return memo(key, shared)
+
+
+@contextlib.contextmanager
+def jax_step_lock(name: str):
+    """Held while a test computes the JAX train step ``name``, which several
+    files compute from the same weights on the same batch. xdist runs those
+    files at once: the first to take the lock compiles the step into the
+    persistent compile cache (``tests/conftest.py``), and the others wait
+    here, then load it from there instead of compiling it again. Each file
+    still runs its own step, so a name shared by different steps costs
+    time, never a wrong reference. Without xdist, no lock."""
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if not run:
+        yield
+        return
+    with _locked(run_dir(run) / f"{name}.step"):
+        yield
+
+
+def run_dir(run: str) -> Path:
+    """This test run's directory under the temporary directory."""
+    path = Path(tempfile.gettempdir()) / f"maggie_tests_{run}"
+    path.mkdir(exist_ok=True)
+    return path
+
+
+@contextlib.contextmanager
+def _locked(path: Path):
+    with open(path.with_name(path.name + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        yield
+
+
 def jax_shapes(model, n_i: int = 2) -> dict:
     small = graft._make_batch(1, 1, n_i, 64, 64)
-    return memo(f"jax_shapes {model!r} {n_i}", lambda: shapes_of(
-        lambda: model.init({"params": jax.random.PRNGKey(0)}, small, train=False)))
+    return shared_shapes(f"jax_shapes {model!r} {n_i}",
+                         lambda: model.init({"params": jax.random.PRNGKey(0)}, small, train=False))
 
 
 def _is_transposed_sn(key: str) -> bool:

@@ -53,8 +53,9 @@ from maggie_tpu_torch.models import build_model
 from maggie_tpu_torch.models.encoder import ResNetD
 from maggie_tpu_torch.ops.kernels import unknown as ku
 from maggie_tpu_torch.utils.convert_jax import _KeyMap, _layout, to_jax
-from test_torch_harness import (jax_cfg, jax_variables, memo, one_torch_thread,  # noqa: F401
-                                port_cfg, port_from_flat, random_flat, shapes_of)
+from test_torch_harness import (jax_cfg, jax_step_lock, jax_variables,  # noqa: F401
+                                one_torch_thread, port_cfg, port_from_flat, random_flat,
+                                shared_shapes)
 from test_torch_mgm import MARGIN, blob, k2_margins, same_widths, train_batch
 from test_torch_train import (FLAGS, PARAM_ATOL, PARAM_FAR_SHARE, SN_ATOL, STATS_ATOL,
                               _check_grads, _flat, port_step_keeping_grads)
@@ -82,8 +83,8 @@ def build_pair(seed: int = 0, head_scale: float = HEAD_SCALE):
     jcfg = dense_cfg()
     jm = jax_build_model(jcfg.model)
     batch = {"image": jnp.zeros((1, 1, 64, 64, 3)), "mask": jnp.zeros((1, 1, 2, 64, 64))}
-    shapes = memo(f"inst_dense jax_shapes {jm!r}", lambda: shapes_of(
-        lambda: jm.init({"params": jax.random.PRNGKey(0)}, batch, train=False)))
+    shapes = shared_shapes(f"inst_dense jax_shapes {jm!r}",
+                           lambda: jm.init({"params": jax.random.PRNGKey(0)}, batch, train=False))
     flat = random_flat(shapes, seed)
     for k in flat:
         if any(re.fullmatch(p, k) for p in SCALED):
@@ -221,10 +222,12 @@ def test_train_step_matches_jax():
     widths = [np.random.RandomState(k).randint(1, k, 10) for k in (30, 15)]
     tx = _keeping_grads(jax_build_optimizer(jcfg)[0])
     jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=jv["params"],
-                           opt_state=tx.init(jv["params"]), batch_stats=jv["batch_stats"],
+                           opt_state=jax.jit(tx.init)(jv["params"]), batch_stats=jv["batch_stats"],
                            spectral=jv["spectral"])
     with same_widths(widths):
-        jstate, jld = jax_make_train_step(jm, tx)(jstate, jb, jax.random.PRNGKey(1), **FLAGS)
+        # tests/test_torch_baseline_remat.py holds the remat steps to the same one
+        with jax_step_lock("dense"):
+            jstate, jld = jax_make_train_step(jm, tx)(jstate, jb, jax.random.PRNGKey(1), **FLAGS)
     tm.train()
     opt, schedule = build_optimizer(ConfigNode(jcfg.to_dict()), tm.parameters())
     state = TrainState(tm, opt)

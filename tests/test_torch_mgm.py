@@ -72,8 +72,8 @@ from maggie_tpu_torch.main import main
 from maggie_tpu_torch.models import build_model
 from maggie_tpu_torch.ops.kernels import unknown as ku
 from maggie_tpu_torch.utils.convert_jax import to_jax
-from test_torch_harness import (jax_variables, memo, one_torch_thread,  # noqa: F401
-                                port_from_flat, random_flat, shapes_of)
+from test_torch_harness import (jax_step_lock, jax_variables, one_torch_thread,  # noqa: F401
+                                port_from_flat, random_flat, shared_shapes)
 from test_torch_train import (FLAGS, LOSS_RTOL, _check_grads, _check_state, _flat,
                               port_step_keeping_grads)
 from test_torch_video_train import _keeping_grads
@@ -98,8 +98,8 @@ def jax_shapes(jm, n_f: int) -> dict:
     """The JAX model's flat variable shapes, from ``eval_shape`` of its init
     (once a process for each model and clip length)."""
     batch = {"image": jnp.zeros((1, n_f, HW, HW, 3)), "mask": jnp.zeros((1, n_f, 1, HW, HW))}
-    return memo(f"mgm jax_shapes {jm!r} {n_f}", lambda: shapes_of(
-        lambda: jm.init({"params": jax.random.PRNGKey(0)}, batch, train=False)))
+    return shared_shapes(f"mgm jax_shapes {jm!r} {n_f}",
+                         lambda: jm.init({"params": jax.random.PRNGKey(0)}, batch, train=False))
 
 
 def build_pair(name: str, seed: int = EVAL_SEED, opts=(), head_scale: float = HEAD_SCALE):
@@ -354,10 +354,12 @@ def step_pair(name: str, jb, tb, widths):
     jcfg, jm, jv, tm, _ = build_pair(name, head_scale=TRAIN_HEAD_SCALE)
     tx = _keeping_grads(jax_build_optimizer(jcfg)[0])
     jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=jv["params"],
-                           opt_state=tx.init(jv["params"]), batch_stats=jv["batch_stats"],
+                           opt_state=jax.jit(tx.init)(jv["params"]), batch_stats=jv["batch_stats"],
                            spectral=jv["spectral"])
     with same_widths(widths):
-        jstate, jld = jax_make_train_step(jm, tx)(jstate, jb, jax.random.PRNGKey(1), **FLAGS)
+        # tests/test_torch_baseline_remat.py holds the remat steps to the same one
+        with jax_step_lock(name):
+            jstate, jld = jax_make_train_step(jm, tx)(jstate, jb, jax.random.PRNGKey(1), **FLAGS)
     tm.train()
     opt, schedule = build_optimizer(ConfigNode(jcfg.to_dict()), tm.parameters())
     state = TrainState(tm, opt)

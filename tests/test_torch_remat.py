@@ -64,7 +64,8 @@ from maggie_tpu_torch.engine.train_step import TrainState, make_train_step
 from maggie_tpu_torch.main import main
 from maggie_tpu_torch.models import build_model, remat
 from maggie_tpu_torch.utils.convert_jax import convert_jax, to_jax
-from test_torch_harness import jax_variables, one_torch_thread, random_flat  # noqa: F401
+from test_torch_harness import (jax_step_lock, jax_variables, one_torch_thread,  # noqa: F401
+                                random_flat)
 from test_torch_train import (FLAGS, LOSS_RTOL, _check_grads, _check_state, _flat, train_batch,
                               train_cfg)
 from test_torch_train_engine import CONFIG, _opts, him_root  # noqa: F401
@@ -126,7 +127,7 @@ def setup():
         jm = jax_build_model(cfg.model)
         tx = _keeping_grads(jax_build_optimizer(cfg)[0])
         jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
-                               opt_state=tx.init(variables["params"]),
+                               opt_state=jax.jit(tx.init)(variables["params"]),
                                batch_stats=variables["batch_stats"],
                                spectral=variables["spectral"])
         out[kind] = dict(jm=jm, tx=tx, jstate=jstate, pcfg=pcfg,
@@ -209,7 +210,10 @@ def _jax_step(setup, kind):
     s = setup[kind]
     if s["jax"] is None:
         step = jax_make_train_step(s["jm"], s["tx"])
-        s["jax"] = step(s["jstate"], _batch(kind)[0], jax.random.PRNGKey(1), **FLAGS)
+        # the image step is test_torch_train.py's, the video step
+        # test_torch_video_train.py's (test_torch_harness.jax_step_lock)
+        with jax_step_lock(kind):
+            s["jax"] = step(s["jstate"], _batch(kind)[0], jax.random.PRNGKey(1), **FLAGS)
     return s["jax"]
 
 

@@ -67,8 +67,8 @@ from maggie_tpu_torch.engine.train_step import TrainState, make_train_step
 from maggie_tpu_torch.models import build_model
 from maggie_tpu_torch.models.lpn import IBNorm
 from maggie_tpu_torch.utils.convert_jax import to_jax
-from test_torch_harness import (jax_variables, memo, one_torch_thread,  # noqa: F401
-                                port_from_flat, random_flat, shapes_of)
+from test_torch_harness import (jax_step_lock, jax_variables, one_torch_thread,  # noqa: F401
+                                port_from_flat, random_flat, shared_shapes)
 from test_torch_mgm import LR, _cli, _data_opts, blob, him_root, yaml_path  # noqa: F401
 from test_torch_train import (FLAGS, GRAD_REL_L2, LOSS_RTOL, PARAM_ATOL, PARAM_FAR_SHARE,
                               STATS_ATOL, _flat, _l2)
@@ -88,8 +88,8 @@ LPN_STATS_ATOL = 1e-4
 
 def jax_shapes(jm) -> dict:
     batch = {"image": jnp.zeros((1, 1, 64, 64, 3)), "mask": jnp.zeros((1, 1, 1, 64, 64))}
-    return memo(f"sparsemat jax_shapes {jm!r}", lambda: shapes_of(
-        lambda: jm.init({"params": jax.random.PRNGKey(0)}, batch, train=False)))
+    return shared_shapes(f"sparsemat jax_shapes {jm!r}",
+                         lambda: jm.init({"params": jax.random.PRNGKey(0)}, batch, train=False))
 
 
 def build_pair(name: str = "sparsemat_image", seed: int = 0, head_scale: float = HEAD_SCALE):
@@ -375,9 +375,11 @@ def test_train_step_matches_jax():
     jb, tb = train_batch()
     tx = _keeping_grads(jax_build_optimizer(jcfg)[0])
     jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=jv["params"],
-                           opt_state=tx.init(jv["params"]), batch_stats=jv["batch_stats"],
+                           opt_state=jax.jit(tx.init)(jv["params"]), batch_stats=jv["batch_stats"],
                            spectral={})
-    jstate, jld = jax_make_train_step(jm, tx)(jstate, jb, jax.random.PRNGKey(1), **FLAGS)
+    # tests/test_torch_baseline_remat.py holds the remat steps to the same one
+    with jax_step_lock("sparsemat_image"):
+        jstate, jld = jax_make_train_step(jm, tx)(jstate, jb, jax.random.PRNGKey(1), **FLAGS)
     tm.train()
     opt, schedule = build_optimizer(ConfigNode(jcfg.to_dict()), tm.parameters())
     state = TrainState(tm, opt)

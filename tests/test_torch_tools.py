@@ -260,22 +260,29 @@ def test_supervised_cpu_run_equals_the_manual_fault_then_resume(tmp_path):
     env = dict(os.environ, MAGGIE_FAULT_INJECT_ITER="3", **CHILD_ENV)
     env.pop("MAGGIE_SUPERVISOR_MAIN", None)
     env.pop("MAGGIE_SUPERVISOR_PROBE", None)
-    r = subprocess.run(SUPERVISOR + ["--config", CONFIG, "--backoff", "0.01", "--",
-                                     "--device", "cpu", "name", "supervised", *opts],
-                       capture_output=True, text=True, env=env, cwd=REPO, timeout=600)
-    assert r.returncode == 0, r.stdout + r.stderr[-4000:]
-    launches = [line for line in r.stdout.splitlines() if "] launch #" in line]
+    # the supervised run and the manual one write apart: they run side by side
+    supervisor = subprocess.Popen(
+        SUPERVISOR + ["--config", CONFIG, "--backoff", "0.01", "--", "--device", "cpu", "name",
+                      "supervised", *opts],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=REPO)
+    try:
+        trainer = [sys.executable, "-m", "maggie_tpu_torch.main", "--config", CONFIG,
+                   "--device", "cpu", "name", "manual", *opts]
+        fresh = subprocess.run(trainer, capture_output=True, text=True, env=env, cwd=REPO,
+                               timeout=600)
+        resumed = subprocess.run(trainer + ["train.resume_last", "True"], capture_output=True,
+                                 text=True, env=env, cwd=REPO, timeout=600)
+        log, err = supervisor.communicate(timeout=600)
+    finally:
+        if supervisor.poll() is None:
+            supervisor.kill()
+            supervisor.communicate()
+    assert supervisor.returncode == 0, log + err[-4000:]
+    launches = [line for line in log.splitlines() if "] launch #" in line]
     assert len(launches) == 2 and "train.resume_last" not in launches[0]
     assert launches[1].endswith("train.resume_last True") and "--device cpu" in launches[1]
-    assert "fault injection at iter 3" in r.stderr
-
-    trainer = [sys.executable, "-m", "maggie_tpu_torch.main", "--config", CONFIG,
-               "--device", "cpu", "name", "manual", *opts]
-    fresh = subprocess.run(trainer, capture_output=True, text=True, env=env, cwd=REPO,
-                           timeout=600)
+    assert "fault injection at iter 3" in err
     assert fresh.returncode != 0 and "fault injection at iter 3" in fresh.stderr
-    resumed = subprocess.run(trainer + ["train.resume_last", "True"], capture_output=True,
-                             text=True, env=env, cwd=REPO, timeout=600)
     assert resumed.returncode == 0, resumed.stderr[-4000:]
 
     runs = {}

@@ -65,7 +65,8 @@ from maggie_tpu_torch.models import sparse_layers as tsparse
 from maggie_tpu_torch.ops.resize import resize_any_shape
 from maggie_tpu_torch.models import build_model as port_build_model
 from maggie_tpu_torch.utils.convert_jax import convert_jax, flatten_collections, to_jax
-from test_torch_harness import jax_cfg, jax_shapes, jax_variables, one_torch_thread, random_flat  # noqa: F401
+from test_torch_harness import (jax_cfg, jax_shapes, jax_step_lock, jax_variables,  # noqa: F401
+                                one_torch_thread, random_flat)
 
 LOSS_RTOL = 1e-5
 GRAD_REL_L2 = 5e-2
@@ -149,7 +150,7 @@ def setup():
     variables = jax_variables(flat)
     tx = _keeping_grads(jax_build_optimizer(jcfg)[0])
     jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
-                           opt_state=tx.init(variables["params"]),
+                           opt_state=jax.jit(tx.init)(variables["params"]),
                            batch_stats=variables["batch_stats"], spectral=variables["spectral"])
     pcfg = ConfigNode(jcfg.to_dict())
     # the JAX train state's collections into the unfolded port model
@@ -235,12 +236,22 @@ def port_step_keeping_grads(step, state, batch, generator, **flags):
         return step(state, batch, generator, **flags), grads
 
 
+def jax_image_step(jstate, jb, step):
+    """JAX's step of this file's model from ``jstate`` on ``jb`` (``step``:
+    ``make_train_step`` with ``_keeping_grads``), default flags, the widths
+    of ``_WIDTHS`` (the caller feeds them). ``test_torch_remat.py`` and
+    ``test_torch_ddp.py`` hold the port to the same step
+    (``test_torch_harness.jax_step_lock``)."""
+    with jax_step_lock("image"):
+        return step(jstate, jb, jax.random.PRNGKey(1), **FLAGS)
+
+
 def test_train_step_matches_jax(setup):
     """Default flags (bench_train's): loss terms, gradients before clipping
     (the JAX optimizer hands back those it receives), and the state after
     one step."""
     jb, tb = train_batch()
-    jstate, jld = setup["step"](setup["jstate"], jb, jax.random.PRNGKey(1), **FLAGS)
+    jstate, jld = jax_image_step(setup["jstate"], jb, setup["step"])
     tstate, step = _port_state(setup)
     tld, grads = port_step_keeping_grads(step, tstate, tb, torch.Generator(), **FLAGS)
     _check_losses(jld, tld)

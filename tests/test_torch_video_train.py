@@ -63,7 +63,8 @@ from maggie_tpu_torch.models.instance_decoder import InstanceMatteDecoder
 from maggie_tpu_torch.models.layers import end_sn_chains
 from maggie_tpu_torch.models.position_encoding import temporal_position_embedding_sine
 from maggie_tpu_torch.utils.convert_jax import _KeyMap, convert_jax, to_jax
-from test_torch_harness import jax_variables, one_torch_thread, random_flat  # noqa: F401
+from test_torch_harness import (jax_step_lock, jax_variables, one_torch_thread,  # noqa: F401
+                                random_flat)
 from test_torch_train import (FLAGS, _check_grads, _check_state, _flat,  # noqa: F401
                               _keeping_grads, port_step_keeping_grads)
 from test_torch_video import video_cfg
@@ -144,7 +145,7 @@ def setup():
     jm = jax_build_model(cfg.model)
     tx = _keeping_grads(jax_build_optimizer(cfg)[0])
     jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
-                           opt_state=tx.init(variables["params"]),
+                           opt_state=jax.jit(tx.init)(variables["params"]),
                            batch_stats=variables["batch_stats"], spectral=variables["spectral"])
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jmorph, "dilate_ellipse_random", _jax_dilate(itertools.count()))
@@ -164,7 +165,8 @@ def test_video_train_step_matches_jax(setup):
     """One step from identical variables: every loss term (the temporal ones
     included), the gradients before the clip, and the state after."""
     jb, tb = clip_batch()
-    jstate, jld = setup["step"](setup["jstate"], jb, jax.random.PRNGKey(1), **FLAGS)
+    with jax_step_lock("video"):   # test_torch_remat.py holds the port to the same step
+        jstate, jld = setup["step"](setup["jstate"], jb, jax.random.PRNGKey(1), **FLAGS)
     model = setup["model"]
     model.load_state_dict(setup["sd"])
     model.train()

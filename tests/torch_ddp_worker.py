@@ -22,6 +22,7 @@ import torch
 
 from maggie_tpu_torch import parallel
 from maggie_tpu_torch.config import ConfigNode
+from maggie_tpu_torch.parallel import space
 
 
 def _cpu(d: dict) -> dict:
@@ -76,7 +77,7 @@ def recorded_selection(record: list, split: int = 1):
             by, bx, valid = (torch.cat([q[j] for q in parts]) for j in (1, 2, 3))
         h, w = mask.shape[1] // block, mask.shape[2] // block
         scores = mask[:, :h * block, :w * block].reshape(-1, h, block, w, block).sum((2, 4))
-        offset = parallel.rank() * mask.shape[0]
+        offset = parallel.data_rank() * mask.shape[0]
         record.append({"cap": cap, "active": int((scores > 0).sum()), "kept": int(valid.sum()),
                        "blocks": sorted((int(a) + offset, int(b), int(c)) for a, b, c, v
                                         in zip(idx_n, by, bx, valid) if v)})
@@ -111,17 +112,34 @@ def run_step(p: dict) -> dict:
     generator's state after, a hash of the model, and the ladder's block
     selections (``recorded_selection``, ``p['split_select']`` parts).
     ``p['empty_rows']``: rows of the global batch whose SparseMat active set
-    is emptied (``emptied_active_set``)."""
+    is emptied (``emptied_active_set``). ``p['space']`` > 1 splits the world
+    into ``data x space`` ranks (``space.init_groups``) for the step, each
+    rank on its band of its data shard's frames (``space.shard_batch_2d``);
+    the selections are then the shard's whole frame's, as every space rank
+    of it selects."""
+    from maggie_tpu_torch.models import build_model
+
+    cfg = ConfigNode(p["cfg"])
+    model = build_model(cfg.model, device="cpu")
+    n_space = p.get("space", 1)
+    if n_space > 1:
+        space.init_groups(n_space)
+        batch = space.shard_batch_2d(p["batch"], parallel.rank(), parallel.world(), n_space)
+    else:
+        batch = parallel.shard_rows(p["batch"], parallel.rank(), parallel.world())
+    try:
+        return _steps(p, cfg, model, batch)
+    finally:
+        space.init_groups(1)
+
+
+def _steps(p: dict, cfg, model, batch) -> dict:
     import maggie_tpu_torch.models.decoder_sparse as ds
     import maggie_tpu_torch.ops.morphology as tmorph
     from maggie_tpu_torch.engine import train_step as ts
     from maggie_tpu_torch.engine.optim import build_optimizer
-    from maggie_tpu_torch.models import build_model
     from maggie_tpu_torch.models.sparsemat import SparseMat
 
-    cfg = ConfigNode(p["cfg"])
-    model = build_model(cfg.model, device="cpu")
-    batch = parallel.shard_rows(p["batch"], parallel.rank(), parallel.world())
     out = {}
     for mode in p["modes"]:
         model.load_state_dict(p["state"])
@@ -284,8 +302,137 @@ def _record_write(event: str, args, writes: list) -> None:
         writes.append(os.path.basename(os.fsdecode(args[0])))
 
 
+def _space_cases(p: dict) -> dict:
+    """name -> (fn, input key, input kind, output kinds) of
+    ``run_space_modules``. ``fn`` maps the input (this rank's band of
+    ``p[key]`` for kind "band", the whole tensor for "whole") to a tuple of
+    outputs, each the band's rows (dim -2, or dim 1 for "band1") of the
+    whole frame's, the entries of blocks in the band ("entries"), or
+    discrete ("band0": the band's rows, no gradient)."""
+    from maggie_tpu_torch.models.layers import BatchNorm, Conv2d, SNConv
+    from maggie_tpu_torch.models.losses import laplacian_pyramid, sobel_magnitude
+    from maggie_tpu_torch.models.sparse_layers import MaskedBatchNorm, active_pyramid
+    from maggie_tpu_torch.ops.blocksparse import gather_patches_rows, scatter_blocks
+    from maggie_tpu_torch.ops.kernels.unknown import compute_unknown
+    from maggie_tpu_torch.ops.morphology import compute_unknown_random
+
+    def module(m):
+        m.init_params(torch.Generator().manual_seed(7))
+        return m.train()
+    conv, conv_s2 = module(Conv2d(4, 5, 3, padding=1)), module(Conv2d(4, 5, 3, 2, 1))
+    sn_conv, bn = module(SNConv(4, 5, 3, 1, 1)), module(BatchNorm(4))
+    mbn = module(MaskedBatchNorm(4))
+    h = p["x"].shape[-2]
+    mask = _band(p["mask"], -2)
+    idx_n, by, bx = (t.contiguous() for t in p["blocks"])
+    keep = _keep(by, 16, h // 4)
+    by0 = space.band(h // 64)[0]        # os4 blocks of 16 rows are os1 blocks of 64
+
+    def k1(x4):
+        ent = [t[keep] for t in (idx_n, by, bx)]
+        patches = gather_patches_rows(x4.permute(0, 2, 3, 1), *ent, 16, 4, by0)
+        band = scatter_blocks(patches[:, 4:20, 4:20], ent[0], ent[1] - by0, ent[2],
+                              torch.ones_like(ent[0], dtype=torch.bool),
+                              (x4.shape[0], x4.shape[2], x4.shape[3], x4.shape[1]), fill=-1.0)
+        return patches, band
+
+    def resize_halo(x4):
+        return (space.resize_rows(x4, (x4.shape[-2] * 4, x4.shape[-1] * 4), halo=1),)
+
+    def resize_whole(x8):
+        return (space.resize_rows(x8, (h // space.world(), x8.shape[-1] * 8)),)
+
+    def unknown(x):
+        a = torch.sigmoid(x.detach() * 3)
+        k2 = space.rows_op(a, 15, lambda t: compute_unknown(t, 30))
+        return k2, compute_unknown_random(a, 27, torch.Generator().manual_seed(2))
+
+    return {
+        "halo_rows": (lambda x: (space.halo_rows(x, 3, 2),), "x", "band", ("halo",)),
+        "gather_rows": (lambda x: (space.gather_rows(x),), "x", "band", ("whole",)),
+        "conv": (lambda x: (conv(x),), "x", "band", ("band",)),
+        "conv_stride2": (lambda x: (conv_s2(x),), "x", "band", ("band",)),
+        "sn_conv": (lambda x: (sn_conv(x),), "x", "band", ("band",)),
+        "batchnorm": (lambda x: (bn(x),), "x", "band", ("band",)),
+        "masked_batchnorm": (lambda x: (mbn(x, mask),), "x", "band", ("band",)),
+        "resize_os4_halo": (resize_halo, "x4", "band", ("band",)),
+        "resize_os8_whole": (resize_whole, "x8", "whole", ("band",)),
+        "sobel": (lambda x: (sobel_magnitude(x),), "x", "band", ("band",)),
+        "laplacian": (lambda x: tuple(laplacian_pyramid(x[:, :1])), "x", "band",
+                      ("band",) * 3),
+        "active_pyramid": (lambda x: active_pyramid((x[:, :1] > 0.5).float())[1:], "x", "band",
+                           ("band0",) * 3),
+        "unknown": (unknown, "x", "band", ("band0", "band0")),
+        "gather_scatter": (k1, "x4", "band", ("entries", "band1")),
+    }
+
+
+def _band(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's band of ``t``'s rows along ``dim`` (all of it alone)."""
+    lo, hi = space.band(t.shape[dim])
+    return t.narrow(dim, lo, hi - lo)
+
+
+def _keep(by: torch.Tensor, block: int, rows: int) -> torch.Tensor:
+    """The entries whose core (block row ``by``) lies in this rank's band of
+    ``rows`` rows."""
+    lo, hi = space.band(rows // block)
+    return (by >= lo) & (by < hi)
+
+
+def _cotangent(y: torch.Tensor, dim: int, row0: int, entries=None) -> torch.Tensor:
+    """A fixed cotangent for ``y`` whose every element is a function of its
+    place in the whole frame's output: row ``row0 + i`` along ``dim``, entry
+    ``entries[e]`` along dim 0 where given."""
+    arg = torch.zeros((), dtype=torch.float64)
+    for k, (n, f) in enumerate(zip(y.shape, (0.37, 1.3, 0.11, 0.07, 0.05))):
+        t = torch.arange(n, dtype=torch.float64)
+        if k == dim:
+            t = t + row0
+        if k == 0 and entries is not None:
+            t = entries.double()
+        arg = arg + (t * f).reshape([-1 if i == k else 1 for i in range(y.dim())])
+    return torch.sin(arg).float()
+
+
+def run_space_modules(p: dict) -> dict:
+    """Each banded piece of the row-sharded step (``_space_cases``) on this
+    rank's band of ``p``'s inputs, with a space group of the whole world
+    (alone, the same code on the whole tensors): the outputs, and the
+    input's gradient for cotangents that are the band's part of the whole
+    frame's (``_cotangent``)."""
+    space.init_groups(parallel.world())
+    try:
+        out = {}
+        for name, (fn, key, kind, out_kinds) in _space_cases(p).items():
+            x = p[key] if kind == "whole" else _band(p[key], -2)
+            x = x.clone().requires_grad_()
+            ys = fn(x)
+            loss = 0.0
+            for y, k in zip(ys, out_kinds):
+                if not y.requires_grad:
+                    continue
+                r = space.rank()
+                if k == "entries":
+                    keep = _keep(p["blocks"][1], 16, p["x"].shape[-2] // 4)
+                    ct = _cotangent(y, 0, 0, keep.nonzero()[:, 0])
+                elif k == "band1":
+                    ct = _cotangent(y, 1, r * y.shape[1])
+                elif k == "halo":
+                    ct = _cotangent(y, y.dim() - 2, r * x.shape[-2] - 3)
+                else:
+                    ct = _cotangent(y, y.dim() - 2, 0 if k == "whole" else r * y.shape[-2])
+                loss = loss + (y * ct).sum()
+            if torch.is_tensor(loss):
+                loss.backward()
+            out[name] = {"y": [y.detach() for y in ys], "x_grad": x.grad}
+    finally:
+        space.init_groups(1)
+    return out
+
+
 CASES = {"step": run_step, "norms": run_norms, "cli": run_cli, "disagree": run_disagree,
-         "atten": run_atten, "cases": run_cases}
+         "atten": run_atten, "cases": run_cases, "space_modules": run_space_modules}
 
 
 def main(case: str, in_path: str, out_dir: str) -> None:
