@@ -14,6 +14,7 @@
     python3 chip_smoke.py --tools
     python3 chip_smoke.py --alternatives
     python3 chip_smoke.py --space
+    python3 chip_smoke.py --studies
 
 The second form only answers requests 0 and 1 in f32 and bf16 and saves the
 outputs to PATH; with REF, saved by the same form from another version, it
@@ -25,14 +26,16 @@ training only: phase 2's video train shapes and phase 9. The sixth runs
 phase 10 alone, the seventh phase 11 alone, the eighth phase 12 alone, the
 ninth phase 13 alone, the tenth phase 14 alone, the eleventh phase 15
 alone, the twelfth phase 16 alone, the thirteenth phase 17 alone, the
-fourteenth phase 18 alone (in a rank pair of its own) with 18's dryrun.
+fourteenth phase 18 alone (in a rank pair of its own, 18.2 too) with 18's
+dryrun, the fifteenth phase 19 alone (its CPU halves beside the build).
 
 Phases (any failure exits non-zero):
 1. print the card's name and power limit; build the CUDA kernels from the
    sources in this checkout (one nvcc per source, in parallel), and beside
    the build the CPU halves of the card-vs-CPU steps of 6.1, 9.1 and 12.3
    (``cpu_steps_meanwhile``; 11.3's two CLI processes wait beside those of
-   13.3 and 17), so that no timing shares the host with them;
+   13.3 and 17 and of phase 19's checks), so that no timing shares the host
+   with them;
 2. hold each kernel against its plain PyTorch twin on the card, at every shape,
    memory layout and dtype the main path gives it, and K2 also on a ragged
    and a misaligned map (exact equality);
@@ -138,10 +141,10 @@ Phases (any failure exits non-zero):
    memory and the timed steps' launches, asserted the same. 10.3 fits
    peak = fixed + per-frame x frames through two sizes (image batch 1 and
    2, video clip 4 and 8), predicts the largest batch under 95% of the
-   memory the process can hold and runs ``selective`` at it (at most the
-   yaml's batch). 10.4 trains through ``main.main`` with ``opts
-   model.remat selective`` on phase 7's set: launches 20 / 6 / 2 an
-   iteration. The allocator maps expandable segments during the phase.
+   memory the process can hold (not run at it, for the script's time
+   limit: PERF.md holds earlier runs at the yamls' batches). 10.4 trains
+   through ``main.main`` with ``opts model.remat selective`` on phase 7's
+   set: launches 20 / 6 / 2 an iteration. The allocator maps expandable segments during the phase.
 
 11. data parallel (``maggie_tpu_torch/parallel/``): 11.1 phase 6's image
    step (batch 2 x 512x512, 10 slots, f32) on two gloo ranks on the one card
@@ -206,10 +209,9 @@ Phases (any failure exits non-zero):
    remat mode's first step against the plain one within phase 6's STEP_*
    limits (bit-equal or not), the generator's state equal, ms/step (median
    of steps 2-3), peak memory, K2 launches a step asserted from the layout
-   (the dense decoder 1 / 2 / 2, the rest 0; K1 never); 14.2 the yamls' own
-   batches (``mgm_stacked`` 12 images, ``mgm_stacked_tcvom`` and
-   ``sparsemat_video`` 4 clips of 8, these two under ``selective`` only)
-   under each mode: whether it fits,
+   (the dense decoder 1 / 2 / 2, the rest 0; K1 never); 14.2 the yaml's own
+   batch that fits only under ``selective`` (``mgm_stacked_tcvom``'s 4
+   clips of 8) under it: whether it fits,
    ms/step and peak where it does, else the largest batch that fits (each
    out-of-memory batch reported) with phase 10.3's fit through 14.1's
    point; 14.3 ``mgm_stacked_tcvom`` (2 clips of
@@ -269,11 +271,32 @@ Phases (any failure exits non-zero):
    against the plain twins (equal bits); ms/step (median of steps 2-3) and
    the step's peak memory above its start per rank beside one process's
    (the rank's must be lower); then ``maggie_tpu_torch.dryrun.dryrun_multichip(2)``
-   on the card beside 11.3's CLI runs. ``--space`` runs phase 18 alone.
+   on the card beside 11.3's CLI runs. 18.2, on the same pair after it:
+   the video step (``configs/maggie_video.yaml`` at full width, f32) on one
+   clip of 3 frames at 512x512 (3 moving instances in 10 slots), rows split
+   1 x 2, against one process on the whole clip by the same checks (the
+   ConvGRU in the replicated os8 stage, the diff module replicated on the
+   whole os8 maps, its change maps resized to each band). ``--space`` runs
+   phase 18 and 18.2 alone.
+19. the block-capacity studies (``maggie_tpu_torch/tools/``), shortened:
+   19.1 ``cap_quality`` on 10 procedural scenes at 576x1024 (K2 once a
+   scene; scenes 0-1's dropped and active shares equal to the CPU port's;
+   K2 equal to its twin at 2 and 4 instances; host seconds per
+   ``procedural_alpha``; the capacity table); 19.2 ``train_curve``'s oracle
+   and block ladders, 20 iterations each at 192x192 (launches a step: K2 1
+   for the oracle, K1 10 / its backward 6 / K2 1 for the block ladder;
+   ms/step; the first 2 iterations' loss terms against the CPU port's
+   within STEP_LOSS_RTOL); 19.3 ``train_long`` (bf16, selective, cap 0.5)
+   for 20 iterations with a check every 10 (finite losses, K1 20 / 6 / K2 2
+   a step and K1 5 / K2 3 a check scene, the check's MAD); 19.4 K1, its
+   backward and K2 at every geometry 19.1-19.3 launched them (train and
+   check, f32 and bf16) against their plain twins, exactly. The CPU halves
+   run beside 11.3's CLI processes. ``--studies`` runs phase 19 alone.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's ``ddp_launches``: its
 launches over the ranks' checked steps of 11.1 and 11.2; ``space_launches``:
-over phase 18's ranks' checked step; ``baseline_launches``:
+over phase 18's ranks' checked step; ``space_video_launches``: over 18.2's;
+``study_launches``: over phase 19; ``baseline_launches``:
 phase 12.1's and 12.2's; ``sparsemat_launches``: phase 13.4's;
 ``baseline_train_launches``: phase 14.1's; ``demo_launches``: phase 15's
 requests; ``tools_launches``: phase 16.1's eval; ``alternatives_launches``:
@@ -283,10 +306,11 @@ phase 17's models, video window and step) and the card line, and last
 ``chip_smoke_remat.json``, ``chip_smoke_ddp.json``,
 ``chip_smoke_baselines.json``, ``chip_smoke_sparsemat.json``,
 ``chip_smoke_baselines_train.json``, ``chip_smoke_demo.json``,
-``chip_smoke_tools.json``, ``chip_smoke_alternatives.json`` and
-``chip_smoke_space.json`` for ``--video``, ``--video-train``, ``--remat``,
-``--ddp``, ``--baselines``, ``--sparsemat``, ``--baselines-train``,
-``--demo``, ``--tools``, ``--alternatives`` and ``--space``).
+``chip_smoke_tools.json``, ``chip_smoke_alternatives.json``,
+``chip_smoke_space.json`` and ``chip_smoke_studies.json`` for ``--video``,
+``--video-train``, ``--remat``, ``--ddp``, ``--baselines``, ``--sparsemat``,
+``--baselines-train``, ``--demo``, ``--tools``, ``--alternatives``,
+``--space`` and ``--studies``).
 """
 
 from __future__ import annotations
@@ -853,6 +877,8 @@ def main() -> int:
         return alternatives_only(torch.device("cuda"))
     if "--space" in sys.argv:
         return space_only(torch.device("cuda"))
+    if "--studies" in sys.argv:
+        return studies_only(torch.device("cuda"))
     if "--gather-bwd" in sys.argv:
         print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                          "--format=csv,noheader"], capture_output=True,
@@ -876,14 +902,14 @@ def main() -> int:
         now = time.perf_counter()
         laps[phase], lap_t[0] = now - lap_t[0], now
 
-    # ---- phase 1: build, with phases 6, 9 and 12's CPU steps beside it ----
+    # ---- phase 1: build, with phases 6, 9 and 12's CPU halves beside it ----
     t0 = time.perf_counter()
 
     def build_all() -> float:
         build.build_all()
         return time.perf_counter() - t0
-    ahead = [flagship_step(), video_step()] + [
-        base_check_step(n, b, f, hw, BASE_CHECK.get(n)) for n, b, f, hw in BASE_TRAIN]
+    ahead = [meanwhile_step(s) for s in [flagship_step(), video_step()] + [
+        base_check_step(n, b, f, hw, BASE_CHECK.get(n)) for n, b, f, hw in BASE_TRAIN]]
     detail["build_s"] = cpu_steps_meanwhile(ahead, build_all)
     detail["build_with_cpu_steps_s"] = time.perf_counter() - t0
     print(f"phase 1: kernels built in {detail['build_s']:.1f} s; the CPU halves of "
@@ -1041,13 +1067,16 @@ def main() -> int:
     lap("10")
     # ---- phase 11: data parallel, two ranks on the card and torchrun ----
     torch.cuda.empty_cache()
-    # 11.3's CLI processes wait with phases 13 and 17's CPU steps beside them
-    # 14.3 and phase 18 run in phase 11's rank pair
-    ddp, space_launches = phase_ddp(dev, detail, [sm_step(*c) for c in SM_CHECK_STEPS]
-                                    + [flagship_step(ALT_TRAIN_FLAGS, ALT_TRAIN_BATCH, TRAIN_HW)])
+    # 11.3's CLI processes wait with phases 13 and 17's CPU steps and phase
+    # 19's CPU halves beside them; 14.3 and phase 18 run in phase 11's rank pair
+    ddp, space_launches, space_video_launches = phase_ddp(
+        dev, detail, [meanwhile_step(s) for s in [sm_step(*c) for c in SM_CHECK_STEPS]
+                      + [flagship_step(ALT_TRAIN_FLAGS, ALT_TRAIN_BATCH, TRAIN_HW)]]
+        + [study_spec()])
     for kern in kernels:
         kern["ddp_launches"] = ddp[kern["name"]]
         kern["space_launches"] = space_launches[kern["name"]]
+        kern["space_video_launches"] = space_video_launches[kern["name"]]
 
     lap("11")
     laps["18"] = detail["ddp"]["space"]["phase_s"]
@@ -1094,11 +1123,18 @@ def main() -> int:
         kern["alternatives_launches"] = alternatives[kern["name"]]
 
     lap("17")
+    # ---- phase 19: the block-capacity studies ----
+    torch.cuda.empty_cache()
+    studies = phase_studies(dev, detail)
+    for kern in kernels:
+        kern["study_launches"] = studies[kern["name"]]
+
+    lap("19")
     detail["phases_s"] = time.perf_counter() - t_start
     detail["phase_s"] = laps
-    print(f"phases 1-18 done in {detail['phases_s']:.1f} s (from main(), imports not counted); "
+    print(f"phases 1-19 done in {detail['phases_s']:.1f} s (from main(), imports not counted); "
           f"by phase {json.dumps({k: round(v, 1) for k, v in laps.items()})} (18 ran in 11's "
-          f"rank pair, 14.3 too)", flush=True)
+          f"rank pair, 18.2 and 14.3 too)", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
@@ -1294,9 +1330,8 @@ def trainer_set(root: str) -> None:
 
 
 def kernel_counts() -> dict:
-    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
-    return {"gather_patches": kg.launches, "gather_patches_bwd": kg.bwd_launches,
-            "compute_unknown": ku.launches}
+    from maggie_tpu_torch.ops.kernels import launch_counts
+    return launch_counts()
 
 
 def trainer_run(args: list, record: dict, keep_start: bool = False) -> dict:
@@ -1752,20 +1787,31 @@ def cpu_step(spec) -> tuple:
     return cfg, batch, init, record, time.perf_counter() - t0
 
 
+def meanwhile_step(spec) -> tuple:
+    """The ``cpu_steps_meanwhile`` spec of ``cpu_step(spec)``."""
+    return spec[0], lambda: cpu_step(spec)
+
+
+def computed(key, fn):
+    """What ``cpu_steps_meanwhile`` computed under ``key``, else ``fn()``."""
+    return _CPU_AHEAD.pop(key) if key in _CPU_AHEAD else fn()
+
+
 def step_generator(seed: int | None) -> torch.Generator:
     return torch.Generator() if seed is None else torch.Generator().manual_seed(seed)
 
 
 def cpu_steps_meanwhile(specs, wait):
-    """``wait()``'s result; meanwhile a worker thread computes ``cpu_step``
-    of each of ``specs`` for the phases that take them later. Both are done
-    on return, so that nothing timed after it shares the host."""
+    """``wait()``'s result; meanwhile a worker thread computes ``fn()`` of
+    each ``(key, fn)`` of ``specs`` for the phases that take them later
+    (``cpu_step``, ``computed``). Both are done on return, so that nothing
+    timed after it shares the host."""
     errors = []
 
     def work():
         try:
-            for spec in specs:
-                _CPU_AHEAD[spec[0]] = cpu_step(spec)
+            for key, fn in specs:
+                _CPU_AHEAD[key] = fn()
         except BaseException as exc:  # raised again in this thread
             errors.append(exc)
     worker = threading.Thread(target=work)
@@ -3016,8 +3062,8 @@ def remat_batch(kind: str, size: int, dev) -> dict:
 def remat_kind(dev, kind: str, budget: int) -> dict:
     """10.1 (image) or 10.2 (video): per precision, the compare steps; in
     REMAT_TIMED's, the timed modes at phase 6's (9's) size, the fit's
-    second size, the fit, the predicted largest batch, and for selective a
-    verified run at it (at most the yaml's batch)."""
+    second size, the fit and the largest batch it predicts (not run: the
+    predictions ran at the yamls' batches in earlier runs, PERF.md)."""
     label = "10.1 image" if kind == "image" else "10.2 video"
     sizes = REMAT_IMAGE_SIZES if kind == "image" else REMAT_VIDEO_SIZES
     clip = 1 if kind == "image" else VIDEO_TRAIN_CLIP
@@ -3064,27 +3110,6 @@ def remat_kind(dev, kind: str, budget: int) -> dict:
                   f"{budget / 1e9:.2f} GB, {m['predicted_max_batch']} with K1 backward's "
                   f"limit of {KERNEL_MAX_MAPS} maps"
                   + ("" if kind == "image" else f" (batches of clip {clip})"), flush=True)
-        sel = r["modes"]["selective"]
-        verify = min(sel["predicted_max_batch"], REMAT_YAML_BATCH[kind])
-        if verify >= 1:
-            if kind == "image":
-                big = remat_batch(kind, verify, dev)
-            else:   # batch `verify` x clip 8: the clip repeated
-                big = {k: v.repeat((verify,) + (1,) * (v.dim() - 1))
-                       for k, v in remat_batch(kind, clip, dev).items()}
-            v = r["verified"] = remat_steps(dev, cfg, model, init, big, "selective", 2)
-            v["batch"] = verify
-            v["predicted_peak_bytes"] = (sel["fit"]["fixed_bytes"]
-                                         + sel["fit"]["per_frame_bytes"] * verify * clip)
-            print(f"phase {label} {precision} selective at the predicted batch {verify}"
-                  + ("" if kind == "image" else f" x clip {clip}")
-                  + f": peak {v['peak_mem_bytes'] / 1e9:.3f} GB (fit "
-                  f"{v['predicted_peak_bytes'] / 1e9:.3f}), ms per step "
-                  f"{[round(x, 3) for x in v['ms_per_step']]}", flush=True)
-            del big
-        else:
-            print(f"phase {label} {precision} selective: the fit predicts no batch that fits",
-                  flush=True)
         del model, init, main_batch, small_batch
         torch.cuda.empty_cache()
     return out
@@ -3116,8 +3141,8 @@ def remat_cli(detail) -> dict:
 
 
 def phase_remat(dev, detail) -> dict:
-    """Phase 10: 10.1 and 10.2 (with 10.3's fits, predictions and verified
-    runs), 10.4 the CLI. Returns each kernel's launches per remat mode and
+    """Phase 10: 10.1 and 10.2 (with 10.3's fits and predictions), 10.4 the
+    CLI. Returns each kernel's launches per remat mode and
     model, and the CLI run's.
 
     The allocator maps memory in expandable segments during the phase, as a
@@ -3576,6 +3601,10 @@ def ddp_video_check(dev, run: dict, ranks: list) -> tuple[dict, dict]:
 SPACE_HW = 1024
 SPACE_N_INST = 3
 SPACE = 2
+# 18.2: the video step (configs/maggie_video.yaml at full width, 3 instances
+# in 10 slots, f32) on one clip of 3 frames at 512x512, rows split 1 x 2 on
+# the same pair, after phase 18, against one process on the whole clip
+SPACE_VIDEO = (3, 512)
 
 
 def space_run() -> dict:
@@ -3590,6 +3619,17 @@ def space_run() -> dict:
             "space": SPACE}
 
 
+def space_video_run() -> dict:
+    """18.2's run for the ranks: the video yaml's model (seed 0, f32) and one
+    clip of SPACE_VIDEO[0] frames at SPACE_VIDEO[1] x SPACE_VIDEO[1]."""
+    from maggie_tpu_torch.models import build_model
+    cfg = video_train_cfg()
+    state = build_model(cfg.model, device="cpu",
+                        generator=torch.Generator().manual_seed(0)).state_dict()
+    return {"cfg": cfg.to_dict(), "state": state, "batch": video_train_batch(*SPACE_VIDEO),
+            "modes": ("none",), "space": SPACE}
+
+
 @contextlib.contextmanager
 def kernel_calls():
     """Records the inputs' geometry of every K1, K1 backward and K2 launch
@@ -3601,13 +3641,15 @@ def kernel_calls():
     def rec_fwd(feat, idx_n, idx_by, idx_bx, block, halo):
         layout = "pixel" if feat.is_contiguous() else "plane"
         key = (tuple(feat.shape), layout, str(feat.dtype), block, halo, idx_n.shape[0])
-        calls["gather"].setdefault(key, [t.cpu() for t in (idx_n, idx_by, idx_bx)])
+        if key not in calls["gather"]:
+            calls["gather"][key] = [t.cpu() for t in (idx_n, idx_by, idx_bx)]
         return fwd(feat, idx_n, idx_by, idx_bx, block, halo)
 
     def rec_bwd(g, idx_n, idx_by, idx_bx, shape, block, halo, plane=False):
         key = (tuple(shape), "plane" if plane else "pixel", str(g.dtype), block, halo,
                idx_n.shape[0])
-        calls["gather_bwd"].setdefault(key, [t.cpu() for t in (idx_n, idx_by, idx_bx)])
+        if key not in calls["gather_bwd"]:
+            calls["gather_bwd"][key] = [t.cpu() for t in (idx_n, idx_by, idx_bx)]
         return bwd(g, idx_n, idx_by, idx_bx, shape, block, halo, plane)
 
     def rec_k2(masks, k_size):
@@ -3620,10 +3662,11 @@ def kernel_calls():
         kg._forward, kg.gather_patches_bwd, ku._launch = fwd, bwd, k2
 
 
-def space_kernel_checks(calls: dict, dev) -> dict:
-    """K1, its backward and K2 at every geometry the row-sharded step gave
-    them (band-plus-halo maps, the bands' entries) against their plain
-    twins on random inputs of those shapes: equal bits."""
+def recorded_kernel_checks(calls: dict, dev, label: str) -> dict:
+    """K1, its backward and K2 at every geometry ``kernel_calls`` recorded
+    (phase 18: the band-plus-halo maps and the bands' entries; 19: the
+    studies' maps) against their plain twins on random inputs of those
+    shapes and the recorded entries: equal bits."""
     from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
     out, worst = {"gather": [], "gather_bwd": [], "unknown": []}, {"unknown": 0.0}
     for i, ((shape, layout, dtype, block, halo, cap), idx) in enumerate(calls["gather"].items()):
@@ -3633,7 +3676,8 @@ def space_kernel_checks(calls: dict, dev) -> dict:
         ref = kg.gather_patches_plain(feat, *idx, block, halo)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
-            fail(f"phase 18: K1 at {shape} {layout} ({block}, {halo}) != its plain twin")
+            fail(f"phase {label}: K1 at {shape} {layout} {dtype} ({block}, {halo}) != its plain "
+                 f"twin")
         out["gather"].append({"shape": list(shape), "layout": layout, "dtype": dtype,
                               "block": block, "halo": halo, "cap": cap, "equal": True})
     for i, ((shape, layout, dtype, block, halo, cap), idx) in enumerate(
@@ -3641,11 +3685,11 @@ def space_kernel_checks(calls: dict, dev) -> dict:
         idx = [t.to(dev) for t in idx]
         size = block + 2 * halo
         g = torch.randn((cap, size, size, shape[-1]), generator=torch.Generator().manual_seed(i))
-        check_bwd(f"space_{block}_{halo}", g.to(dev, getattr(torch, dtype.split(".")[1])), idx,
+        check_bwd(f"{label}_{block}_{halo}", g.to(dev, getattr(torch, dtype.split(".")[1])), idx,
                   shape, block, halo, layout, out, worst)
     for i, (shape, k) in enumerate(calls["unknown"]):
         a = torch.rand(shape, generator=torch.Generator().manual_seed(i)).to(dev)
-        check_unknown(a, k, "space band", out, worst)
+        check_unknown(a, k, f"phase {label}", out, worst)
     return out
 
 
@@ -3663,18 +3707,19 @@ def space_rank_run(model, cfg, run: dict, dev) -> dict:
         with kernel_calls() as calls:
             res = ddp_steps(model, cfg, {k: v.to(dev) for k, v in rows.items()}, dev,
                             run["modes"])
-        res["kernel_checks"] = space_kernel_checks(calls, dev)
+        res["kernel_checks"] = recorded_kernel_checks(calls, dev, "18")
         return res
     finally:
         space.init_groups(1)
 
 
-def space_check(dev, run: dict, ranks: list) -> dict:
-    """Phase 18: the ranks' row-sharded step against one process on the
-    whole frame on the card within phase 6's STEP_* limits (the loss terms'
-    rank parts summed), the ranks bit-equal, each rank's selection the one
-    process's, K1 10 / its backward 6 / K2 1 launched on each rank; their
-    ms/step and peak memory beside the one process's."""
+def space_check(dev, run: dict, ranks: list, label: str = "18") -> dict:
+    """Phase 18 (18.2 the video step): the ranks' row-sharded step against
+    one process on the whole frame on the card within phase 6's STEP_*
+    limits (the loss terms' rank parts summed), the ranks bit-equal, each
+    rank's selection the one process's, K1 10 / its backward 6 / K2 1
+    launched on each rank; their ms/step and peak memory beside the one
+    process's."""
     from maggie_tpu_torch.config import ConfigNode
     from maggie_tpu_torch.models import build_model
     cfg = ConfigNode(run["cfg"])
@@ -3688,17 +3733,17 @@ def space_check(dev, run: dict, ranks: list) -> dict:
     differ = [f"{part} {k}" for part in ("params", "batch_stats", "spectral", "grads")
               for k, v in got[0][part].items() if not torch.equal(v, got[1][part][k])]
     if differ:
-        fail(f"phase 18: the space ranks' models differ after the step at {differ[:5]}")
+        fail(f"phase {label}: the space ranks' models differ after the step at {differ[:5]}")
     losses = {k: sum(r["losses"][k] for r in got) for k in got[0]["losses"]}
     check = compare_steps(dict(got[0], losses=losses), single)
     if not check["within"]:
-        fail(f"phase 18: space {SPACE} differs from one process beyond the STEP_* limits: "
+        fail(f"phase {label}: space {SPACE} differs from one process beyond the STEP_* limits: "
              f"{check}")
     for r, res in enumerate(got):
         if res["selections"] != single["selections"]:
-            fail(f"phase 18: space rank {r} selected other blocks than one process")
+            fail(f"phase {label}: space rank {r} selected other blocks than one process")
         if res["launches"] != PER_ITER:
-            fail(f"phase 18: space rank {r} launched {res['launches']}, not {PER_ITER}")
+            fail(f"phase {label}: space rank {r} launched {res['launches']}, not {PER_ITER}")
     checks = ranks[0]["kernel_checks"]
     check.update(
         launches_per_rank=[r["launches"] for r in got],
@@ -3715,10 +3760,11 @@ def space_check(dev, run: dict, ranks: list) -> dict:
     ratio = max(check["peak_above_start_bytes_ranks"]) / check["peak_above_start_bytes_one_process"]
     check["peak_ratio"] = ratio
     if ratio >= 1.0:
-        fail(f"phase 18: a space rank's peak ({check['peak_above_start_bytes_ranks']}) is not "
+        fail(f"phase {label}: a space rank's peak ({check['peak_above_start_bytes_ranks']}) is not "
              f"below one process's ({check['peak_above_start_bytes_one_process']})")
-    print(f"phase 18: space {SPACE} ({SPACE_HW}x{SPACE_HW}, {SPACE_N_INST} instances in "
-          f"{TRAIN_SLOTS} slots, two gloo ranks on one card) vs one process: loss terms max rel "
+    n_f, h, w = run["batch"]["image"].shape[1:4]
+    print(f"phase {label}: space {SPACE} ({n_f} frame(s) of {h}x{w} in {TRAIN_SLOTS} slots, "
+          f"two gloo ranks on one card) vs one process: loss terms max rel "
           f"{check['loss_max_rel']:.3g}, gradients rel L2 {check['grad_rel_l2']:.3g}, params max "
           f"|d| {check['param_max_abs']:.3g}, BN stats {check['batch_stats_max_abs']:.3g}, SN "
           f"u/v {check['spectral_max_abs']:.3g}; ranks bit-equal, selections equal "
@@ -3780,8 +3826,8 @@ def with_space_dryrun(wait):
 
 
 def space_only(dev) -> int:
-    """``--space``: build the kernels, then phase 18 alone in a rank pair of
-    its own and ``dryrun_multichip(2)``; details to
+    """``--space``: build the kernels, then phase 18 (with 18.2) alone in a
+    rank pair of its own and ``dryrun_multichip(2)``; details to
     output/torch_port/chip_smoke_space.json."""
     import tempfile
     from maggie_tpu_torch.ops.kernels import build
@@ -3793,9 +3839,10 @@ def space_only(dev) -> int:
     build.build_all()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
-        run = space_run()
-        ranks = ddp_spawn("space", {"runs": [run]}, root)
-        detail = {"space": space_check(dev, run, [r[0] for r in ranks])}
+        run, video = space_run(), space_video_run()
+        ranks = ddp_spawn("space", {"runs": [run, video]}, root)
+        detail = {"space": space_check(dev, run, [r[0] for r in ranks]),
+                  "space_video": space_check(dev, video, [r[1] for r in ranks], "18.2 video")}
     detail["space"]["dryrun"] = space_dryrun()
     detail["space"]["phase_s"] = time.perf_counter() - t0
     print(f"phase 18: done in {detail['space']['phase_s']:.1f} s; dryrun_multichip(2) on the "
@@ -3809,14 +3856,15 @@ def space_only(dev) -> int:
 def phase_ddp(dev, detail, ahead=()) -> tuple[dict, dict]:
     """Phase 11 and, in its rank pair, 14.3 and phase 18: one pair of rank
     processes runs 11.1 and 11.2 (``ddp_image_run``, ``ddp_video_run``),
-    14.3's configs (``b14_runs``) and phase 18's row-sharded step
-    (``space_run``) in turn; then each one's check against one process
-    (``ddp_image_check``, ``ddp_video_check``, ``space_check``, then, with
+    14.3's configs (``b14_runs``) and phase 18's row-sharded steps
+    (``space_run``, 18.2 ``space_video_run``) in turn; then each one's check
+    against one process (``ddp_image_check``, ``ddp_video_check``,
+    ``space_check`` twice, then, with
     nothing timed after, ``b14_check``), then 11.3 ``ddp_cli`` with the
-    ``cpu_step`` specs ``ahead`` computed meanwhile (``cpu_steps_meanwhile``);
+    specs ``ahead`` computed meanwhile (``cpu_steps_meanwhile``);
     ``dryrun_multichip(2)`` runs on the card beside 14.3's check and 11.3
     (``with_space_dryrun``). Returns each kernel's launches over 11.1-11.2's
-    ranks' checked steps, and over phase 18's."""
+    ranks' checked steps, over phase 18's and over 18.2's."""
     import tempfile
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -3824,16 +3872,20 @@ def phase_ddp(dev, detail, ahead=()) -> tuple[dict, dict]:
     with tempfile.TemporaryDirectory() as root:
         runs = [ddp_image_run(), ddp_video_run()]
         b14 = b14_runs()
-        space = space_run()
-        ranks = ddp_spawn("train", {"runs": runs + b14 + [space]}, root)
+        space, space_video = space_run(), space_video_run()
+        ranks = ddp_spawn("train", {"runs": runs + b14 + [space, space_video]}, root)
         out["image"], image = ddp_image_check(dev, runs[0], [r[0] for r in ranks])
         torch.cuda.empty_cache()
         out["video"], video = ddp_video_check(dev, runs[1], [r[1] for r in ranks])
         torch.cuda.empty_cache()
         t18 = time.perf_counter()
-        out["space"] = space_check(dev, space, [r[-1] for r in ranks])
+        out["space"] = space_check(dev, space, [r[-2] for r in ranks])
         torch.cuda.empty_cache()
         out["space"]["check_s"] = time.perf_counter() - t18
+        t18 = time.perf_counter()
+        out["space_video"] = space_check(dev, space_video, [r[-1] for r in ranks], "18.2 video")
+        torch.cuda.empty_cache()
+        out["space_video"]["check_s"] = time.perf_counter() - t18
         # nothing is timed from here on: 18's dryrun runs beside 14.3's
         # check and 11.3's CLI processes
         out["cli"], out["space"]["dryrun"] = with_space_dryrun(lambda: (
@@ -3841,22 +3893,28 @@ def phase_ddp(dev, detail, ahead=()) -> tuple[dict, dict]:
             cpu_steps_meanwhile(ahead, lambda: ddp_cli(root)))[1])
     launches = {k: image[k] + video[k] for k in image}
     out["launches"] = launches
-    space_launches = {k: sum(r[k] for r in out["space"]["launches_per_rank"]) for k in PER_ITER}
+    space_launches, video_launches = ({k: sum(r[k] for r in out[name]["launches_per_rank"])
+                                       for k in PER_ITER} for name in ("space", "space_video"))
     out["space"]["launches"] = space_launches
-    # phase 18's seconds: its ranks' run and its check (11.3's wall holds its dryrun)
-    out["space"]["phase_s"] = (max(out["space"]["rank_seconds"]) + out["space"]["check_s"])
+    out["space_video"]["launches"] = video_launches
+    # phase 18's seconds: its ranks' runs and its checks, 18.2's too (11.3's
+    # wall holds its dryrun)
+    out["space"]["phase_s"] = sum(max(out[name]["rank_seconds"]) + out[name]["check_s"]
+                                  for name in ("space", "space_video"))
     detail["ddp"] = out
     print(f"phase 11: done in {time.perf_counter() - t0:.1f} s (phase 18's "
-          f"{out['space']['phase_s']:.1f} s and 14.3's included); launches over the ranks' "
-          f"checked steps {launches}; phase 18's {space_launches}; dryrun_multichip(2) on the "
-          f"card beside 11.3: {out['space']['dryrun']}", flush=True)
+          f"{out['space']['phase_s']:.1f} s with 18.2 and 14.3's included); launches over the "
+          f"ranks' checked steps {launches}; phase 18's {space_launches}, 18.2's "
+          f"{video_launches}; dryrun_multichip(2) on the card beside 11.3: "
+          f"{out['space']['dryrun']}", flush=True)
     for k, n in launches.items():
         if n == 0:
             fail(f"phase 11: {k} was not launched on the data-parallel path")
-    for k, n in space_launches.items():
-        if n == 0:
-            fail(f"phase 18: {k} was not launched on the row-sharded path")
-    return launches, space_launches
+    for name, counts in (("18", space_launches), ("18.2 video", video_launches)):
+        for k, n in counts.items():
+            if n == 0:
+                fail(f"phase {name}: {k} was not launched on the row-sharded path")
+    return launches, space_launches, video_launches
 
 
 def ddp_only(dev) -> int:
@@ -4720,14 +4778,13 @@ B14_STEPS = 3                 # the checked step, then steps 2-3 timed (median)
 # "selective" both compute again in the backward; the MGM and TCVOM train
 # fusions dilate with random widths (plain torch) and SparseMat launches none
 B14_K2 = {"dense": {"none": 1, "full": 2, "selective": 2}}
-# 14.2 (config, batch, clip, modes): the yamls' own train batches, only
-# under ``selective`` for the script's time limit (the other modes, on an
+# 14.2 (config, batch, clip, modes): the yaml's own train batch that fits
+# only under ``selective``, for the script's time limit (the others, on an
 # H100 80GB HBM3, 700 W: mgm_stacked's 12 images fit in every mode,
 # mgm_stacked_tcvom's 4 clips only under selective, sparsemat_video's in
 # every mode at 83.5-83.8 GB, and sparsemat_image's 12 images in every mode
 # at 31.8 GB; PERF.md §5)
-B14_YAML = (("mgm_stacked", 12, 1, ("selective",)), ("mgm_stacked_tcvom", 4, 8, ("selective",)),
-            ("sparsemat_video", 4, 8, ("selective",)))
+B14_YAML = (("mgm_stacked_tcvom", 4, 8, ("selective",)),)
 B14_YAML_STEPS = 2            # ms/step: the second step's
 # 14.3 (config, global batch, clip): two gloo ranks on the card, a row a rank
 B14_DDP = (("mgm_stacked_tcvom", 2, 3), ("sparsemat_image", 2, 1))
@@ -5878,6 +5935,202 @@ def alternatives_only(dev) -> int:
     phase_alternatives(dev, detail)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_alternatives.json"), "w") as f:
+        json.dump(detail, f, indent=1, default=str)
+    return 0
+
+
+# ---------------------------------------------------------------- phase 19
+# The block-capacity studies (maggie_tpu_torch/tools/), shortened for the
+# script's time limit: cap_quality on STUDY_SCENES procedural scenes at the
+# bench frame's size (K2 once a scene), train_curve's two ladders and
+# train_long's condition (bf16, selective remat, cap 0.5, a check on 8
+# held-out scenes every STUDY_VAL_EVERY) for STUDY_ITERS iterations each at
+# STUDY_SIZE, the studies' model (attention and final width 32) from seed 0.
+# The CPU halves (cap_quality's first STUDY_CPU_SCENES scenes, each
+# ladder's first STUDY_CHECK_ITERS iterations) run beside 11.3's CLI
+# processes (``--studies``: beside the kernel build).
+STUDY_SCENES = 10
+STUDY_HW = (576, 1024)
+STUDY_CPU_SCENES = 2
+STUDY_ITERS = 20
+STUDY_SIZE = 192
+STUDY_CHECK_ITERS = 2
+STUDY_VAL_EVERY = 10
+STUDY_CAP = 0.5
+# launches a step by ladder: the dense oracle ladder gathers nothing and K2
+# makes its uncertainty map; train_long's selective step recomputes every
+# stage (remat_per_step), and its check is the eval forward (K1 5, K2 3 a scene)
+STUDY_PER_STEP = {"block": PER_ITER,
+                  "oracle": {"gather_patches": 0, "gather_patches_bwd": 0, "compute_unknown": 1}}
+
+
+def study_cpu() -> dict:
+    """The studies' CPU halves: cap_quality's first scenes and each ladder's
+    first iterations on the CPU port (plain twins)."""
+    from maggie_tpu_torch.tools import cap_quality, train_curve
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    out = {"cap_quality": cap_quality.run(STUDY_CPU_SCENES, *STUDY_HW, cpu), "curve": {}}
+    for mode in ("oracle", "block"):
+        record = out["curve"][mode] = {}
+        train_curve.run(mode, STUDY_CHECK_ITERS, STUDY_SIZE, STUDY_SIZE, STUDY_CAP, cpu, record)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def study_spec() -> tuple:
+    """The ``cpu_steps_meanwhile`` spec of the studies' CPU halves."""
+    return ("studies",), study_cpu
+
+
+def study_losses_check(card: list, cpu: list, label: str) -> float:
+    """The first iterations' loss terms on the card against the CPU port's
+    within STEP_LOSS_RTOL above STEP_LOSS_ATOL; the largest reading."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        for k, v in b.items():
+            worst = max(worst, abs(a[k] - v) / max(abs(v), STEP_LOSS_ATOL / STEP_LOSS_RTOL))
+        if worst > STEP_LOSS_RTOL:
+            fail(f"phase 19 {label}: iteration {i}'s loss terms differ from the CPU port's by "
+                 f"{worst:.3g} relative (limit {STEP_LOSS_RTOL}): {a} vs {b}")
+    return worst
+
+
+def phase_studies(dev, detail) -> dict:
+    """Phase 19: 19.1 cap_quality, 19.2 train_curve, 19.3 train_long on the
+    card through the tools' own functions, every kernel launch's geometry
+    recorded (``kernel_calls``); 19.4 each recorded geometry against the
+    plain twins (``recorded_kernel_checks``). Returns each kernel's launches
+    over 19.1-19.3."""
+    from maggie_tpu_torch.ops.kernels import gather as kg, unknown as ku
+    from maggie_tpu_torch.tools import cap_quality, train_curve, train_long
+    t0 = time.perf_counter()
+    cpu = computed(*study_spec())
+    out, total = {"cpu_halves_s": cpu["seconds"]}, dict.fromkeys(PER_ITER, 0)
+    calls = {"gather": {}, "gather_bwd": {}, "unknown": {}}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        kg.launches = kg.bwd_launches = ku.launches = 0
+        t = time.perf_counter()
+        with kernel_calls() as seen:
+            res = fn()
+            torch.cuda.synchronize()
+        counts = kernel_counts()
+        for k in total:
+            total[k] += counts[k]
+        for kind, geometries in seen.items():
+            for key, idx in geometries.items():
+                calls[kind].setdefault(key, idx)
+        return res, counts, time.perf_counter() - t
+
+    # 19.1
+    res, counts, secs = counted(lambda: cap_quality.run(STUDY_SCENES, *STUDY_HW, dev))
+    if counts != {"gather_patches": 0, "gather_patches_bwd": 0, "compute_unknown": STUDY_SCENES}:
+        fail(f"phase 19.1 cap_quality: launches {counts}, not K2 once a scene x {STUDY_SCENES}")
+    c = cpu["cap_quality"]
+    n = STUDY_CPU_SCENES
+    if not (np.array_equal(res["drops"][:n], c["drops"]) and res["actives"][:n] == c["actives"]):
+        fail(f"phase 19.1 cap_quality: scenes 0-{n - 1} differ from the CPU port: "
+             f"{res['drops'][:n].tolist()} {res['actives'][:n]} vs {c['drops'].tolist()} "
+             f"{c['actives']}")
+    checks = {"unknown": []}
+    for n_i in (2, 4):   # K2 at each scene's shape against its twin
+        seed = next(s for s in range(100) if np.random.RandomState(s).randint(2, 5) == n_i)
+        a = torch.from_numpy(cap_quality.procedural_alpha(seed, *STUDY_HW)).to(dev)[None]
+        check_unknown(a, 30, f"cap_quality scene {seed}", checks, {"unknown": 0.0})
+    table = cap_quality.table(res, STUDY_SCENES, *STUDY_HW)
+    out["cap_quality"] = {"launches": counts, "seconds": secs, "table": table,
+                          "drops": res["drops"].tolist(), "actives": res["actives"],
+                          "alpha_host_s": res["alpha_s"],
+                          "alpha_host_s_median": float(np.median(res["alpha_s"])),
+                          "k2_checks": checks["unknown"]}
+    print(f"phase 19.1: cap_quality {STUDY_SCENES} scenes at {STUDY_HW[0]}x{STUDY_HW[1]} in "
+          f"{secs:.1f} s (procedural_alpha {out['cap_quality']['alpha_host_s_median']:.4f} host "
+          f"s a scene, median); launches {counts}; scenes 0-{n - 1} equal to the CPU port; K2 "
+          f"equal to its twin at n_i 2 and 4", flush=True)
+    for line in table.splitlines():
+        print("  " + line, flush=True)
+    # 19.2
+    out["curve"] = {}
+    for mode in ("oracle", "block"):
+        record = {}
+        losses, counts, secs = counted(lambda: train_curve.run(
+            mode, STUDY_ITERS, STUDY_SIZE, STUDY_SIZE, STUDY_CAP, dev, record))
+        want = {k: v * STUDY_ITERS for k, v in STUDY_PER_STEP[mode].items()}
+        if counts != want:
+            fail(f"phase 19.2 train_curve {mode}: launches {counts}, not {want}")
+        if not np.all(np.isfinite(losses)):
+            fail(f"phase 19.2 train_curve {mode}: non-finite losses {losses}")
+        worst = study_losses_check(record["loss_dicts"], cpu["curve"][mode]["loss_dicts"],
+                                   f"train_curve {mode}")
+        out["curve"][mode] = {"losses": losses, "launches": counts, "seconds": secs,
+                              "ms_per_step": [1e3 * t for t in record["seconds"]],
+                              "ms_per_step_median": 1e3 * float(np.median(record["seconds"][1:])),
+                              "cpu_loss_max_rel": worst}
+        print(f"phase 19.2: train_curve {mode} {STUDY_ITERS} iterations at {STUDY_SIZE}x"
+              f"{STUDY_SIZE} in {secs:.1f} s: {out['curve'][mode]['ms_per_step_median']:.3f} "
+              f"ms/step (median of 2-{STUDY_ITERS}), launches a step "
+              f"{STUDY_PER_STEP[mode]}, loss {losses[0]:.4f} -> {losses[-1]:.4f}; the first "
+              f"{STUDY_CHECK_ITERS} iterations' loss terms within {worst:.3g} of the CPU port's",
+              flush=True)
+    # 19.3
+    record = {}
+    res, counts, secs = counted(lambda: train_long.run(STUDY_ITERS, STUDY_SIZE,
+                                                       STUDY_VAL_EVERY, dev, record))
+    val_counts = record["val_launches"]
+    n_val = len(val_counts)
+    per_val = {k: v * train_long.VAL_SCENES for k, v in PER_VAL_FRAME.items()}
+    steps = {k: counts[k] - sum(v[k] for v in val_counts) for k in counts}
+    want = {k: v * STUDY_ITERS for k, v in remat_per_step("selective").items()}
+    if steps != want or any(v != per_val for v in val_counts):
+        fail(f"phase 19.3 train_long: launches {steps} in the steps (not {want}) and "
+             f"{val_counts} in the checks (not {per_val} each)")
+    if len(res["losses"]) != STUDY_ITERS or not np.all(np.isfinite(res["losses"])):
+        fail(f"phase 19.3 train_long: losses {res['losses']}")
+    out["long"] = dict(res, launches=counts, seconds=secs,
+                       ms_per_step=[1e3 * t for t in record["seconds"]],
+                       ms_per_step_median=1e3 * float(np.median(record["seconds"][1:])),
+                       val_seconds=record["val_seconds"])
+    print(f"phase 19.3: train_long (bf16, selective, cap {STUDY_CAP}) {STUDY_ITERS} iterations "
+          f"at {STUDY_SIZE}x{STUDY_SIZE} in {secs:.1f} s: {out['long']['ms_per_step_median']:.3f} "
+          f"ms/step (median of 2-{STUDY_ITERS}), launches a step "
+          f"{remat_per_step('selective')} and a check scene {PER_VAL_FRAME}; loss "
+          f"{res['losses'][0]:.4f} -> {res['losses'][-1]:.4f}; val MADx1e3 "
+          f"{[round(v['MADx1e3'], 2) for v in res['val']]} over {n_val} checks "
+          f"({[round(t, 2) for t in record['val_seconds']]} s)", flush=True)
+    # 19.4
+    t = time.perf_counter()
+    out["kernel_checks"] = recorded_kernel_checks(calls, dev, "19")
+    geometries = {k: len(v) for k, v in calls.items()}
+    out["kernel_checks"]["geometries"], out["kernel_checks"]["seconds"] = (
+        geometries, time.perf_counter() - t)
+    print(f"phase 19.4: every geometry of 19.1-19.3's launches ({geometries} K1 / its backward "
+          f"/ K2 geometries, train and check, f32 and bf16) equal to the plain twins "
+          f"({out['kernel_checks']['seconds']:.1f} s)", flush=True)
+    out["launches"] = total
+    out["phase_s"] = time.perf_counter() - t0
+    detail["studies"] = out
+    print(f"phase 19: done in {out['phase_s']:.1f} s; launches {total} (the CPU halves "
+          f"{cpu['seconds']:.1f} s, computed beforehand)", flush=True)
+    return total
+
+
+def studies_only(dev) -> int:
+    """``--studies``: build the kernels with phase 19's CPU halves beside
+    the build, then phase 19; details to
+    output/torch_port/chip_smoke_studies.json."""
+    from maggie_tpu_torch.ops.kernels import build
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("card: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                     "--format=csv,noheader"], capture_output=True,
+                                    text=True, check=True).stdout.strip(), flush=True)
+    cpu_steps_meanwhile([study_spec()], build.build_all)
+    detail = {}
+    phase_studies(dev, detail)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_studies.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
     return 0
 

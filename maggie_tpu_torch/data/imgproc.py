@@ -66,6 +66,29 @@
   fractional bits with error diffusion and the centre taking the rest of
   256, applied separably in exact integers with ``BORDER_REFLECT_101``, the
   horizontal pass kept whole and the vertical one rounded at 16 bits.
+- ``fill_ellipse``: ``cv2.ellipse(img, center, axes, 0, 0, 360, value, -1)``
+  (``LINE_8``) on a float32 image, bit for bit (``drawing.cpp``): the
+  outline from ``ellipse2Poly`` in 16-bit fixed point (the arc step 90, 30,
+  18 or 5 degrees as the larger axis is under 3, 10, 15 pixels or more; cv2's
+  float table of sines rounded to 7 decimals), each vertex rounded half to
+  even and repeats dropped; then ``FillConvexPoly``: every edge drawn by the
+  fixed-point ``Line2`` (clipped to the image by ``clipLine``), and the rows
+  between the two edge chains walked from the top vertex, each row filled
+  from its left x to its right x, both rounded at half a pixel and clipped.
+- ``gaussian_blur_f32``: ``cv2.GaussianBlur(img, (k, k), 0)`` of a float32
+  (H, W) image for k in 3, 5, 7, 9, bit for bit with OpenCV 5.0 on an AVX2
+  host (``smooth.dispatch.cpp``, ``filter.simd.hpp``): with sigma 0 every
+  one of these sizes takes cv2's fixed table (k = 9 too: 4, 13, 30, 51, 60
+  over 256); ``BORDER_REFLECT_101``; the row pass, then the column pass, each
+  in float32 in cv2's order of operations. Rows, k 3 and 5: the symmetric
+  taps paired first, ``fma(c, k0, pair1 * k1)`` (k 3), then ``fma(pair2, k2,
+  .)`` (k 5); k 7 and 9: a fused multiply-add chain over the taps from the
+  first, on the 4-aligned columns; the columns after them in scalar code,
+  the first ``4 * ((k - 1) // 4)`` products after tap 0 rounded and added,
+  the rest fused (k 5: its odd last column ``c * k0 + pair1 * k1 + pair2 *
+  k2``, each rounded). Columns: ``pair1 * k1 + c * k0`` fused (k 3); else
+  ``c * k0``, then each pair fused in from the nearest, on the 8-aligned
+  columns, and rounded and added on the columns after them.
 """
 
 from __future__ import annotations
@@ -208,9 +231,23 @@ def _invert_affine(m: np.ndarray) -> np.ndarray:
 
 
 def _fma32(a, b, c) -> np.ndarray:
-    """float32 fused multiply-add: the exact float64 result rounded once."""
-    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
-            + np.asarray(c, np.float64)).astype(np.float32)
+    """float32 fused multiply-add, rounded once: the product is exact in
+    float64, the sum's rounding error is recovered (TwoSum), and where the
+    float64 sum lands on a tie between two float32 values that error's sign
+    breaks it."""
+    p = np.asarray(a, np.float64) * np.asarray(b, np.float64)
+    c = np.asarray(c, np.float64)
+    s = p + c
+    back = s - p
+    err = (p - (s - back)) + (c - back)
+    r = s.astype(np.float32)
+    off = s - r.astype(np.float64)
+    toward = np.nextafter(r, np.where(off > 0, np.float32(np.inf), np.float32(-np.inf)))
+    tie = (off != 0) & (2 * off == toward.astype(np.float64) - r) & (err != 0)
+    if tie.any():
+        s = np.where(tie, np.nextafter(s, np.where(err > 0, np.inf, -np.inf)), s)
+        r = s.astype(np.float32)
+    return r
 
 
 def _warp_sources(m: np.ndarray, h: int, w: int) -> tuple[np.ndarray, np.ndarray]:
@@ -535,3 +572,227 @@ def gaussian_blur_u8(img: np.ndarray, k: int, sigma: float) -> np.ndarray:
     p = np.pad(rows, [(a, a), (0, 0)] + rest, mode="reflect")
     out = sum(t * p[i:i + h] for i, t in enumerate(taps))
     return np.clip((out + (1 << 15)) >> 16, 0, 255).astype(np.uint8)
+
+
+# cv2's sine table (``drawing.cpp``, ``SinTable``): sin of each whole degree
+# 0-450 rounded to 7 decimals, as float32
+_SIN_TABLE = np.float32(np.round(np.sin(np.radians(np.arange(451))), 7)).astype(np.float64)
+_XY_ONE = 1 << _XY_SHIFT
+
+
+def _ellipse_vertices(center: tuple[int, int], axes: tuple[int, int]) -> list[tuple[int, int]]:
+    """``EllipseEx``'s polygon of a whole ellipse at angle 0, in 16-bit fixed
+    point: ``ellipse2Poly``'s points rounded half to even, repeats dropped."""
+    cx, cy = int(center[0]) << _XY_SHIFT, int(center[1]) << _XY_SHIFT
+    aw, ah = abs(int(axes[0])) << _XY_SHIFT, abs(int(axes[1])) << _XY_SHIFT
+    size = (max(aw, ah) + (_XY_ONE >> 1)) >> _XY_SHIFT
+    delta = 90 if size < 3 else 30 if size < 10 else 18 if size < 15 else 5
+    out: list[tuple[int, int]] = []
+    for i in range(0, 360 + delta, delta):
+        a = min(i, 360)
+        x, y = float(aw) * _SIN_TABLE[450 - a], float(ah) * _SIN_TABLE[a]
+        pt = []
+        for v in (float(cx) + x, float(cy) + y):
+            whole = int(np.rint(v / _XY_ONE)) << _XY_SHIFT
+            pt.append(whole + int(np.rint(v - whole)))
+        if not out or tuple(pt) != out[-1]:
+            out.append(tuple(pt))
+    return out if len(out) > 1 else [(cx, cy)] * 2
+
+
+def _c_div(a: int, b: int) -> int:
+    """C's integer division (truncation toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def _clip_line(w: int, h: int, p1, p2):
+    """cv2's ``clipLine`` of a fixed-point segment to [0, w - 1] x [0, h - 1]:
+    (inside, p1, p2)."""
+    right, bottom = w - 1, h - 1
+    (x1, y1), (x2, y2) = p1, p2
+    code = lambda x, y: (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1, c1 = a, (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2, c2 = a, (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1, c1 = a, 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2, c2 = a, 0
+    return (c1 | c2) == 0, (x1, y1), (x2, y2)
+
+
+def _line2(img: np.ndarray, p1, p2, value) -> None:
+    """cv2's ``Line2``: the 8-connected line between two 16-bit fixed-point
+    points, drawn in place."""
+    h, w = img.shape
+    inside, (x1, y1), (x2, y2) = _clip_line(w << _XY_SHIFT, h << _XY_SHIFT, p1, p2)
+    if not inside:
+        return
+    dx, dy = x2 - x1, y2 - y1
+    half = _XY_ONE >> 1
+    x_major = abs(dx) > abs(dy)
+    if dx < 0 if x_major else dy < 0:     # walk left to right (top to bottom)
+        (dx, dy), x1, x2, y1, y2 = (dx, -dy) if x_major else (-dx, dy), x2, x1, y2, y1
+    if x_major:
+        t = np.arange(((x2 - x1) >> _XY_SHIFT) + 1, dtype=np.int64)
+        xs = ((x1 + half) >> _XY_SHIFT) + t
+        ys = (y1 + half + t * _c_div(dy << _XY_SHIFT, abs(dx) | 1)) >> _XY_SHIFT
+    else:
+        t = np.arange(((y2 - y1) >> _XY_SHIFT) + 1, dtype=np.int64)
+        xs = (x1 + half + t * _c_div(dx << _XY_SHIFT, abs(dy) | 1)) >> _XY_SHIFT
+        ys = ((y1 + half) >> _XY_SHIFT) + t
+    # the far end is drawn first, then the walk
+    xs = np.append((x2 + half) >> _XY_SHIFT, xs)
+    ys = np.append((y2 + half) >> _XY_SHIFT, ys)
+    keep = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    img[ys[keep], xs[keep]] = value
+
+
+def _fill_convex_poly(img: np.ndarray, v: list[tuple[int, int]], value) -> None:
+    """cv2's ``FillConvexPoly`` of 16-bit fixed-point vertices (``LINE_8``)."""
+    h, w = img.shape
+    n, half = len(v), _XY_ONE >> 1
+    p0 = v[-1]
+    for p in v:
+        _line2(img, p0, p, value)
+        p0 = p
+    xs, ys = [p[0] for p in v], [p[1] for p in v]
+    imin = ys.index(min(ys))
+    xmin, xmax = (min(xs) + half) >> _XY_SHIFT, (max(xs) + half) >> _XY_SHIFT
+    ymin, ymax = (min(ys) + half) >> _XY_SHIFT, (max(ys) + half) >> _XY_SHIFT
+    if n < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
+        return
+    ymax = min(ymax, h - 1)
+    # the two edge chains from the top vertex: [index, step, x, dx, end row]
+    edge = [[imin, 1, -_XY_ONE, 0, ymin], [imin, n - 1, -_XY_ONE, 0, ymin]]
+    edges, y = n, ymin
+    while True:
+        for e in edge:
+            if y < e[4]:
+                continue
+            i0 = e[0]
+            i = (i0 + e[1]) % n
+            while edges > 0:
+                edges -= 1
+                ty = (v[i][1] + half) >> _XY_SHIFT
+                if ty > y:
+                    e[0], e[2], e[4] = i, v[i0][0], ty
+                    e[3] = _c_div((v[i][0] - v[i0][0]) * 2 + (ty - y), 2 * (ty - y))
+                    break
+                i0, i = i, (i + e[1]) % n
+            else:
+                edges -= 1
+        if edges < 0:
+            return
+        if y >= 0:
+            left, right = sorted((edge[0][2], edge[1][2]))
+            x1, x2 = (left + half) >> _XY_SHIFT, (right + half) >> _XY_SHIFT
+            if x2 >= 0 and x1 < w:
+                img[y, max(x1, 0):min(x2, w - 1) + 1] = value
+        edge[0][2] += edge[0][3]
+        edge[1][2] += edge[1][3]
+        y += 1
+        if y > ymax:
+            return
+
+
+def fill_ellipse(img: np.ndarray, center: tuple[int, int], axes: tuple[int, int],
+                 value: float) -> np.ndarray:
+    """Draw ``cv2.ellipse(img, center, axes, 0, 0, 360, value, -1)`` in place
+    on a float32 (H, W) image (see the module docstring)."""
+    if img.dtype != np.float32 or img.ndim != 2:
+        raise TypeError(f"fill_ellipse draws on float32 (H, W) images, not {img.dtype} "
+                        f"{img.shape}")
+    _fill_convex_poly(img, _ellipse_vertices(center, axes), np.float32(value))
+    return img
+
+
+# cv2's Gaussian kernels for sigma 0 (``getGaussianKernelBitExact``), the
+# centre tap and those after it
+_GAUSS_F32 = {3: (0.5, 0.25), 5: (0.375, 0.25, 0.0625),
+              7: (0.28125, 0.21875, 0.109375, 0.03125),
+              9: (60 / 256, 51 / 256, 30 / 256, 13 / 256, 4 / 256)}
+
+
+def _mul32(a, b) -> np.ndarray:
+    return np.multiply(a, np.float32(b), dtype=np.float32)
+
+
+def _add32(a, b) -> np.ndarray:
+    return np.add(a, b, dtype=np.float32)
+
+
+def _blur_rows(p: np.ndarray, k: int, w: int) -> np.ndarray:
+    """The row pass on ``p``, the image padded by ``k // 2`` columns."""
+    taps, a = _GAUSS_F32[k], k // 2
+    col = lambda o: p[:, a + o:a + o + w]
+    if k == 3:
+        return _fma32(col(0), taps[0], _mul32(_add32(col(-1), col(1)), taps[1]))
+    if k == 5:
+        pair1, pair2 = _add32(col(-1), col(1)), _add32(col(-2), col(2))
+        out = _fma32(pair2, taps[2], _fma32(col(0), taps[0], _mul32(pair1, taps[1])))
+        if (w % 8) % 2:      # the column after the vectors and the pairs
+            out[:, -1] = _add32(_add32(_mul32(col(0)[:, -1], taps[0]),
+                                       _mul32(pair1[:, -1], taps[1])),
+                                _mul32(pair2[:, -1], taps[2]))
+        return out
+    full = taps[:0:-1] + taps
+    fused_from = 4 * ((k - 1) // 4)
+    v = w // 4 * 4
+
+    def chain(lo: int, hi: int, scalar: bool) -> np.ndarray:
+        s = _mul32(p[:, lo:hi], full[0])
+        for i in range(1, k):
+            x = p[:, lo + i:hi + i]
+            s = (_add32(s, _mul32(x, full[i])) if scalar and i <= fused_from
+                 else _fma32(x, full[i], s))
+        return s
+    return np.concatenate([chain(0, v, False), chain(v, w, True)], axis=1)
+
+
+def _blur_cols(p: np.ndarray, k: int, h: int, w: int) -> np.ndarray:
+    """The column pass on ``p``, the row pass padded by ``k // 2`` rows."""
+    taps, a = _GAUSS_F32[k], k // 2
+    row = lambda o: p[a + o:a + o + h]
+    if k == 3:
+        return _fma32(_add32(row(-1), row(1)), taps[1], _mul32(row(0), taps[0]))
+    v = w // 8 * 8
+    fused = _mul32(row(0)[:, :v], taps[0])
+    rounded = _mul32(row(0)[:, v:], taps[0])
+    for i in range(1, a + 1):
+        pair = _add32(row(i), row(-i))
+        fused = _fma32(pair[:, :v], taps[i], fused)
+        rounded = _add32(rounded, _mul32(pair[:, v:], taps[i]))
+    return np.concatenate([fused, rounded], axis=1)
+
+
+def gaussian_blur_f32(img: np.ndarray, k: int) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (k, k), 0)`` of a float32 (H, W) image, k in 3,
+    5, 7, 9 (see the module docstring). As cv2, a single row or column is
+    blurred along its length only."""
+    if img.dtype != np.float32 or img.ndim != 2:
+        raise TypeError(f"gaussian_blur_f32 takes float32 (H, W) images, not {img.dtype} "
+                        f"{img.shape}")
+    if k not in _GAUSS_F32:
+        raise ValueError(f"gaussian_blur_f32 takes k in {sorted(_GAUSS_F32)}, not {k}")
+    h, w = img.shape
+    a = k // 2
+    out = img
+    if w > 1:
+        out = _blur_rows(np.pad(out, [(0, 0), (a, a)], mode="reflect"), k, w)
+    if h > 1:
+        out = _blur_cols(np.pad(out, [(a, a), (0, 0)], mode="reflect"), k, h, w)
+    return out.copy() if out is img else out

@@ -94,14 +94,14 @@ def compute_grads(model: nn.Module, batch: dict, generator: torch.Generator | No
 
 def check_rows(model: nn.Module, mode: str) -> None:
     """ValueError unless ``model``'s step runs row-sharded
-    (``parallel/space.py``): the flagship image step at ``model.remat none``
-    (``MaGGIe.check_rows``)."""
+    (``parallel/space.py``): the flagship image and video steps at
+    ``model.remat none`` (``MaGGIe.check_rows``)."""
     check = getattr(model, "check_rows", None)
     if check is None or mode != "none":
         what = f"model.remat {mode}" if check is not None else f"arch {type(model).__name__}"
         raise ValueError(f"row sharding (space {parallel.space_world()}) runs the MaGGIe image "
-                         f"train step with the block ladder and model.remat none; {what} is "
-                         f"not yet sharded")
+                         f"and video train steps with the block ladder and model.remat none; "
+                         f"{what} is not yet sharded")
     check()
 
 

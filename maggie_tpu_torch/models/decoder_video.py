@@ -33,6 +33,13 @@ that only ``loss_temporal_sparsity`` trains it; it is called 2 * (n_f - 1)
 times a step, forward pairs first, and each call steps its BatchNorm
 statistics and spectral norms from the state the call before left, the
 gradient flowing through that chain (``layers._SpectralNorm``).
+
+Row-sharded (``parallel/space.py``), the image decoder's split holds; the
+ConvGRU runs inside the replicated os8 attention on the shard's whole
+clips, the diff module replicated on the whole os8 maps (its BatchNorm
+statistics every rank's copies at the world's count), its change maps
+resized to the band's rows, and the blends and the temporal losses run on
+the band (the dtSSD's count over the equal bands of every rank).
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import torch
 import torch.nn as nn
 
 from .. import parallel
+from ..parallel import space
 from .conv_gru import ConvGRU
 from . import remat
 from .decoder_sparse import ResShortCutInstMattSpconvDec, TrainStep
@@ -82,8 +90,12 @@ class ResShortCutInstMattSpconvTempDec(ResShortCutInstMattSpconvDec):
         size = preds.shape[-2:]
 
         def diff(a, b_):
-            d = self.diff_module(torch.cat([a, b_], dim=1)).float()
-            return resize_bilinear(d, size, align_corners=False)
+            # row-sharded, the os8 features are the whole frame's (a
+            # replicated stage's), the alphas a band: the diff module runs
+            # replicated and its map is resized to the band's rows
+            with parallel.replicated():
+                d = self.diff_module(torch.cat([a, b_], dim=1)).float()
+            return space.resize_rows(d, size)
 
         fwd_diffs, fwd_preds = [], [preds[:, 0]]
         for i in range(1, n_f):

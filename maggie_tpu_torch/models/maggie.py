@@ -190,12 +190,17 @@ class MaGGIe(nn.Module):
 
     def check_rows(self) -> None:
         """ValueError unless this model's train step runs row-sharded
-        (``parallel/space.py``): the flagship image arch with the block
-        ladder, without remat. Other archs, the video step and eval are not
+        (``parallel/space.py``): the flagship image arch or the video arch
+        (``MaGGIeTemp``) with its own decoder and the block ladder, without
+        remat. Other archs and decoders, the oracle ladder and eval are not
         yet sharded."""
         from .decoder_sparse import ResShortCutInstMattSpconvDec
+        from .decoder_video import ResShortCutInstMattSpconvTempDec
+        from .maggie_temp import MaGGIeTemp
+        sharded = {MaGGIe: ResShortCutInstMattSpconvDec,
+                   MaGGIeTemp: ResShortCutInstMattSpconvTempDec}
         why = None
-        if type(self) is not MaGGIe or type(self.decoder) is not ResShortCutInstMattSpconvDec:
+        if sharded.get(type(self)) is not type(self.decoder):
             why = f"arch {type(self).__name__} with decoder {type(self.decoder).__name__}"
         elif self.decoder.sparse_mode != "block":
             why = f"the {self.decoder.sparse_mode!r} ladder"
@@ -205,8 +210,8 @@ class MaGGIe(nn.Module):
             why = "eval"
         if why is not None:
             raise ValueError(f"row sharding (space {parallel.space_world()}) runs the MaGGIe "
-                             f"image train step with the block ladder and model.remat none; "
-                             f"{why} is not yet sharded")
+                             f"image and video train steps with the block ladder and "
+                             f"model.remat none; {why} is not yet sharded")
 
     def _train_encode(self, inp: torch.Tensor):
         """Stage 1: the encoder's trunk output and its five shortcut features."""

@@ -6,7 +6,7 @@ The world is ``data x space``: global rank ``d * space + s`` holds band ``s``
 (whole 64-row ladder blocks at os1) of the frames of data shard ``d``
 (``shard_batch_2d``); a ``space`` group holds the bands of one shard
 (``init_groups``). GSPMD inserts the exchanges itself; here the flagship
-train step makes them by hand:
+image and video train steps make them by hand:
 
 - banded stages (the encoder's stem, first stage and its first three
   shortcuts, the os8 alpha at os1, K2, the ladder's gathers, scatters and
@@ -88,18 +88,17 @@ def shard_batch_2d(batch: dict, rank: int, world: int, space: int) -> dict:
     """Rank ``rank``'s part of ``batch``: its data shard's contiguous rows of
     the batch (``dist.shard_rows`` over ``world / space`` shards), then band
     ``rank % space`` of each frame's rows: dim 2 of ``image`` (b, n_f, H, W,
-    3), dim 3 of ``mask`` (b, n_f, n_i, H/8, W/8), ``alpha`` and
-    ``transition`` (b, n_f, n_i, H, W), as ``mesh.py:38-53`` places them."""
+    3), dim 3 of every other map (b, n_f, n_i, rows, W'), split into
+    ``space`` equal bands of whatever rows it has, as ``mesh.py:38-53``
+    places them."""
     rows = pdist.shard_rows(batch, rank // space, world // space)
-    h = batch["image"].shape[2]
-    check_rows(h, space)
+    check_rows(batch["image"].shape[2], space)
     s, out = rank % space, {}
     for k, v in rows.items():
         dim = 2 if k == "image" else 3
-        want = h // 8 if k == "mask" else h
-        if v.shape[dim] != want:
-            raise ValueError(f"{k}: {v.shape[dim]} rows where the frame of {h} rows has {want}")
-        n = want // space
+        if v.shape[dim] % space:
+            raise ValueError(f"{k}: {v.shape[dim]} rows do not split into {space} equal bands")
+        n = v.shape[dim] // space
         out[k] = v.narrow(dim, s * n, n)
     return out
 

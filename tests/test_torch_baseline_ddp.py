@@ -58,18 +58,13 @@ SM_HW = 256
 SM_SEED = 5
 
 
-def _cat(batches: list) -> dict:
-    return {k: np.concatenate([b[k] for b in batches]) for k in batches[0]}
-
-
 def _case(name: str) -> SimpleNamespace:
     """The config's JAX model and variables, the global batch (numpy), the
     port payload for the worker's ``run_step``, and the family's check."""
     if name == "mgm_tcvom":
         jcfg, jm, jv, tm, _ = tmgm.build_pair(name, head_scale=tmgm.TRAIN_HEAD_SCALE)
-        batch = _cat([{k: np.asarray(v) for k, v in
-                       tmgm.train_batch(seed, n_f=CLIP, slots=1, n_i=1)[0].items()}
-                      for seed in (0, 1)])
+        batch = {k: v.numpy() for k, v in tmgm.global_train_batch(
+            tmgm.TCVOM_SEEDS, n_f=CLIP, slots=1, n_i=1)[1].items()}
         keys = (tmgm.LOSS_KEYS + tuple(f"loss_dtSSD{s}" for s in ("", "_os1", "_os4", "_os8"))
                 + ("loss_atten", "total"))
         check = lambda js, jld, st, tld, g: tmgm.check_step(js, jld, st, tld, g, keys)
@@ -80,10 +75,7 @@ def _case(name: str) -> SimpleNamespace:
         check, widths, modes = tsm.check_train_step, None, ("none",)
     else:
         jcfg, jm, jv, tm, _ = tid.build_pair(seed=1, head_scale=tid.TRAIN_HEAD_SCALE)
-        # frame seed 5 beside 0: the two frames' os8 alphas lie 7.8e-7 or more
-        # from K2's thresholds (one torch thread; seeds 1-4 came within 2.1e-7)
-        batch = _cat([{k: np.asarray(v) for k, v in tmgm.train_batch(seed)[0].items()}
-                      for seed in (0, 5)])
+        batch = {k: v.numpy() for k, v in tmgm.global_train_batch(tmgm.DENSE_SEEDS)[1].items()}
         check, widths, modes = tid.check_train_step, _widths(2 * 10), ("none", "selective")
     # the worker takes the widths by call: the k=30 dilation's, then k=15's
     payload = dict(cfg=jcfg.to_dict(), state=tm.state_dict(), modes=list(modes), flags=FLAGS,
@@ -227,14 +219,17 @@ def test_world2_selective_equals_world2_plain(world2):
 
 def global_jax_step(c):
     """``jax_step`` on the global batch, SparseMat's emptied rows emptied:
-    (state after, loss dict)."""
+    (state after, loss dict). ``mgm_tcvom``'s and the dense decoder's are the
+    steps their family files and ``test_torch_baseline_remat.py`` compute
+    (``test_torch_mgm.global_train_batch``), under the same lock."""
     with pytest.MonkeyPatch.context() as mp:
         if c.name == "sparsemat_image":
             dilate = JaxSparseMat.dilate
             keep = np.ones((c.batch["image"].shape[0], 1, 1, 1), np.float32)
             keep[EMPTY_ROWS] = 0
             mp.setattr(JaxSparseMat, "dilate", lambda self, a: dilate(self, a) * keep)
-        return jax_step(c)
+            return jax_step(c)
+        return jax_step(c, lock=c.name)
 
 
 @pytest.mark.parametrize("name", ["mgm_tcvom", "sparsemat_image", "dense"])

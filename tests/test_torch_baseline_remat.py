@@ -4,9 +4,11 @@ with the dense decoder), ``configs/mgm_tcvom.yaml`` (``TCVOM_SingInst``),
 ``configs/sparsemat_image.yaml`` (``SparseMat_SingInst``) and the dense
 InstMatt decoder (``res_shortcut_inst_matt_22`` on the harness), at the
 sizes, weights and batches of their families' train-step tests
-(``test_torch_mgm.py``, ``test_torch_tcvom.py``: clip 4, so that two FAM
-passes chain each decoder spectral norm's power steps in one segment;
-``test_torch_sparsemat.py``; ``test_torch_inst_dense.py``).
+(``test_torch_mgm.py``, ``test_torch_tcvom.py``: two clips of 4, so that
+two FAM passes chain each decoder spectral norm's power steps in one
+segment; ``test_torch_sparsemat.py``; ``test_torch_inst_dense.py``: two
+frames; ``mgm_tcvom``'s and the dense decoder's batches are
+``tests/test_torch_baseline_ddp.py``'s global ones).
 
 For each config and mode:
 
@@ -90,7 +92,7 @@ def _case(name: str):
         if name == "mgm_stacked":
             jb, tb = tmgm.train_batch()
         else:
-            jb, tb = tmgm.train_batch(n_f=CLIP, slots=1, n_i=1)
+            jb, tb = tmgm.global_train_batch(tmgm.TCVOM_SEEDS, n_f=CLIP, slots=1, n_i=1)
             keys = keys[:-1] + tuple(f"loss_dtSSD{s}" for s in ("", "_os1", "_os4", "_os8")) + (
                 "loss_atten", "total")
         widths = _widths(int(np.prod(tb["alpha"].shape[:3])))
@@ -101,8 +103,8 @@ def _case(name: str):
         widths, check = None, tsm.check_train_step
     else:
         jcfg, jm, jv, tm, _ = tid.build_pair(seed=1, head_scale=tid.TRAIN_HEAD_SCALE)
-        jb, tb = tmgm.train_batch()
-        widths, check = _widths(10), tid.check_train_step
+        jb, tb = tmgm.global_train_batch(tmgm.DENSE_SEEDS)
+        widths, check = _widths(int(np.prod(tb["alpha"].shape[:3]))), tid.check_train_step
     return SimpleNamespace(name=name, jcfg=jcfg, jm=jm, jv=jv, jb=jb, model=tm,
                            pcfg=ConfigNode(jcfg.to_dict()), tb=tb, widths=widths, check=check,
                            steps={}, jax=None)

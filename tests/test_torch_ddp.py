@@ -292,8 +292,9 @@ def world2(weights, tmp_path_factory):
       of the step (``torch_ddp_worker._space_cases``) against one process
       on the whole tensors; ``space_image``, the step with dropout and
       random dilation on ``space_batch``; ``space_overflow``, that step at
-      a capacity that overflows (``space_overflow_cfg``); each against one
-      process; ``space_jax``,
+      a capacity that overflows (``space_overflow_cfg``); ``space_video``,
+      the video step on one clip (``space_video_payload``); each against
+      one process; ``space_jax``,
       ``tests/test_torch_train.py``'s frame (128 x 128, its widths, dropout
       off) against JAX's single-device step. (On ``space_batch`` the port's
       one-process step itself reads 4.2e-5 and 4.6e-5 off JAX's in the os8
@@ -318,6 +319,7 @@ def world2(weights, tmp_path_factory):
                                            batch=space_tb, space=WORLD)),
         "space_overflow": ("step", step_payload(weights, batch=space_batch(), space=WORLD,
                                                 cfg=space_overflow_cfg())),
+        "space_video": ("step", space_video_payload()),
     }
     wait = start_ranks("cases", {"cases": payloads}, tmp_path_factory.mktemp("ddp_world2"),
                        timeout=TIMEOUT_S * len(payloads))
@@ -328,7 +330,8 @@ def world2(weights, tmp_path_factory):
               "video": worker.run_step(payloads["video"][1]),
               "space_modules": worker.run_space_modules(payloads["space_modules"][1]),
               "space_image": worker.run_step(dict(payloads["space_image"][1], space=1)),
-              "space_overflow": worker.run_step(dict(payloads["space_overflow"][1], space=1))}
+              "space_overflow": worker.run_step(dict(payloads["space_overflow"][1], space=1)),
+              "space_video": worker.run_step(dict(payloads["space_video"][1], space=1))}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ttrain, "_WIDTHS", JAX_WIDTHS)
         mp.setattr(jmorph, "dilate_ellipse_random",
@@ -582,6 +585,37 @@ def video_payload() -> dict:
     return step_payload({"state": state}, batch=batch, cfg=cfg.to_dict())
 
 
+def space_clip(seed: int = 0, h: int = 128, w: int = 64) -> dict:
+    """``tests/test_torch_video_train.py::clip_batch``'s recipe on one clip of
+    3 frames at ``h`` x ``w``: soft discs moving a few pixels a frame in
+    slots 0 and 1 (slot 2 empty), masks the alphas above 0.5, the
+    transition GT ones on frame 0 and where a pixel changed by more than
+    0.02 after it."""
+    from test_torch_video_train import N_F, N_I
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    alpha = np.zeros((1, N_F, N_I, h, w), np.float32)
+    for j in range(N_I - 1):
+        cy, cx = rs.randint(16, h - 16), rs.randint(16, w - 16)
+        for t in range(N_F):
+            alpha[0, t, j] = np.clip((16 - np.hypot(yy - cy - t, xx - cx - 2 * t)) / 5, 0, 1)
+    changed = (np.abs(alpha[:, 1:] - alpha[:, :-1]) > 0.02).any(2, keepdims=True)
+    trans = np.concatenate([np.ones((1, 1, N_I, h, w), bool), changed.repeat(N_I, 2)], 1)
+    batch = {"image": rs.rand(1, N_F, h, w, 3).astype(np.float32),
+             "mask": (alpha > 0.5).astype(np.float32), "alpha": alpha,
+             "transition": trans.astype(np.float32)}
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def space_video_payload() -> dict:
+    """``video_payload``'s model (3 slots, ``bi_fusion``, dropout 0.1,
+    random dilation on, capacity 1) on one clip of 3 frames at 128 x 64
+    (``space_clip``), rows split ``1 x 2``: each rank a band of 64 rows,
+    one block row."""
+    payload = video_payload()
+    return dict(payload, batch=space_clip(), space=WORLD)
+
+
 @pytest.fixture(scope="module")
 def video_steps(world2):
     """The video step: world 2 (a clip a rank) and one process."""
@@ -755,6 +789,22 @@ def test_space_overflow_equals_one_process(space_steps):
     sel = single["none"]["selections"][0]
     assert sel["active"] > sel["cap"] == sel["kept"], sel
     print("space 1 x 2 overflow vs one process:", compare_to_single(ranks, single))
+
+
+def test_space_video_step_equals_one_process(world2):
+    """The video step (``video_payload``'s model: the ConvGRU, the diff
+    module's 4 calls, the temporal losses) row-sharded at ``1 x 2`` on one
+    clip of 3 frames at 128 x 64 (``space_video_payload``) against one
+    process on the whole clip at (a)'s limits: equal block selections (the
+    clip's whole frames'), both ranks bit-equal, the temporal terms among
+    the losses."""
+    ranks, single = world2["space_video"]
+    assert_ranks_equal(ranks)
+    _space_selections_equal(ranks, single)
+    assert "loss_temp" in single["none"]["losses"]
+    for sel in single["none"]["selections"]:
+        assert 0 < sel["active"] == sel["kept"] <= sel["cap"], sel
+    print("space 1 x 2 video vs one process:", compare_to_single(ranks, single))
 
 
 def test_ranks_that_disagree_on_the_flags_raise(weights, tmp_path):

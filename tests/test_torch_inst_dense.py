@@ -56,7 +56,8 @@ from maggie_tpu_torch.utils.convert_jax import _KeyMap, _layout, to_jax
 from test_torch_harness import (jax_cfg, jax_step_lock, jax_variables,  # noqa: F401
                                 one_torch_thread, port_cfg, port_from_flat, random_flat,
                                 shared_shapes)
-from test_torch_mgm import MARGIN, blob, k2_margins, same_widths, train_batch
+from test_torch_mgm import (DENSE_SEEDS, MARGIN, blob, global_train_batch, k2_margins,
+                            same_widths)
 from test_torch_train import (FLAGS, PARAM_ATOL, PARAM_FAR_SHARE, SN_ATOL, STATS_ATOL,
                               _check_grads, _flat, port_step_keeping_grads)
 from test_torch_video_train import _keeping_grads
@@ -204,8 +205,8 @@ def test_bf16_sends_f32_alphas_to_k2(pair):
 
 # ----------------------------------------------------------------- training
 def test_train_step_matches_jax():
-    """One step at 10 slots (3 instances) on a 128x128 frame from identical
-    variables, the fusion's random widths (k=30, then k=15) fed the same:
+    """One step at 10 slots (3 instances) on two 128x128 frames (the global
+    batch of ``tests/test_torch_baseline_ddp.py``) from identical variables, the fusion's random widths (k=30, then k=15) fed the same:
     every loss term, the gradients before the clip, and the parameters,
     BatchNorm statistics and spectral-norm u/v after the step. K2 runs once
     a step (``detail_mask``), on the os8 alpha of the valid slots.
@@ -218,8 +219,8 @@ def test_train_step_matches_jax():
     4.5e-5 on the same term; unscaled, an os8 alpha lay 6e-8 from a
     threshold)."""
     jcfg, jm, jv, tm, _ = build_pair(seed=1, head_scale=TRAIN_HEAD_SCALE)
-    jb, tb = train_batch()
-    widths = [np.random.RandomState(k).randint(1, k, 10) for k in (30, 15)]
+    jb, tb = global_train_batch(DENSE_SEEDS)
+    widths = [np.random.RandomState(k).randint(1, k, 20) for k in (30, 15)]
     tx = _keeping_grads(jax_build_optimizer(jcfg)[0])
     jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=jv["params"],
                            opt_state=jax.jit(tx.init)(jv["params"]), batch_stats=jv["batch_stats"],

@@ -347,6 +347,25 @@ def train_batch(seed: int = 0, n_f: int = 1, slots: int = 10, n_i: int = 3, hw: 
             {k: torch.from_numpy(v) for k, v in b.items()})
 
 
+# The baselines' global train batches: two clips (``mgm_tcvom``) or frames
+# (the dense InstMatt decoder), a rank each in tests/test_torch_baseline_ddp.py.
+# That file, the family files' train-step tests and
+# tests/test_torch_baseline_remat.py all step on them, so that each config's
+# JAX step is one computation, compiled once a run
+# (test_torch_harness.jax_step_lock). The dense decoder's frame seed 5 beside
+# 0: the two frames' os8 alphas lie 7.8e-7 or more from K2's thresholds (one
+# torch thread; seeds 1-4 came within 2.1e-7).
+TCVOM_SEEDS, DENSE_SEEDS = (0, 1), (0, 5)
+
+
+def global_train_batch(seeds, **kw):
+    """``train_batch`` of each of ``seeds`` (``kw`` its sizes), concatenated
+    on the batch dim: (JAX batch, port batch)."""
+    parts = [train_batch(seed, **kw)[1] for seed in seeds]
+    b = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    return {k: jnp.asarray(v.numpy()) for k, v in b.items()}, b
+
+
 def step_pair(name: str, jb, tb, widths):
     """One step of JAX ``make_train_step`` and of the port's from identical
     variables, the random widths fed the same. Returns (JAX state, JAX loss

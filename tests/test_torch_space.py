@@ -98,8 +98,8 @@ def _reduced(**decoder):
 def test_unsharded_archs_and_modes_raise(monkeypatch):
     """Under row sharding (space 2; the check runs before any collective),
     what is not yet sharded raises a ValueError naming it: another arch,
-    the dense oracle ladder, ``model.remat full`` and ``selective``, and
-    eval."""
+    the dense oracle ladder, ``model.remat full`` and ``selective`` (the
+    video arch's too), and eval."""
     monkeypatch.setattr(parallel.dist, "_space", 2)
     gen = torch.Generator()
     dummy = build_model(ConfigNode({"arch": "Dummy"}), device="cpu").train()
@@ -109,6 +109,10 @@ def test_unsharded_archs_and_modes_raise(monkeypatch):
     for mode in ("full", "selective"):
         with pytest.raises(ValueError, match=f"model.remat {mode} is not yet sharded"):
             ts.compute_grads(flagship, _batch(), gen, remat=mode)
+    from test_torch_video_train import train_video_cfg
+    video = build_model(ConfigNode(train_video_cfg().to_dict()).model, device="cpu").train()
+    with pytest.raises(ValueError, match="model.remat selective is not yet sharded"):
+        ts.compute_grads(video, _batch(), gen, remat="selective")
     oracle = build_model(_reduced(sparse_mode="oracle").model, device="cpu").train()
     with pytest.raises(ValueError, match="'oracle' ladder is not yet sharded"):
         ts.compute_grads(oracle, _batch(), gen)

@@ -48,7 +48,8 @@ from maggie_tpu_torch.models.tcvom import TCVOM
 from maggie_tpu_torch.utils.convert_jax import to_jax
 from test_torch_harness import one_torch_thread, port_from_flat  # noqa: F401
 from test_torch_mgm import (ATOL, LOSS_KEYS, MARGIN, assert_close, blob, build_pair,
-                            check_step, frames, k2_margins, step_pair, train_batch, yaml_path)
+                            TCVOM_SEEDS, check_step, frames, global_train_batch, k2_margins,
+                            step_pair, yaml_path)
 from test_torch_train import _flat
 
 RTOL = 1e-4
@@ -122,13 +123,14 @@ def test_eval_forward_matches_jax(name):
 
 
 def test_mgm_tcvom_train_step_matches_jax():
-    """``mgm_tcvom`` at ``dataset.train.max_inst`` 1, one clip of 4 frames:
-    the loss terms (``loss_atten`` and dtSSD among them), gradients, and the
-    state after the step; the decoder's ``layer1``/``layer2`` running
-    statistics stay where they were on both sides, its ``layer3`` ones move
-    (3 chained updates), and every spectral norm's u/v after its chain."""
-    jb, tb = train_batch(n_f=CLIP, slots=1, n_i=1)
-    widths = [np.random.RandomState(k).randint(1, k, CLIP) for k in (30, 15)]
+    """``mgm_tcvom`` at ``dataset.train.max_inst`` 1, two clips of 4 frames
+    (the global batch of ``tests/test_torch_baseline_ddp.py``): the loss
+    terms (``loss_atten`` and dtSSD among them), gradients, and the state
+    after the step; the decoder's ``layer1``/``layer2`` running statistics
+    stay where they were on both sides, its ``layer3`` ones move (3 chained
+    updates), and every spectral norm's u/v after its chain."""
+    jb, tb = global_train_batch(TCVOM_SEEDS, n_f=CLIP, slots=1, n_i=1)
+    widths = [np.random.RandomState(k).randint(1, k, 2 * CLIP) for k in (30, 15)]
     jstate, jld, state, tld, gm = step_pair("mgm_tcvom", jb, tb, widths)
     dt = tuple(f"loss_dtSSD{s}" for s in ("", "_os1", "_os4", "_os8"))
     check_step(jstate, jld, state, tld, gm, LOSS_KEYS + dt + ("loss_atten", "total"))
